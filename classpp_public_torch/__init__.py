@@ -1,0 +1,22 @@
+"""classpp_public_torch: the PyTorch/CUDA port of classpp_public_tpu.
+
+The same Einstein-Boltzmann pipeline (background -> thermodynamics ->
+perturbations -> primordial -> transfer -> spectra -> lensing) in float64
+PyTorch, with the line-of-sight transfer scan and the lensing Wigner
+recurrences as hand-written CUDA kernels for Hopper (csrc/). This slice
+covers flat LambdaCDM with massless neutrinos, RECFAST, synchronous gauge
+and adiabatic initial conditions.
+
+Importing the package builds nothing and starts nothing; the kernels are
+compiled at their first launch on a card.
+"""
+
+from .classy import Class, CosmoSevereError
+from .config.params import CosmoParams
+from .config.precision import PrecisionParams
+from .pipeline import Cosmology, OutputSelection
+
+__version__ = "0.1.0"
+
+__all__ = ["Class", "CosmoSevereError", "CosmoParams", "PrecisionParams", "Cosmology",
+           "OutputSelection", "__version__"]

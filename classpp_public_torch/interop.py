@@ -1,0 +1,104 @@
+"""Moving state across from the JAX package: parameter sets and stage
+results given as plain dicts and numpy arrays become the port's types, so a
+test can feed a torch stage exactly the input the JAX stage had.
+
+Nothing here imports JAX: the caller turns the JAX objects into dicts
+(NamedTuple._asdict(), dataclasses.asdict(), numpy.asarray) first. A
+UniformSpline is a dict with keys x0, dx, y, y2.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config.params import CosmoParams
+from .config.precision import PrecisionParams
+from .models.background import BackgroundResult, BgIdx
+from .models.perturbations.solve import PerturbResult
+from .models.spectra import SpectraResult
+from .models.thermodynamics import ThermoResult
+from .models.transfer import TransferResult
+from .ops.splines import UniformSpline
+
+
+def _t(a, device):
+    return torch.as_tensor(np.array(a, dtype=np.float64, order="C"),
+                           device=device)
+
+
+def _f(a):
+    return None if a is None else float(np.asarray(a))
+
+
+def cosmo_params(d: dict) -> CosmoParams:
+    """CosmoParams from the JAX CosmoParams fields."""
+    names = {f.name for f in dataclasses.fields(CosmoParams)}
+    return CosmoParams(**{k: v for k, v in d.items() if k in names})
+
+
+def precision_params(d: dict) -> PrecisionParams:
+    """PrecisionParams from the JAX PrecisionParams fields. Fields the port
+    does not have (the TPU launch knobs k_chunk_size and tau_windows, the
+    float32 rule perturb_dtype, knobs of stages not ported yet) are dropped."""
+    names = {f.name for f in dataclasses.fields(PrecisionParams)}
+    return PrecisionParams(**{k: v for k, v in d.items() if k in names})
+
+
+def spline(d: dict, device) -> UniformSpline:
+    return UniformSpline(float(np.asarray(d["x0"])), float(np.asarray(d["dx"])),
+                         _t(d["y"], device), _t(d["y2"], device))
+
+
+def background(d: dict, device, names=None) -> tuple:
+    """(BackgroundResult, BgIdx) from a JAX BackgroundResult dict. `names`
+    (the JAX BgIdx.names) reorders the table columns when given."""
+    idx = BgIdx()
+    cols = slice(None) if names is None else [list(names).index(n) for n in idx.names]
+    table = np.asarray(d["table"])[:, cols]
+    spl = d["lntau_spline"]
+    spl = dict(spl, y=np.asarray(spl["y"])[:, cols], y2=np.asarray(spl["y2"])[:, cols])
+    scalars = {k: _f(d[k]) for k in BackgroundResult._fields
+               if k not in ("loga", "tau_of_loga", "table", "lntau_spline") and k in d}
+    return BackgroundResult(loga=_t(d["loga"], device), tau_of_loga=_t(d["tau_of_loga"], device),
+                            table=_t(table, device), lntau_spline=spline(spl, device),
+                            **scalars), idx
+
+
+def thermo(d: dict, device) -> ThermoResult:
+    kw = {}
+    for k in ThermoResult._fields:
+        if k == "lntau_spline":
+            kw[k] = spline(d[k], device)
+        elif k in ("z_grid", "xe_of_z", "Tb_of_z", "cb2_of_z", "dkappa_of_z"):
+            kw[k] = _t(d[k], "cpu")
+        elif k in d:
+            kw[k] = _f(d[k])
+    return ThermoResult(**kw)
+
+
+def perturb(d: dict, device) -> PerturbResult:
+    k_np = np.asarray(d["k"], dtype=np.float64)
+    tau_np = np.asarray(d["tau"], dtype=np.float64)
+    return PerturbResult(k=_t(k_np, device), tau=_t(tau_np, device),
+                         sources=_t(d["sources"], device), tau0=_f(d["tau0"]),
+                         k_size_cmb=int(d["k_size_cmb"]),
+                         stats_steps=torch.as_tensor(np.array(d["stats_steps"]),
+                                                     device=device),
+                         k_np=k_np, tau_np=tau_np)
+
+
+def transfer(d: dict, device) -> TransferResult:
+    return TransferResult(l=torch.as_tensor(np.array(d["l"]), device=device),
+                          q=_t(d["q"], device), delta=_t(d["delta"], device),
+                          tau0=_f(d["tau0"]),
+                          k=None if d.get("k") is None else _t(d["k"], device))
+
+
+def spectra(d: dict, device) -> SpectraResult:
+    return SpectraResult(ell=torch.as_tensor(np.array(d["ell"]), device=device),
+                         cl=_t(d["cl"], device),
+                         l_list=torch.as_tensor(np.array(d["l_list"]), device=device),
+                         cl_list=_t(d["cl_list"], device))

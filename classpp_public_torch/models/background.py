@@ -1,0 +1,223 @@
+"""Background cosmology: flat LambdaCDM with massless neutrinos.
+
+Counterpart of classpp_public_tpu/models/background.py
+(`_compute_background_impl` :364, `tau_of_z` :944). Every density has a
+closed form on a fixed uniform ln(a) grid, the time-like integrals (tau, t,
+r_s) are exact cumulative spline integrals, and the growth factor is an RK4
+march. Runtime queries go through a uniform-in-ln(tau) respline.
+
+Placement: this stage runs on the host, always. It is a chain of small
+float64 vector ops plus a 4096-interval sequential RK4 march, which on a card
+would be kernel-launch latency and nothing else. The finished tables move to
+the requested device once, at the end.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import constants as const
+from ..config.params import CosmoParams, check_lcdm
+from ..config.precision import PrecisionParams
+from ..ops.ode import rk4_fixed
+from ..ops.splines import (UniformSpline, interp, spline_d2, spline_eval,
+                           spline_integrate)
+
+HOST = torch.device("cpu")
+
+
+class BgIdx:
+    """Column indices of the background runtime table (index_bg_*,
+    source/background_module.h:40-99), LambdaCDM + ur layout."""
+
+    def __init__(self):
+        self.key = (0, False, False, False, False, 0, 0)
+        self.names = ["a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm",
+                      "rho_lambda", "rho_ur", "rho_tot", "p_tot", "p_tot_prime",
+                      "rho_crit", "Omega_m", "Omega_r", "conf_distance",
+                      "ang_distance", "lum_distance", "time", "rs", "D", "f"]
+        self.ix = {n: i for i, n in enumerate(self.names)}
+        self.n = len(self.names)
+
+    def __getitem__(self, name):
+        return self.ix[name]
+
+
+class BackgroundResult(NamedTuple):
+    """All background tables (tensors on the stage's device) and derived
+    scalars (Python floats)."""
+
+    loga: torch.Tensor          # (N,) uniform grid of ln(a)
+    tau_of_loga: torch.Tensor   # (N,)
+    table: torch.Tensor         # (N, ncol) quantities on the loga grid
+    lntau_spline: UniformSpline  # uniform-in-ln(tau) respline, table columns
+    tau0: float
+    age: float
+    z_eq: float
+    tau_eq: float
+    a_today: float
+    H0: float
+    Omega0_m: float
+    Omega0_r: float
+    Omega0_g: float
+    Omega0_b: float
+    Omega0_cdm: float
+    Omega0_lambda: float
+    Omega0_ur: float
+    Omega0_ncdm_tot: float = 0.0
+
+    def to(self, device) -> "BackgroundResult":
+        return self._replace(loga=self.loga.to(device),
+                             tau_of_loga=self.tau_of_loga.to(device),
+                             table=self.table.to(device),
+                             lntau_spline=self.lntau_spline.to(device))
+
+
+def _scalar_spline(spl: UniformSpline):
+    """Host scalar evaluator of a UniformSpline (numpy rows): the growth
+    march calls it 32k times, where a tensor eval would cost ~15 ops each."""
+    y = spl.y.numpy()
+    y2 = spl.y2.numpy()
+    x0, dx, n = spl.x0, spl.dx, spl.n
+    h2 = dx * dx / 6.0
+
+    def ev(xq):
+        t = (xq - x0) / dx
+        i = min(max(int(math.floor(t)), 0), n - 2)
+        b = t - i
+        a = 1.0 - b
+        return a * y[i] + b * y[i + 1] + ((a**3 - a) * y2[i] + (b**3 - b) * y2[i + 1]) * h2
+
+    return ev
+
+
+def compute_background(params: CosmoParams, pr: PrecisionParams,
+                       device="cuda") -> tuple:
+    """Build all background tables on the host; return them on `device`."""
+    from ..pipeline import resolve_device
+
+    device = resolve_device(device)
+    check_lcdm(params)
+    bg, idx = _compute_background_impl(params, pr)
+    return bg.to(device), idx
+
+
+def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
+    N = pr.background_Nloga
+    f64 = torch.float64
+    H0 = params.H0
+    h2 = params.h * params.h
+
+    a_ini = pr.a_ini_over_a_today_default
+    loga = torch.linspace(math.log(a_ini), 0.0, N, dtype=f64)
+    a = torch.exp(loga)
+
+    rho_g0 = const.rho_gamma_class_units(params.T_cmb)
+    Omega0_g = rho_g0 / H0**2
+    Omega0_b = params.omega_b / h2
+    Omega0_cdm = params.omega_cdm / h2
+    Omega0_ur = params.N_ur * const.ur_over_g_factor * Omega0_g
+
+    rho_g = rho_g0 / a**4
+    rho_b = Omega0_b * H0**2 / a**3
+    rho_cdm = Omega0_cdm * H0**2 / a**3
+    rho_ur = Omega0_ur * H0**2 / a**4
+
+    Omega0_others = Omega0_g + Omega0_b + Omega0_cdm + Omega0_ur
+    Omega0_lambda = 1.0 - params.Omega_k - Omega0_others
+    rho_lambda = torch.full_like(a, Omega0_lambda * H0**2)
+
+    rho_tot = rho_g + rho_b + rho_cdm + rho_ur + rho_lambda
+    p_tot = (rho_g + rho_ur) / 3.0 - rho_lambda
+    rho_crit = rho_tot
+    H = torch.sqrt(rho_crit)
+    aH = a * H
+    H_prime = -1.5 * a * (rho_tot + p_tot)
+    p_tot_prime = -(4.0 / 3.0) * aH * (rho_g + rho_ur)
+
+    # --- time-like integrals on the loga grid
+    inv_aH = 1.0 / aH
+    tau_ini = float(1.0 / aH[0])
+    tau = tau_ini + spline_integrate(loga, inv_aH, spline_d2(loga, inv_aH))
+    tau0 = float(tau[-1])
+    inv_H = 1.0 / H
+    t = 0.5 / float(H[0]) + spline_integrate(loga, inv_H, spline_d2(loga, inv_H))
+    age = float(t[-1]) / const.Gyr_over_Mpc
+    cs = 1.0 / torch.sqrt(3.0 * (1.0 + 3.0 * rho_b / (4.0 * rho_g)))
+    integrand_rs = cs * inv_aH
+    rs = float(cs[0]) * tau_ini + spline_integrate(loga, integrand_rs,
+                                                   spline_d2(loga, integrand_rs))
+    chi = tau0 - tau
+    ang_distance = chi * a
+    lum_distance = chi / a
+
+    # --- growth factor (background_module.cpp:1975-1983): host RK4 march
+    rho_m = rho_b + rho_cdm
+    dloga = float(loga[1] - loga[0])
+    rho_m_spl = _scalar_spline(UniformSpline.build(
+        float(loga[0]), dloga, torch.stack([rho_m, a, H], dim=1)))
+
+    def growth_rhs(lga, y, _):
+        rm, aa, hh = rho_m_spl(lga)
+        D, Dp = y
+        inv = 1.0 / (aa * hh)
+        return np.array([Dp * inv, (-aa * hh * Dp + 1.5 * aa * aa * rm * D) * inv])
+
+    a0, aH0 = float(a[0]), float(aH[0])
+    Dys = torch.from_numpy(rk4_fixed(growth_rhs, np.array([a0, a0 * 2.0 * aH0]),
+                                     loga.numpy(), None, substeps=2))
+    D = Dys[:, 0] / Dys[-1, 0]
+    f = Dys[:, 1] / (Dys[:, 0] * aH)
+
+    # --- z_eq (radiation-matter equality)
+    rho_r_tot = rho_g + rho_ur
+    rho_m_tot = rho_b + rho_cdm
+    ratio = torch.log(rho_r_tot / rho_m_tot)
+    i_eq = int(torch.argmin(torch.abs(ratio)))
+    sl = (ratio[i_eq + 1] - ratio[i_eq - 1]) / (loga[i_eq + 1] - loga[i_eq - 1])
+    loga_eq = loga[i_eq] - ratio[i_eq] / sl
+    z_eq = float(torch.exp(-loga_eq) - 1.0)
+    tau_eq = float(interp(loga_eq, loga, tau))
+
+    idx = BgIdx()
+    cols = {
+        "a": a, "H": H, "H_prime": H_prime,
+        "rho_g": rho_g, "rho_b": rho_b, "rho_cdm": rho_cdm,
+        "rho_lambda": rho_lambda, "rho_ur": rho_ur,
+        "rho_tot": rho_tot, "p_tot": p_tot, "p_tot_prime": p_tot_prime,
+        "rho_crit": rho_crit, "Omega_m": rho_m_tot / rho_crit,
+        "Omega_r": rho_r_tot / rho_crit,
+        "conf_distance": chi, "ang_distance": ang_distance,
+        "lum_distance": lum_distance,
+        "time": t / const.Gyr_over_Mpc, "rs": rs, "D": D, "f": f,
+    }
+    table = torch.stack([cols[n] for n in idx.names], dim=1)
+
+    # --- uniform ln(tau) respline for runtime queries
+    lntau = torch.log(tau)
+    n_rt = 8192
+    lntau_u = torch.linspace(float(lntau[0]), float(lntau[-1]), n_rt, dtype=f64)
+    loga_u = spline_eval(lntau, loga, spline_d2(lntau, loga), lntau_u)
+    loga_u[0] = loga[0]
+    loga_u[-1] = loga[-1]
+    table_u = spline_eval(loga, table, spline_d2(loga, table), loga_u)
+    lntau_spline = UniformSpline.build(float(lntau_u[0]),
+                                       float(lntau_u[1] - lntau_u[0]), table_u)
+
+    res = BackgroundResult(
+        loga=loga, tau_of_loga=tau, table=table, lntau_spline=lntau_spline,
+        tau0=tau0, age=age, z_eq=z_eq, tau_eq=tau_eq, a_today=1.0, H0=H0,
+        Omega0_m=Omega0_b + Omega0_cdm, Omega0_r=Omega0_g + Omega0_ur,
+        Omega0_g=Omega0_g, Omega0_b=Omega0_b, Omega0_cdm=Omega0_cdm,
+        Omega0_lambda=Omega0_lambda, Omega0_ur=Omega0_ur)
+    return res, idx
+
+
+def tau_of_z(bg: BackgroundResult, z):
+    """Conformal time at redshift z (background_tau_of_z, :211)."""
+    loga_q = -torch.log1p(torch.as_tensor(z, dtype=bg.loga.dtype, device=bg.loga.device))
+    return interp(loga_q, bg.loga, bg.tau_of_loga)

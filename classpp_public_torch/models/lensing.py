@@ -1,0 +1,247 @@
+"""Lensed CMB spectra by the correlation-function method (Challinor & Lewis
+2005), counterpart of classpp_public_tpu/models/lensing.py (`_wigner_seed`
+:38, `_wigner_coeffs` :48, `compute_lensing` :84, `_lensing_impl` :94-284).
+
+Twelve Wigner d^l_{m m'} three-term recurrences run over l on a mu grid in
+three passes: (1) the deflection correlations Cgl, Cgl2; (2) the lensed
+correlation functions ksi, ksiX, ksi+-; (3) the projection back to C_l. On a
+CUDA tensor the passes are the hand-written kernel csrc/lensing_wigner.cu
+(`lensing_wigner`); on a CPU tensor the plain version `lensing_wigner_plain`.
+Default is the reference's fast mode: Riemann sum on theta in [0, pi/16] of
+the correlation *difference*, plus the unlensed add-back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config.precision import PrecisionParams
+from ..ops import cuda
+from ..ops.quadrature import gauss_legendre
+from .spectra import CT_TYPES, SpectraResult
+
+PAIRS = [(0, 0), (1, 1), (1, -1), (2, -2), (2, 0), (3, -1), (4, -2),
+         (2, 2), (3, 1), (3, -3), (4, 0), (4, -4)]
+_P = {p: i for i, p in enumerate(PAIRS)}
+CUDA_THREADS = 128   # mu values per block of the kernel (csrc/lensing_wigner.cu)
+
+# launches of the CUDA kernel (incremented only where it is launched)
+launches = 0
+
+
+def wigner_seed(m, mp, mu):
+    """d^{l0}_{m mp}(mu) at l0 = m (m >= |mp|; every pair here has even m - mp)."""
+    c2 = (1.0 + mu) / 2.0
+    s2 = (1.0 - mu) / 2.0
+    return math.sqrt(math.comb(2 * m, m - mp)) * c2 ** ((m + mp) / 2.0) * s2 ** ((m - mp) / 2.0)
+
+
+def wigner_coeffs(m, mp, lmax):
+    """B_l and m mp/(l(l+1)) of the recurrence
+    B_{l+1} d^{l+1} = (2l+1)(mu - m mp/(l(l+1))) d^l - B_l d^{l-1}."""
+    l = np.arange(0, lmax + 2, dtype=np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        B = np.sqrt(np.maximum(l**2 - m**2, 0.0)) * np.sqrt(np.maximum(l**2 - mp**2, 0.0)) \
+            / np.maximum(l, 1)
+        shift = np.where(l > 0, m * mp / np.maximum(l * (l + 1), 1e-300), 0.0)
+    return B, shift
+
+
+def mu_grid(l_unlensed_max: int, accurate: bool, num_mu_minus_lmax: int):
+    """(mu, w8) float64 numpy: Gauss-Legendre (accurate) or the fast mode's
+    theta Riemann grid on [0, pi/16]."""
+    if accurate:
+        num_mu = l_unlensed_max + num_mu_minus_lmax
+        num_mu += num_mu % 2
+        return gauss_legendre(num_mu - 1)
+    num_mu = (l_unlensed_max * 2) // 16
+    dtheta = math.pi / 16.0 / (num_mu - 1)
+    theta = (np.arange(num_mu - 1) + 1) * dtheta
+    return np.cos(theta), np.sin(theta) * dtheta
+
+
+class LensedResult(NamedTuple):
+    ell: torch.Tensor
+    cl: torch.Tensor          # (nl, nct) lensed C_l; pp/tp/ep unlensed copies
+
+
+def _tables(cl_of_l: torch.Tensor):
+    """Per-l tables shared by both versions: w_pp (lmax+1,), the X-function
+    square roots sq1..sq5 (5, lmax+1), recurrence B and shift (12, lmax+2)."""
+    lmax = cl_of_l.shape[0] - 1
+    dev, f64 = cl_of_l.device, torch.float64
+    ls = torch.arange(0, lmax + 1, dtype=f64, device=dev)
+    w_pp = (2.0 * ls + 1.0) * ls * (ls + 1.0) * cl_of_l[:, CT_TYPES.index("pp")] / (4.0 * math.pi)
+    z = torch.zeros_like(ls)
+    sq = torch.stack([
+        torch.sqrt((ls + 2) * (ls + 1) * ls * torch.maximum(ls - 1, z)),
+        torch.sqrt(torch.maximum((ls + 2) * (ls - 1), z)),
+        torch.sqrt(torch.maximum((ls + 3) * (ls - 2), z)),
+        torch.sqrt(torch.maximum((ls + 4) * (ls + 3) * (ls - 2) * (ls - 3), z)),
+        torch.sqrt(ls * (ls + 1))])
+    co = [wigner_coeffs(m, mp, lmax) for m, mp in PAIRS]
+    B = torch.as_tensor(np.stack([c[0] for c in co]), dtype=f64, device=dev)
+    S = torch.as_tensor(np.stack([c[1] for c in co]), dtype=f64, device=dev)
+    return w_pp, sq, B, S
+
+
+def _seeds(mu: torch.Tensor) -> torch.Tensor:
+    return torch.stack([wigner_seed(m, mp, mu) for m, mp in PAIRS])
+
+
+def lensing_wigner_plain(cl_of_l, mu, w8, l_lensed_max: int, fast: bool = True):
+    """Plain version of the three passes (_lensing_impl :116-284): Python
+    loops over l on mu-vectors. cl_of_l: (lmax+1, 7) unlensed C_l from l = 0
+    (rows 0, 1 zero), CT_TYPES columns. Returns (l_lensed_max - 1, 7)."""
+    lmax = cl_of_l.shape[0] - 1
+    ct = {n: i for i, n in enumerate(CT_TYPES)}
+    cl = cl_of_l.cpu().numpy()
+    w_pp, sq, Bt, St = _tables(cl_of_l)
+    Bn, Sn = Bt.cpu().numpy(), St.cpu().numpy()
+    sqn = sq.cpu().numpy()
+    seeds = _seeds(mu)
+    zero = torch.zeros_like(mu)
+
+    def step(p, dl, dlm1, l):
+        B = Bn[p, l + 1]
+        if not B > 0:
+            return zero
+        return ((2.0 * l + 1.0) * (mu - Sn[p, l]) * dl - Bn[p, l] * dlm1) / max(B, 1e-300)
+
+    # pass 1: Cgl, Cgl2 (d11 and d1-1 from l = 1)
+    i11, i1m1 = _P[(1, 1)], _P[(1, -1)]
+    d11, d11m, d1m1, d1m1m = seeds[i11], zero, seeds[i1m1], zero
+    Cgl = zero
+    Cgl2 = zero
+    wpp = w_pp.cpu().numpy()
+    for l in range(1, lmax + 1):
+        if l >= 2:
+            Cgl = Cgl + wpp[l] * d11
+            Cgl2 = Cgl2 + wpp[l] * d1m1
+        d11, d11m = step(i11, d11, d11m, l), d11
+        d1m1, d1m1m = step(i1m1, d1m1, d1m1m, l), d1m1
+    sigma2 = float(w_pp[2:].sum()) - Cgl
+
+    # pass 2: ksi, ksiX, ksi+, ksi- (all twelve pairs from l = 0)
+    d = [torch.ones_like(mu) if m == 0 else zero for m, _ in PAIRS]
+    dm = [zero] * len(PAIRS)
+    ksi = ksiX = ksip = ksim = zero
+    for l in range(0, lmax + 1):
+        for p, (m, _) in enumerate(PAIRS):
+            if l == m:
+                d[p] = seeds[p]
+        if l >= 2:
+            lf = float(l)
+            fac = lf * (lf + 1.0) / 4.0
+            fac1 = (2.0 * lf + 1.0) / (4.0 * math.pi)
+            X000 = torch.exp(-fac * sigma2)
+            Xp000 = -fac * X000
+            X220 = 0.25 * sqn[0, l] * X000
+            X022 = X000 * (1.0 + sigma2 * (1.0 + 0.5 * sigma2))
+            Xp022 = -(fac - 1.0) * X022
+            X242 = 0.25 * sqn[3, l] * X000
+            X121 = -0.5 * sqn[1, l] * X000 * (1.0 + 2.0 / 3.0 * sigma2)
+            X132 = -0.5 * sqn[2, l] * X000 * (1.0 + 5.0 / 3.0 * sigma2)
+            d00, d11, d1m1, d2m2, d20, d3m1, d4m2, d22, d31, d3m3, d40, d4m4 = d
+            lens_tt = (X000 * X000 * d00
+                       + Xp000 * Xp000 * d1m1 * Cgl2 * 8.0 / max(lf * (lf + 1.0), 1e-300)
+                       + (Xp000 * Xp000 * d00 + X220 * X220 * d2m2) * Cgl2 * Cgl2)
+            lens_te = (X022 * X000 * d20
+                       + Cgl2 * 2.0 * Xp000 / max(sqn[4, l], 1e-300) * (X121 * d11 + X132 * d3m1)
+                       + 0.5 * Cgl2 * Cgl2 * ((2.0 * Xp022 * Xp000 + X220 * X220) * d20
+                                              + X220 * X242 * d4m2))
+            lens_p = (X022 * X022 * d22 + 2.0 * Cgl2 * X132 * X121 * d31
+                      + Cgl2 * Cgl2 * (Xp022 * Xp022 * d22 + X242 * X220 * d40))
+            lens_m = (X022 * X022 * d2m2 + Cgl2 * (X121 * X121 * d1m1 + X132 * X132 * d3m3)
+                      + 0.5 * Cgl2 * Cgl2 * (2.0 * Xp022 * Xp022 * d2m2 + X220 * X220 * d00
+                                             + X242 * X242 * d4m4))
+            if fast:
+                lens_tt = lens_tt - d00
+                lens_te = lens_te - d20
+                lens_p = lens_p - d22
+                lens_m = lens_m - d2m2
+            ksi = ksi + fac1 * cl[l, ct["tt"]] * lens_tt
+            ksiX = ksiX + fac1 * cl[l, ct["te"]] * lens_te
+            ksip = ksip + fac1 * (cl[l, ct["ee"]] + cl[l, ct["bb"]]) * lens_p
+            ksim = ksim + fac1 * (cl[l, ct["ee"]] - cl[l, ct["bb"]]) * lens_m
+        new = [step(p, d[p], dm[p], l) for p in range(len(PAIRS))]
+        dm, d = d, new
+
+    # pass 3: C_l = 2 pi sum_mu w8 ksi d (the four pairs it needs)
+    use = [_P[(0, 0)], _P[(2, 0)], _P[(2, 2)], _P[(2, -2)]]
+    d = {p: (torch.ones_like(mu) if PAIRS[p][0] == 0 else zero) for p in use}
+    dm = {p: zero for p in use}
+    rows = []
+    for l in range(0, l_lensed_max + 1):
+        for p in use:
+            if l == PAIRS[p][0]:
+                d[p] = seeds[p]
+        if l >= 2:
+            d00, d20, d22, d2m2 = (d[p] for p in use)
+            rows.append(torch.stack([
+                2.0 * math.pi * torch.sum(ksi * d00 * w8),
+                2.0 * math.pi * torch.sum(0.5 * (ksip * d22 + ksim * d2m2) * w8),
+                2.0 * math.pi * torch.sum(ksiX * d20 * w8),
+                2.0 * math.pi * torch.sum(0.5 * (ksip * d22 - ksim * d2m2) * w8)]))
+        new = {p: step(p, d[p], dm[p], l) for p in use}
+        dm, d = d, new
+    cls = torch.stack(rows)                     # (n, 4): tt, ee, te, bb
+    raw = cl_of_l[2: l_lensed_max + 1]
+    if fast:
+        cls = cls + raw[:, [ct["tt"], ct["ee"], ct["te"], ct["bb"]]]
+    out = raw.clone()
+    out[:, ct["tt"]], out[:, ct["ee"]] = cls[:, 0], cls[:, 1]
+    out[:, ct["te"]], out[:, ct["bb"]] = cls[:, 2], cls[:, 3]
+    return out
+
+
+def lensing_wigner(cl_of_l: torch.Tensor, mu: torch.Tensor, w8: torch.Tensor,
+                   l_lensed_max: int, fast: bool = True) -> torch.Tensor:
+    """Lensed (l_lensed_max - 1, 7) table in CT_TYPES order: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    global launches
+    if cl_of_l.device.type == "cpu":
+        return lensing_wigner_plain(cl_of_l, mu, w8, l_lensed_max, fast)
+    if cl_of_l.device.type != "cuda":
+        raise ValueError(f"lensing_wigner: unsupported device {cl_of_l.device}")
+    lmax = cl_of_l.shape[0] - 1
+    nmu = mu.shape[0]
+    if cl_of_l.shape != (lmax + 1, len(CT_TYPES)) or w8.shape != (nmu,):
+        raise ValueError(f"lensing_wigner: bad shapes cl{tuple(cl_of_l.shape)} "
+                         f"mu{tuple(mu.shape)} w8{tuple(w8.shape)}")
+    if not 2 <= l_lensed_max <= lmax:
+        raise ValueError(f"lensing_wigner: l_lensed_max {l_lensed_max} outside [2, {lmax}]")
+    for name, t in (("cl", cl_of_l), ("mu", mu), ("w8", w8)):
+        if t.dtype != torch.float64 or not t.is_contiguous() or t.device != cl_of_l.device:
+            raise ValueError(f"lensing_wigner: {name} must be contiguous float64 on "
+                             f"{cl_of_l.device}")
+    lib = cuda.library()
+    w_pp, sq, B, S = (t.contiguous() for t in _tables(cl_of_l))
+    seeds = _seeds(mu).contiguous()
+    nblocks = -(-nmu // CUDA_THREADS)
+    partial = torch.empty((nblocks, l_lensed_max + 1, 4), dtype=torch.float64,
+                          device=cl_of_l.device)
+    out = torch.empty((l_lensed_max - 1, len(CT_TYPES)), dtype=torch.float64,
+                      device=cl_of_l.device)
+    err = lib.lensing_wigner_launch(
+        cl_of_l.data_ptr(), w_pp.data_ptr(), sq.data_ptr(), mu.data_ptr(), w8.data_ptr(),
+        B.data_ptr(), S.data_ptr(), seeds.data_ptr(), nmu, lmax, l_lensed_max, int(fast),
+        partial.data_ptr(), out.data_ptr(), cuda.stream_ptr(cl_of_l.device))
+    cuda.check(err, "lensing_wigner")
+    launches += 1
+    return out
+
+
+def compute_lensing(sp: SpectraResult, pr: PrecisionParams, l_lensed_max: int) -> LensedResult:
+    dev = sp.cl.device
+    l_unlensed_max = sp.ell.shape[0] + 1
+    cl_of_l = torch.cat([torch.zeros((2, sp.cl.shape[1]), dtype=sp.cl.dtype, device=dev),
+                         sp.cl]).contiguous()
+    mu, w8 = (torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)
+              for a in mu_grid(l_unlensed_max, pr.accurate_lensing, pr.num_mu_minus_lmax))
+    out = lensing_wigner(cl_of_l, mu, w8, l_lensed_max, fast=not pr.accurate_lensing)
+    return LensedResult(ell=torch.arange(2, l_lensed_max + 1, device=dev), cl=out)

@@ -1,0 +1,440 @@
+"""Scalar perturbation equations, batched over lanes: RHS, the stiff
+(Thomson) split, adiabatic initial conditions, approximation remaps and the
+source functions.
+
+Counterpart of classpp_public_tpu/models/perturbations/equations.py
+(`PertCtx` :134, `rhs_full` :225, `stiff_apply` :1017, `stiff_solve` :1057,
+`adiabatic_ic` :1109, `remap_tca_off` :1421, `remap_ufa_on` :1448,
+`remap_rsa_on` :1482, `compute_sources` :1501), restricted to the flat
+synchronous-gauge LambdaCDM branches: photons, polarization, baryons, cdm,
+massless neutrinos and the metric. In a flat universe the curvature factors
+s_l are exactly 1 and are left out.
+
+Every function takes the state as (L, n): one row per lane (k mode), each
+with its own time, wavenumber and approximation flags. The tables are read
+once per stage time through `frame_at`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..thermodynamics import ThIdx
+from .indices import PtIdx, SrcIdx
+
+# table columns read by the equations, in Frame order
+BG_COLS = ("a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm", "rho_ur",
+           "rho_tot", "p_tot", "p_tot_prime")
+TH_COLS = ("dkappa", "ddkappa", "g", "dg", "exp_m_kappa", "cb2")
+
+
+class PertTables(NamedTuple):
+    """Background and thermodynamics runtime splines restricted to the
+    columns the equations read (BG_COLS, TH_COLS). Column-wise splines, so
+    restricting the columns is exact."""
+
+    bg: object    # UniformSpline over ln(tau)
+    th: object    # UniformSpline over ln(tau)
+    idx: PtIdx
+
+
+class Frame(NamedTuple):
+    """Table values at one time per lane."""
+
+    tau: torch.Tensor
+    a: torch.Tensor
+    H: torch.Tensor
+    Hp: torch.Tensor
+    rho_g: torch.Tensor
+    rho_b: torch.Tensor
+    rho_cdm: torch.Tensor
+    rho_ur: torch.Tensor
+    rho_tot: torch.Tensor
+    p_tot: torch.Tensor
+    p_tot_prime: torch.Tensor
+    kap: torch.Tensor
+    kapp: torch.Tensor
+    g: torch.Tensor
+    dg: torch.Tensor
+    emk: torch.Tensor
+    cb2: torch.Tensor
+
+
+def make_tables(bg, bidx, th, idx: PtIdx) -> PertTables:
+    """Restrict the runtime splines to BG_COLS / TH_COLS."""
+    bi = [bidx[n] for n in BG_COLS]
+    ti = [ThIdx.ix[n] for n in TH_COLS]
+    b, t = bg.lntau_spline, th.lntau_spline
+    return PertTables(
+        bg=b._replace(y=b.y[:, bi].contiguous(), y2=b.y2[:, bi].contiguous()),
+        th=t._replace(y=t.y[:, ti].contiguous(), y2=t.y2[:, ti].contiguous()),
+        idx=idx)
+
+
+def frame_at(tau: torch.Tensor, tables: PertTables) -> Frame:
+    lntau = torch.log(tau)
+    bgv = tables.bg.eval(lntau).unbind(-1)
+    thv = tables.th.eval(lntau).unbind(-1)
+    return Frame(tau, *bgv, *thv)
+
+
+class PertCtx(NamedTuple):
+    """Per-lane data fixed during one step: wavenumber, approximation flags
+    at the step's start time, and the eta storage offset (low-k adiabatic
+    lanes store eta - 1 so its deviation keeps full relative precision)."""
+
+    k: torch.Tensor
+    tca_on: torch.Tensor   # bool
+    rsa_on: torch.Tensor
+    ufa_on: torch.Tensor
+    eta_off: torch.Tensor
+    tables: PertTables
+
+
+def _w(cond, a, b):
+    return torch.where(cond, a, b)
+
+
+def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
+    """dy/dtau (L, n) plus the local quantities the sources need."""
+    idx = ctx.tables.idx
+    k = ctx.k
+    k2 = k * k
+    tau = fr.tau
+    a, H, Hp = fr.a, fr.H, fr.Hp
+    rho_g, rho_b, rho_cdm, rho_ur = fr.rho_g, fr.rho_b, fr.rho_cdm, fr.rho_ur
+    kap, kapp, cb2 = fr.kap, fr.kapp, fr.cb2
+    a2 = a * a
+    aH = a * H
+    app_a = Hp * a + 2.0 * aH * aH
+    aH_prime = Hp * a + aH * aH
+    R = 4.0 / 3.0 * rho_g / rho_b
+    cotKgen = 1.0 / (k * tau)
+    tca, rsa, ufa = ctx.tca_on, ctx.rsa_on, ctx.ufa_on
+    zero = torch.zeros_like(k)
+
+    delta_g = y[:, idx.delta_g]
+    theta_g = y[:, idx.theta_g]
+    shear_g = y[:, idx.shear_g]
+    F_g = y[:, idx.F_g: idx.F_g + idx.n_F_g]
+    G = y[:, idx.G_g: idx.G_g + idx.n_G_g]
+    delta_b = y[:, idx.delta_b]
+    theta_b = y[:, idx.theta_b]
+    delta_cdm = y[:, idx.delta_cdm]
+    delta_ur = y[:, idx.delta_ur]
+    theta_ur = y[:, idx.theta_ur]
+    shear_ur = y[:, idx.shear_ur]
+    F_ur = y[:, idx.F_ur: idx.F_ur + idx.n_F_ur]
+    eta = y[:, idx.eta] + ctx.eta_off
+
+    # effective photon/ur variables in the Einstein sums
+    # (perturb_total_stress_energy :6107-6170)
+    d_g = _w(rsa, zero, delta_g)
+    t_g = _w(rsa, zero, theta_g)
+    s_g = _w(rsa | tca, zero, shear_g)
+    d_ur = _w(rsa, zero, delta_ur)
+    t_ur = _w(rsa, zero, theta_ur)
+    s_ur = _w(rsa, zero, shear_ur)
+    delta_rho = rho_g * d_g + rho_b * delta_b + rho_cdm * delta_cdm + rho_ur * d_ur
+    rho_plus_p_theta = 4.0 / 3.0 * rho_g * t_g + rho_b * theta_b + 4.0 / 3.0 * rho_ur * t_ur
+    rho_plus_p_shear = 4.0 / 3.0 * rho_g * s_g + 4.0 / 3.0 * rho_ur * s_ur
+    delta_p = 1.0 / 3.0 * rho_g * d_g + cb2 * rho_b * delta_b + 1.0 / 3.0 * rho_ur * d_ur
+
+    # Einstein 00 (perturb_einstein :5911) and the radiation-streaming
+    # values (perturb_rsa_delta_and_theta :9581-9615, rsa_MD_with_reio)
+    h_prime = (k2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH)
+    rsa_delta_g = 4.0 / k2 * (aH * h_prime - k2 * eta) \
+        - 4.0 / k2 * kap * (theta_b + 0.5 * h_prime)
+    rsa_theta_g = -0.5 * h_prime + 3.0 / k2 * (
+        kapp * (theta_b + 0.5 * h_prime)
+        + kap * (-aH * theta_b + cb2 * k2 * delta_b - aH * h_prime + k2 * eta))
+    rsa_delta_ur = 4.0 / k2 * (aH * h_prime - k2 * eta)
+    rsa_theta_ur = -0.5 * h_prime
+    delta_rho = delta_rho + _w(rsa, rho_g * rsa_delta_g + rho_ur * rsa_delta_ur, zero)
+    rho_plus_p_theta = rho_plus_p_theta + _w(
+        rsa, 4.0 / 3.0 * rho_g * rsa_theta_g + 4.0 / 3.0 * rho_ur * rsa_theta_ur, zero)
+
+    # Einstein 0i, trace, shear (:5941-5976)
+    eta_prime = 1.5 * a2 * rho_plus_p_theta / k2
+    alpha = (h_prime + 6.0 * eta_prime) / (2.0 * k2)
+    tca_shear_g_1 = 16.0 / 45.0 / kap * (theta_g + k2 * alpha)
+    rho_plus_p_shear = rho_plus_p_shear + _w(tca, 4.0 / 3.0 * rho_g * tca_shear_g_1, zero)
+    alpha_prime = -2.0 * aH * alpha + eta - 4.5 * (a2 / k2) * rho_plus_p_shear
+    metric_continuity = 0.5 * h_prime
+    metric_shear = k2 * alpha
+    metric_shear_prime = k2 * alpha_prime
+    phi = eta - aH * alpha
+    psi = aH * alpha + alpha_prime
+    phi_prime = eta_prime - aH_prime * alpha - aH * alpha_prime
+    phi_plus_psi = eta + alpha_prime
+
+    d_g = _w(rsa, rsa_delta_g, delta_g)
+    t_g = _w(rsa, rsa_theta_g, theta_g)
+
+    # TCA slip and shear, compromise_CLASS (perturb_tca_slip_and_shear :9229)
+    tau_c = 1.0 / kap
+    dtau_c = -kapp * tau_c * tau_c
+    F = tau_c / (1.0 + R)
+    F_prime = dtau_c / (1.0 + R) + tau_c * aH * R / (1.0 + R) ** 2
+    slip_1 = (dtau_c / tau_c - 2.0 * aH / (1.0 + R)) * (theta_b - t_g) + F * (
+        -app_a * theta_b
+        + k2 * (-aH * d_g / 2.0 + cb2 * (-theta_b - metric_continuity)
+                + (t_g + metric_continuity) / 3.0))
+    shear_g_tca1 = 16.0 / 45.0 * tau_c * (t_g + metric_shear)
+    theta_prime0 = (-aH * theta_b + k2 * (cb2 * delta_b + R / 4.0 * d_g)) / (1.0 + R)
+    shear_g_prime1 = 16.0 / 45.0 * (tau_c * (theta_prime0 + metric_shear_prime)
+                                    + dtau_c * (t_g + metric_shear))
+    tca_slip = (1.0 - 2.0 * aH * F) * slip_1 + F * k2 * (
+        2.0 * aH * shear_g_tca1 + shear_g_prime1
+        - (1.0 / 3.0 - cb2) * (F * theta_prime0 + 2.0 * F_prime * theta_b))
+    tca_shear_g = (1.0 - 11.0 / 6.0 * dtau_c) * shear_g_tca1 \
+        - 11.0 / 6.0 * tau_c * 16.0 / 45.0 * tau_c * (theta_prime0 + metric_shear_prime)
+
+    dy = torch.empty_like(y)
+    dy[:, idx.delta_g] = _w(rsa, zero, -4.0 / 3.0 * (t_g + metric_continuity))
+    dy[:, idx.delta_b] = -(theta_b + metric_continuity)
+    theta_b_prime_notca = -aH * theta_b + k2 * cb2 * delta_b + R * kap * (t_g - theta_b)
+    theta_b_prime_tca = (-aH * theta_b + k2 * (cb2 * delta_b + R * (d_g / 4.0 - tca_shear_g))
+                         + R * tca_slip) / (1.0 + R)
+    theta_b_prime = _w(tca, theta_b_prime_tca, theta_b_prime_notca)
+    dy[:, idx.theta_b] = theta_b_prime
+
+    P0 = (G[:, 0] + G[:, 2] + 2.0 * shear_g) / 8.0
+    theta_g_prime_full = k2 * (d_g / 4.0 - shear_g) + kap * (theta_b - t_g)
+    theta_g_prime_tca = (-(theta_b_prime + aH * theta_b - k2 * cb2 * delta_b) / R
+                         + k2 * (0.25 * d_g - tca_shear_g))
+    dy[:, idx.theta_g] = _w(rsa, zero, _w(tca, theta_g_prime_tca, theta_g_prime_full))
+
+    hier_on = (~(tca | rsa))[:, None]
+    kc = k[:, None]
+    kapc = kap[:, None]
+    d_shear_g = 0.5 * (8.0 / 15.0 * (theta_g + metric_shear) - 3.0 / 5.0 * k * F_g[:, 0]
+                       - kap * (2.0 * shear_g - 4.0 / 5.0 * P0))
+    dy[:, idx.shear_g] = _w(hier_on[:, 0], d_shear_g, zero)
+
+    # photon moments l = 3..l_max_g (perturb_derivs :8152-8215)
+    lmax_g = idx.l_max_g
+    ls = torch.arange(3, lmax_g + 1, dtype=y.dtype, device=y.device)
+    F_lm1 = torch.cat([(2.0 * shear_g)[:, None], F_g[:, :-1]], dim=1)
+    F_lp1 = torch.cat([F_g[:, 1:], zero[:, None]], dim=1)
+    dF = kc / (2.0 * ls + 1.0) * (ls * F_lm1 - (ls + 1.0) * F_lp1) - kapc * F_g
+    dF[:, -1] = k * (F_g[:, -2] - (lmax_g + 1.0) * cotKgen * F_g[:, -1]) - kap * F_g[:, -1]
+    dy[:, idx.F_g: idx.F_g + idx.n_F_g] = _w(hier_on, dF, 0.0)
+
+    # polarization l = 0..l_max_pol_g (:8180-8213)
+    lmax_p = idx.l_max_pol_g
+    lp = torch.arange(0, lmax_p + 1, dtype=y.dtype, device=y.device)
+    G_lm1 = torch.cat([zero[:, None], G[:, :-1]], dim=1)
+    G_lp1 = torch.cat([G[:, 1:], zero[:, None]], dim=1)
+    dG = kc / (2.0 * lp + 1.0) * (lp * G_lm1 - (lp + 1.0) * G_lp1) - kapc * G
+    dG[:, 0] = -k * G[:, 1] - kap * (G[:, 0] - 4.0 * P0)
+    dG[:, 2] = k / 5.0 * (2.0 * G[:, 1] - 3.0 * G[:, 3]) - kap * (G[:, 2] - 4.0 / 5.0 * P0)
+    dG[:, -1] = k * (G[:, -2] - (lmax_p + 1.0) * cotKgen * G[:, -1]) - kap * G[:, -1]
+    dy[:, idx.G_g: idx.G_g + idx.n_G_g] = _w(hier_on, dG, 0.0)
+
+    dy[:, idx.delta_cdm] = -metric_continuity
+
+    # massless neutrinos (:8630-8672)
+    ur_on = ~rsa
+    dy[:, idx.delta_ur] = _w(ur_on, -4.0 / 3.0 * (theta_ur + metric_continuity), zero)
+    dy[:, idx.theta_ur] = _w(ur_on, k2 * (delta_ur / 4.0 - shear_ur), zero)
+    d_shear_ur_full = 0.5 * (8.0 / 15.0 * (theta_ur + metric_shear) - 3.0 / 5.0 * k * F_ur[:, 0])
+    d_shear_ur_ufa = -3.0 / tau * shear_ur + 2.0 / 3.0 * (theta_ur + metric_continuity)
+    dy[:, idx.shear_ur] = _w(ur_on, _w(ufa, d_shear_ur_ufa, d_shear_ur_full), zero)
+    lmax_u = idx.l_max_ur
+    lu = torch.arange(3, lmax_u + 1, dtype=y.dtype, device=y.device)
+    Fu_lm1 = torch.cat([(2.0 * shear_ur)[:, None], F_ur[:, :-1]], dim=1)
+    Fu_lp1 = torch.cat([F_ur[:, 1:], zero[:, None]], dim=1)
+    dFu = kc / (2.0 * lu + 1.0) * (lu * Fu_lm1 - (lu + 1.0) * Fu_lp1)
+    dFu[:, -1] = k * (F_ur[:, -2] - (lmax_u + 1.0) * cotKgen * F_ur[:, -1])
+    dy[:, idx.F_ur: idx.F_ur + idx.n_F_ur] = _w((ur_on & ~ufa)[:, None], dFu, 0.0)
+
+    dy[:, idx.eta] = eta_prime
+
+    # gauge-invariant matter variables (perturb_einstein :5986-6006)
+    rho_m_cb = rho_b + rho_cdm
+    theta_cb_gauge = rho_b * theta_b / rho_m_cb
+    delta_cb = (rho_b * delta_b + rho_cdm * delta_cdm) / rho_m_cb + 3.0 * aH * theta_cb_gauge / k2
+    theta_cb = theta_cb_gauge + k2 * alpha
+    P = _w(rsa, zero, _w(tca, 5.0 * tca_shear_g / 8.0,
+                          (G[:, 0] + G[:, 2] + 2.0 * shear_g) / 8.0))
+    rpp_tot = fr.rho_tot + fr.p_tot
+    loc = dict(
+        aH=aH, aH_prime=aH_prime, h_prime=h_prime, eta_prime=eta_prime, alpha=alpha,
+        alpha_prime=alpha_prime, P=P, delta_m=delta_cb, theta_m=theta_cb,
+        theta_b_prime=theta_b_prime, eta=eta, phi=phi, psi=psi,
+        phi_plus_psi=phi_plus_psi, phi_prime=phi_prime,
+        delta_g_eff=_w(rsa, rsa_delta_g, delta_g), theta_g_eff=t_g,
+        delta_ur_eff=_w(rsa, rsa_delta_ur, delta_ur),
+        theta_ur_eff=_w(rsa, rsa_theta_ur, theta_ur),
+        delta_tot=delta_rho / (rho_g + rho_b + rho_cdm + rho_ur),
+        theta_tot=rho_plus_p_theta / rpp_tot,
+        H_T_Nb_prime=3.0 * aH / rpp_tot * (
+            -delta_p + fr.p_tot_prime * rho_plus_p_theta / (rpp_tot * k2) + rho_plus_p_shear))
+    return dy, loc
+
+
+def rhs(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
+    return rhs_full(fr, y, ctx)[0]
+
+
+# --- stiff (Thomson-drag) split for the IMEX evolver ------------------------
+# The only stiff entries are the kappa' terms: diagonal over the photon
+# hierarchies, a Sherman-Morrison 3x3 {shear_g, G0, G2} block through
+# P0 = (G0 + G2 + 2 shear)/8, and the 2x2 {theta_g, theta_b} drag. Masked out
+# under TCA and RSA (classpp_public_tpu equations.py:966-1103).
+_SM_U = (0.05, 0.5, 0.1)
+_SM_VU = 0.7
+
+
+def _stiff_kap(fr: Frame, ctx: PertCtx):
+    on = ~(ctx.tca_on | ctx.rsa_on)
+    return torch.where(on, fr.kap, 0.0), 4.0 / 3.0 * fr.rho_g / fr.rho_b
+
+
+def stiff_apply(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
+    """J_s y: exactly the kappa'-proportional terms of rhs()."""
+    idx = ctx.tables.idx
+    kap, R = _stiff_kap(fr, ctx)
+    theta_g = y[:, idx.theta_g]
+    theta_b = y[:, idx.theta_b]
+    shear_g = y[:, idx.shear_g]
+    G = y[:, idx.G_g: idx.G_g + idx.n_G_g]
+    P0 = (G[:, 0] + G[:, 2] + 2.0 * shear_g) / 8.0
+    out = torch.zeros_like(y)
+    out[:, idx.theta_g] = kap * (theta_b - theta_g)
+    out[:, idx.theta_b] = R * kap * (theta_g - theta_b)
+    out[:, idx.shear_g] = kap * (0.4 * P0 - shear_g)
+    out[:, idx.F_g: idx.G_g + idx.n_G_g] = -kap[:, None] * y[:, idx.F_g: idx.G_g + idx.n_G_g]
+    out[:, idx.G_g] += kap * 4.0 * P0
+    out[:, idx.G_g + 2] += kap * 0.8 * P0
+    return out
+
+
+def stiff_solve(fr: Frame, gh: torch.Tensor, r: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
+    """x = (I - gh J_s)^-1 r in closed form."""
+    idx = ctx.tables.idx
+    kap, R = _stiff_kap(fr, ctx)
+    a = gh * kap
+    x = r.clone()
+    x[:, idx.F_g: idx.G_g + idx.n_G_g] = r[:, idx.F_g: idx.G_g + idx.n_G_g] / (1.0 + a)[:, None]
+    r_sh, r_G0, r_G2 = r[:, idx.shear_g], r[:, idx.G_g], r[:, idx.G_g + 2]
+    vr = 2.0 * r_sh + r_G0 + r_G2
+    den = (1.0 + a) * (1.0 + (1.0 - _SM_VU) * a)
+    x[:, idx.shear_g] = r_sh / (1.0 + a) + a * _SM_U[0] * vr / den
+    x[:, idx.G_g] = r_G0 / (1.0 + a) + a * _SM_U[1] * vr / den
+    x[:, idx.G_g + 2] = r_G2 / (1.0 + a) + a * _SM_U[2] * vr / den
+    det = 1.0 + a * (1.0 + R)
+    r_g, r_b = r[:, idx.theta_g], r[:, idx.theta_b]
+    x[:, idx.theta_g] = ((1.0 + a * R) * r_g + a * r_b) / det
+    x[:, idx.theta_b] = (a * R * r_g + (1.0 + a) * r_b) / det
+    return x
+
+
+def adiabatic_ic(fr: Frame, ctx: PertCtx, curvature_ini: float = 1.0) -> torch.Tensor:
+    """Adiabatic initial conditions, synchronous gauge
+    (perturb_initial_conditions :4825-4935)."""
+    idx = ctx.tables.idx
+    k, tau, ci = ctx.k, fr.tau, curvature_ini
+    rho_r = fr.rho_g + fr.rho_ur
+    rho_m = fr.rho_b + fr.rho_cdm
+    fracnu = fr.rho_ur / rho_r
+    fracb = fr.rho_b / rho_m
+    om = fr.a * rho_m / torch.sqrt(rho_r)
+    ktau2 = (k * tau) ** 2
+    ktau3 = (k * tau) ** 3
+    delta_g = -ktau2 / 3.0 * (1.0 - om * tau / 5.0) * ci
+    theta_g = -k * ktau3 / 36.0 * (1.0 - 3.0 * (1.0 + 5.0 * fracb - fracnu)
+                                   / 20.0 / (1.0 - fracnu) * om * tau) * ci
+    theta_ur = -k * ktau3 / 36.0 / (4.0 * fracnu + 15.0) * (
+        4.0 * fracnu + 11.0 + 12.0
+        - 3.0 * (8.0 * fracnu * fracnu + 50.0 * fracnu + 275.0) / 20.0
+        / (2.0 * fracnu + 15.0) * tau * om) * ci
+    shear_ur = ktau2 / (45.0 + 12.0 * fracnu) * 2.0 * (
+        1.0 + (4.0 * fracnu - 5.0) / 4.0 / (2.0 * fracnu + 15.0) * tau * om) * ci
+    l3_ur = ktau3 * 2.0 / 7.0 / (12.0 * fracnu + 45.0) * ci
+    eta_hat = -ci * ktau2 / 12.0 / (15.0 + 4.0 * fracnu) * (
+        5.0 + 4.0 * fracnu
+        - (16.0 * fracnu**2 + 280.0 * fracnu + 325.0) / 10.0 / (2.0 * fracnu + 15.0) * tau * om)
+    eta_hat = eta_hat + (ci - ctx.eta_off)
+    y = torch.zeros((k.shape[0], idx.size), dtype=k.dtype, device=k.device)
+    y[:, idx.delta_g] = delta_g
+    y[:, idx.theta_g] = theta_g
+    y[:, idx.delta_b] = 0.75 * delta_g
+    y[:, idx.theta_b] = theta_g
+    y[:, idx.delta_cdm] = 0.75 * delta_g
+    y[:, idx.delta_ur] = delta_g
+    y[:, idx.theta_ur] = theta_ur
+    y[:, idx.shear_ur] = shear_ur
+    y[:, idx.F_ur] = l3_ur
+    y[:, idx.eta] = eta_hat
+    return y
+
+
+def remap_tca_off(y: torch.Tensor, fr: Frame, ctx: PertCtx) -> torch.Tensor:
+    """Fill the photon hierarchy from its tight-coupling values when TCA
+    switches off (perturb_vector_init :3900-3920)."""
+    idx = ctx.tables.idx
+    _, loc = rhs_full(fr, y, ctx._replace(tca_on=torch.ones_like(ctx.tca_on)))
+    kk = ctx.k / fr.kap
+    shear_g = 8.0 / 5.0 * loc["P"]
+    y = y.clone()
+    y[:, idx.shear_g] = shear_g
+    y[:, idx.F_g] = 6.0 / 7.0 * kk * shear_g
+    y[:, idx.G_g] = 2.5 * shear_g
+    y[:, idx.G_g + 1] = kk * (5.0 - 2.0) / 6.0 * shear_g
+    y[:, idx.G_g + 2] = 0.5 * shear_g
+    y[:, idx.G_g + 3] = kk * 3.0 / 14.0 * shear_g
+    return y
+
+
+def remap_ufa_on(y: torch.Tensor, idx: PtIdx, on: torch.Tensor) -> torch.Tensor:
+    """Drop the ur hierarchy above l = 2 where the fluid approximation
+    starts (perturb_vector_init, ufa branch)."""
+    y = y.clone()
+    sl = slice(idx.F_ur, idx.F_ur + idx.n_F_ur)
+    y[:, sl] = torch.where(on[:, None], 0.0, y[:, sl])
+    return y
+
+
+def remap_rsa_on(y: torch.Tensor, idx: PtIdx, on: torch.Tensor) -> torch.Tensor:
+    """Zero the radiation slots where free streaming starts
+    (perturb_vector_init, rsa branch)."""
+    y = y.clone()
+    for sl in (slice(idx.delta_g, idx.G_g + idx.n_G_g),
+               slice(idx.delta_ur, idx.F_ur + idx.n_F_ur)):
+        y[:, sl] = torch.where(on[:, None], 0.0, y[:, sl])
+    return y
+
+
+def compute_sources(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
+    """All source functions at (k, tau) per lane, synchronous-gauge efficient
+    form (perturb_sources :6874-6895). Returns (L, SrcIdx.n)."""
+    idx = ctx.tables.idx
+    k = ctx.k
+    k2 = k * k
+    _, L = rhs_full(fr, y, ctx)
+    g, dg, emk = fr.g, fr.dg, fr.emk
+    aH, al, alp = L["aH"], L["alpha"], L["alpha_prime"]
+    t0 = (g * (L["delta_g_eff"] / 4.0 + alp)
+          + (g * (L["eta"] - alp - 2.0 * aH * al)
+             + emk * 2.0 * (L["eta_prime"] - L["aH_prime"] * al - aH * alp))
+          + (g * (L["theta_b_prime"] / k2 + alp) + dg * (y[:, idx.theta_b] / k2 + al)))
+    t1 = emk * k * (alp + 2.0 * aH * al - L["eta"])
+    zero = torch.zeros_like(k)
+    cols = {
+        "t0": t0, "t1": t1, "t2": g * L["P"], "p": math.sqrt(6.0) * g * L["P"],
+        "phi": L["phi"], "psi": L["psi"], "phi_plus_psi": L["phi_plus_psi"],
+        "phi_prime": L["phi_prime"], "delta_m": L["delta_m"], "theta_m": L["theta_m"],
+        "delta_cb": L["delta_m"], "theta_cb": L["theta_m"], "h_prime": L["h_prime"],
+        "eta_src": L["eta"], "delta_g": L["delta_g_eff"], "theta_g": L["theta_g_eff"],
+        "delta_b": y[:, idx.delta_b], "theta_b": y[:, idx.theta_b],
+        "delta_cdm": y[:, idx.delta_cdm], "theta_cdm": zero,
+        "delta_ur": L["delta_ur_eff"], "theta_ur": L["theta_ur_eff"],
+        "delta_ncdm": zero, "theta_ncdm": zero, "delta_tot": L["delta_tot"],
+        "H_T_Nb_prime": L["H_T_Nb_prime"], "theta_tot": L["theta_tot"],
+    }
+    return torch.stack([cols[n] for n in SrcIdx.names], dim=1)

@@ -1,0 +1,670 @@
+"""Thermodynamics: RECFAST recombination, reio_camb reionization, the
+tau_reio shooting and the derived epochs.
+
+Counterpart of classpp_public_tpu/models/thermodynamics.py
+(`make_recfast_ctx` :160, `recfast_derivs` :295,
+`_compute_recombination_impl` :453-590, `_xe_reio_camb` :641,
+`_tb_march_impl` :756, `_compute_thermodynamics_impl` :806).
+
+Placement: this stage runs on the host, always. RECFAST is 20 000 sequential
+intervals of four RK4 sub-steps each and the baryon-temperature march is a
+4096-step scan: scalar recurrences whose every step depends on the last, so
+they run as plain Python float64 loops (a per-step tensor op would cost
+microseconds of dispatch each). The reionization shooting and the runtime
+tables are vectorised float64 tensor code on the CPU. The finished runtime
+table moves to the requested device once.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import constants as const
+from ..config.params import CosmoParams, check_lcdm
+from ..config.precision import PrecisionParams
+from ..ops.splines import (UniformSpline, interp, spline_d2, spline_integrate,
+                           spline_integrate_reverse)
+from .background import HOST, BackgroundResult, BgIdx
+
+# JAX package data directory (read in place, not copied)
+DATA_DIR = Path(__file__).resolve().parents[2] / "classpp_public_tpu" / "data"
+
+# RECFAST atomic data (reference source/thermodynamics.h:360-420)
+_Lambda_H = 8.2245809
+_Lambda_He = 51.3
+_L_H_ion = 1.096787737e7
+_L_H_alpha = 8.225916453e6
+_L_He1_ion = 1.98310772e7
+_L_He2_ion = 4.389088863e7
+_L_He_2s = 1.66277434e7
+_L_He_2p = 1.71134891e7
+_A2P_s = 1.798287e9
+_A2P_t = 177.58
+_L_He_2Pt = 1.690871466e7
+_L_He_2St = 1.5985597526e7
+_L_He2St_ion = 3.8454693845e6
+_sigma_He_2Ps = 1.436289e-22
+_sigma_He_2Pt = 1.484872e-22
+_a_PPB, _b_PPB, _c_PPB, _d_PPB = 4.309, -0.6166, 0.6703, 0.5300
+_T_0 = 10.0 ** 0.477121
+_a_VF, _b_VF = 10.0 ** (-16.744), 0.711
+_T_1 = 10.0 ** 5.114
+_a_trip, _b_trip = 10.0 ** (-16.306), 0.761
+
+
+def _f1(x):
+    """Smoothstep 0->1 for x in [-1, 1] (thermodynamics.h:46)."""
+    return -0.75 * x * (x * x / 3.0 - 1.0) + 0.5
+
+
+def _f2(x):
+    """Smoothstep 0->1 for x in [0, 1] (thermodynamics.h:47)."""
+    return x * x * (0.5 - x / 3.0) * 6.0
+
+
+def _clip(x, lo, hi):
+    return lo if x < lo else (hi if x > hi else x)
+
+
+class RecfastCtx(NamedTuple):
+    """Constants of the RECFAST system for one cosmology (host floats)."""
+
+    fHe: float
+    Nnow: float
+    Tnow: float
+    fu: float
+    H0_s: float
+    CDB: float
+    CDB_He: float
+    CB1: float
+    CB1_He1: float
+    CB1_He2: float
+    CR: float
+    CK: float
+    CK_He: float
+    CL: float
+    CL_He: float
+    CT: float
+    Bfact: float
+    H_of_z: UniformSpline   # (H, H') on the uniform loga grid, host tensors
+    YHe: float
+
+
+@lru_cache(maxsize=4)
+def _bbn_table(fname: str = "sBBN_2017.dat"):
+    path = Path(fname) if fname.startswith("/") else DATA_DIR / fname
+    rows = []
+    with open(path) as f:
+        for line in f:
+            s = line.split("#")[0].split()
+            if len(s) == 3:
+                rows.append([float(v) for v in s])
+    raw = np.array(rows)
+    omegab = np.unique(raw[:, 0])
+    dneff = np.unique(raw[:, 1])
+    yp = raw[:, 2].reshape(len(dneff), len(omegab))
+    return omegab, dneff, yp
+
+
+def helium_from_bbn(omega_b: float, N_eff: float, fname: str = "sBBN_2017.dat") -> float:
+    """YHe from the BBN table by bilinear interpolation
+    (thermodynamics_helium_from_bbn, thermodynamics_module.cpp:1535)."""
+    omegab_g, dneff_g, yp = _bbn_table(fname)
+    dneff = N_eff - 3.046
+    i = np.clip(np.searchsorted(omegab_g, omega_b) - 1, 0, len(omegab_g) - 2)
+    j = np.clip(np.searchsorted(dneff_g, dneff) - 1, 0, len(dneff_g) - 2)
+    tx = (omega_b - omegab_g[i]) / (omegab_g[i + 1] - omegab_g[i])
+    ty = (dneff - dneff_g[j]) / (dneff_g[j + 1] - dneff_g[j])
+    return float(yp[j, i] * (1 - tx) * (1 - ty) + yp[j, i + 1] * tx * (1 - ty)
+                 + yp[j + 1, i] * (1 - tx) * ty + yp[j + 1, i + 1] * tx * ty)
+
+
+def make_recfast_ctx(params: CosmoParams, pr: PrecisionParams,
+                     bg: BackgroundResult, idx: BgIdx) -> RecfastCtx:
+    YHe = params.YHe if params.YHe is not None else helium_from_bbn(
+        params.omega_b, params.N_eff, pr.sBBN_file)
+    H0_s = params.H0 * const.c_SI / const.Mpc_over_m
+    mu_H = 1.0 / (1.0 - YHe)
+    fHe = YHe / (const.not4 * (1.0 - YHe))
+    Nnow = 3.0 * H0_s**2 * float(bg.Omega0_b) / (8.0 * math.pi * const.G_SI * mu_H * const.m_H)
+    fu = pr.recfast_fudge_H + (pr.recfast_delta_fudge_H if pr.recfast_Hswitch else 0.0)
+    Lalpha = 1.0 / _L_H_alpha
+    Lalpha_He = 1.0 / _L_He_2p
+    hc_k = const.h_P * const.c_SI / const.k_B
+    loga = bg.loga.to(HOST)
+    table = bg.table.to(HOST)
+    Hcols = torch.stack([table[:, idx["H"]], table[:, idx["H_prime"]]], dim=1)
+    return RecfastCtx(
+        fHe=fHe, Nnow=Nnow, Tnow=params.T_cmb, fu=fu, H0_s=H0_s,
+        CDB=hc_k * (_L_H_ion - _L_H_alpha),
+        CDB_He=hc_k * (_L_He1_ion - _L_He_2s),
+        CB1=hc_k * _L_H_ion, CB1_He1=hc_k * _L_He1_ion, CB1_He2=hc_k * _L_He2_ion,
+        CR=2.0 * math.pi * (const.m_e / const.h_P) * (const.k_B / const.h_P),
+        CK=Lalpha**3 / (8.0 * math.pi), CK_He=Lalpha_He**3 / (8.0 * math.pi),
+        CL=const.c_SI * const.h_P / (const.k_B * Lalpha),
+        CL_He=const.c_SI * const.h_P / (const.k_B / _L_He_2s),
+        CT=(8.0 / 3.0) * (const.sigma_T / (const.m_e * const.c_SI)) * (
+            8.0 * math.pi**5 * const.k_B**4 / 15.0 / const.h_P**3 / const.c_SI**3),
+        Bfact=hc_k * (_L_He_2p - _L_He_2s),
+        H_of_z=UniformSpline.build(float(loga[0]), float(loga[1] - loga[0]), Hcols),
+        YHe=YHe)
+
+
+def _hubble_evaluator(ctx: RecfastCtx):
+    """Host scalar (H, dH/dz) in 1/s at redshift z, from the (H, H') spline."""
+    spl = ctx.H_of_z
+    yH, yHp = spl.y[:, 0].tolist(), spl.y[:, 1].tolist()
+    y2H, y2Hp = spl.y2[:, 0].tolist(), spl.y2[:, 1].tolist()
+    x0, dx, n = spl.x0, spl.dx, spl.n
+    h2 = dx * dx / 6.0
+    conv = const.c_SI / const.Mpc_over_m
+
+    def hubble(z):
+        t = (-math.log1p(z) - x0) / dx
+        i = min(max(int(math.floor(t)), 0), n - 2)
+        b = t - i
+        a = 1.0 - b
+        ca, cb = (a**3 - a) * h2, (b**3 - b) * h2
+        H = a * yH[i] + b * yH[i + 1] + ca * y2H[i] + cb * y2H[i + 1]
+        Hp = a * yHp[i] + b * yHp[i + 1] + ca * y2Hp[i] + cb * y2Hp[i + 1]
+        return H * conv, -Hp / H * conv
+
+    return hubble
+
+
+def make_recfast_derivs(ctx: RecfastCtx, pr: PrecisionParams):
+    """RECFAST 1.5 derivatives d(x_H, x_He, Tmat)/dz as a host scalar
+    function (recfast_derivs, classpp_public_tpu thermodynamics.py:295;
+    reference thermodynamics_module.cpp:3727-3960, Heswitch=6, Hswitch on)."""
+    hubble = _hubble_evaluator(ctx)
+    fHe, Nnow, Tnow, fu, H0_s = ctx.fHe, ctx.Nnow, ctx.Tnow, ctx.fu, ctx.H0_s
+    CR, CDB, CDB_He, CK, CK_He = ctx.CR, ctx.CDB, ctx.CDB_He, ctx.CK, ctx.CK_He
+    CL, CL_He, CT, Bfact = ctx.CL, ctx.CL_He, ctx.CT, ctx.Bfact
+    trigH, trigH2 = pr.recfast_x_H0_trigger, pr.recfast_x_H0_trigger2
+    trigHe2 = pr.recfast_x_He0_trigger2
+    AG1, AG2 = pr.recfast_AGauss1, pr.recfast_AGauss2
+    zG1, zG2 = pr.recfast_zGauss1, pr.recfast_zGauss2
+    wG1, wG2 = pr.recfast_wGauss1, pr.recfast_wGauss2
+    H_frac, fudge_He = pr.recfast_H_frac, pr.recfast_fudge_He
+    c, hP, kB, mH = const.c_SI, const.h_P, const.k_B, const.m_H
+    dop_fac = 2.0 * kB / (mH * const.not4 * c**2)
+    sqrt_pi = math.sqrt(math.pi)
+    CL_PSt = hP * c * (_L_He_2Pt - _L_He_2St) / kB
+    E_trip_ion = hP * c * _L_He2St_ion / kB
+    E_2St = hP * c * _L_He_2St / kB
+    exp, sqrt, log1p = math.exp, math.sqrt, math.log1p
+
+    def derivs(z, y0, y1, y2):
+        x_H = _clip(y0, 0.0, 1.0)
+        x_He = _clip(y1, 0.0, 1.0)
+        Tmat = max(y2, 1e-3)
+        x = x_H + fHe * x_He
+        zp1 = 1.0 + z
+        n = Nnow * zp1**3
+        n_He = fHe * n
+        Trad = Tnow * zp1
+        Hz, dHdz = hubble(z)
+
+        Rdown = 1e-19 * _a_PPB * (Tmat / 1e4) ** _b_PPB / (1.0 + _c_PPB * (Tmat / 1e4) ** _d_PPB)
+        CRT15 = (CR * Tmat) ** 1.5
+        Rup = Rdown * CRT15 * exp(-CDB / Tmat)
+        sq_0 = sqrt(Tmat / _T_0)
+        sq_1 = sqrt(Tmat / _T_1)
+        Rdown_He = _a_VF / (sq_0 * (1.0 + sq_0) ** (1.0 - _b_VF) * (1.0 + sq_1) ** (1.0 + _b_VF))
+        Rup_He = 4.0 * Rdown_He * CRT15 * exp(-CDB_He / Tmat)
+        lz = log1p(z)
+        K = CK / Hz * (1.0 + AG1 * exp(-(((lz - zG1) / wG1) ** 2))
+                       + AG2 * exp(-(((lz - zG2) / wG2) ** 2)))
+        Rdown_trip = _a_trip / (sq_0 * (1.0 + sq_0) ** (1.0 - _b_trip)
+                                * (1.0 + sq_1) ** (1.0 + _b_trip))
+        Rup_trip = Rdown_trip * exp(-E_trip_ion / Tmat) * CRT15 * 4.0 / 3.0
+
+        he_active = 5e-9 <= x_He <= trigHe2
+        one_m_xHe = max(1.0 - x_He, 1e-30)
+        one_m_xH = max(1.0 - x_H, 1e-30)
+        if he_active:
+            tauHe_s = _A2P_s * CK_He * 3.0 * n_He * one_m_xHe / Hz
+            pHe_s = (1.0 - exp(-tauHe_s)) / max(tauHe_s, 1e-30)
+            if x_H < 0.9999999:
+                Doppler_s = c * _L_He_2p * sqrt(dop_fac * Tmat)
+                gamma_2Ps = (3.0 * _A2P_s * fHe * one_m_xHe * c**2
+                             / (sqrt_pi * _sigma_He_2Ps * 8.0 * math.pi * Doppler_s * one_m_xH)
+                             / (c * _L_He_2p) ** 2)
+                AHcon = _A2P_s / (1.0 + 0.36 * gamma_2Ps**fudge_He)
+                K_He_denom = (_A2P_s * pHe_s + AHcon) * 3.0 * n_He * one_m_xHe
+            else:
+                K_He_denom = _A2P_s * pHe_s * 3.0 * n_He * one_m_xHe
+            K_He = 1.0 / max(K_He_denom, 1e-300)
+            tauHe_t = _A2P_t * n_He * one_m_xHe * 3.0 / (8.0 * math.pi * Hz * _L_He_2Pt**3)
+            pHe_t = (1.0 - exp(-tauHe_t)) / max(tauHe_t, 1e-30)
+            if x_H >= 0.99999:
+                num = _A2P_t * pHe_t
+            else:
+                Doppler_t = c * _L_He_2Pt * sqrt(dop_fac * Tmat)
+                gamma_2Pt = (3.0 * _A2P_t * fHe * one_m_xHe * c**2
+                             / (sqrt_pi * _sigma_He_2Pt * 8.0 * math.pi * Doppler_t * one_m_xH)
+                             / (c * _L_He_2Pt) ** 2)
+                AHcon_t = _A2P_t / (1.0 + 0.66 * gamma_2Pt**0.9) / 3.0
+                num = _A2P_t * pHe_t + AHcon_t
+            CfHe_t_num = num * exp(-CL_PSt / Tmat)
+            den = Rup_trip + CfHe_t_num
+            CfHe_t = CfHe_t_num / den if den != 0.0 else math.nan
+        else:
+            K_He = CK_He / Hz
+            CfHe_t = 0.0
+
+        if x_H < trigH2:
+            KLn = K * _Lambda_H * n * one_m_xH
+            C_peebles = (1.0 + KLn) / (1.0 / fu + KLn / fu + K * Rup * n * one_m_xH)
+        else:
+            C_peebles = 1.0
+        if x_H > trigH:
+            dxH = 0.0
+        else:
+            dxH = (x * x_H * n * Rdown - Rup * one_m_xH * exp(-CL / Tmat)) \
+                * C_peebles / (Hz * zp1)
+
+        if x_He < 1e-15:
+            dxHe = 0.0
+        else:
+            He_Boltz = exp(min(Bfact / Tmat, 680.0))
+            KB = K_He * n_He * one_m_xHe * He_Boltz
+            dxHe = ((x * x_He * n * Rdown_He - Rup_He * one_m_xHe * exp(-CL_He / Tmat))
+                    * (1.0 + KB * _Lambda_He)) / (Hz * zp1 * (1.0 + KB * (_Lambda_He + Rup_He)))
+            dxHe = dxHe + (x * x_He * n * Rdown_trip
+                           - one_m_xHe * 3.0 * Rup_trip * exp(-E_2St / Tmat)) \
+                * CfHe_t / (Hz * zp1)
+
+        xs = max(x, 1e-30)
+        timeTh = (1.0 / (CT * Trad**4)) * (1.0 + x + fHe) / xs
+        timeH = 2.0 / (3.0 * H0_s * zp1**1.5)
+        if timeTh < H_frac * timeH:
+            epsilon = Hz * (1.0 + x + fHe) / (CT * Trad**3 * xs)
+            dT = (Tnow + epsilon * ((1.0 + fHe) / (1.0 + fHe + x)) * ((dxH + fHe * dxHe) / xs)
+                  - epsilon * dHdz / Hz + 3.0 * epsilon / zp1)
+        else:
+            dT = (CT * Trad**4 * x / (1.0 + x + fHe) * (Tmat - Trad) / (Hz * zp1)
+                  + 2.0 * Tmat / zp1)
+        return dxH, dxHe, dT
+
+    return derivs
+
+
+class RecoTable(NamedTuple):
+    z: torch.Tensor          # ascending
+    xe: torch.Tensor
+    Tb: torch.Tensor
+    wb: torch.Tensor
+    cb2: torch.Tensor
+    dkappadtau: torch.Tensor
+
+
+def compute_recombination(params: CosmoParams, pr: PrecisionParams,
+                          ctx: RecfastCtx) -> RecoTable:
+    """RECFAST history as a host loop over the fixed z grid (descending),
+    with the staged Saha approximations of
+    thermodynamics_recombination_with_recfast (:3461-3647). In the Saha
+    regimes A-D the state is pinned, so the RK4 candidate (unused there) is
+    not integrated."""
+    derivs = make_recfast_derivs(ctx, pr)
+    Nz, z_init = pr.recfast_Nz0, pr.recfast_z_initial
+    fHe, Tnow, Nnow, CR = ctx.fHe, ctx.Tnow, ctx.Nnow, ctx.CR
+    zHe1, dzHe1 = pr.recfast_z_He_1, pr.recfast_delta_z_He_1
+    zHe2, dzHe2 = pr.recfast_z_He_2, pr.recfast_delta_z_He_2
+    zHe3, dzHe3 = pr.recfast_z_He_3, pr.recfast_delta_z_He_3
+    trigHe, dtrigHe = pr.recfast_x_He0_trigger, pr.recfast_x_He0_trigger_delta
+    trigH, dtrigH = pr.recfast_x_H0_trigger, pr.recfast_x_H0_trigger_delta
+    YHe = ctx.YHe
+    wb_fac = const.k_B / (const.c_SI**2 * const.m_H)
+    dk_fac = Nnow * const.sigma_T * const.Mpc_over_m
+    exp, log, sqrt = math.exp, math.log, math.sqrt
+
+    def saha(z, CB1_x, factor=1.0):
+        return factor * exp(1.5 * log(CR * Tnow / (1.0 + z)) - CB1_x / (Tnow * (1.0 + z))) / Nnow
+
+    def rk4_interval(y, za, zb, nsub=4):
+        h = (zb - za) / nsub
+        y0, y1, y2 = y
+        for i in range(nsub):
+            zz = za + i * h
+            k1 = derivs(zz, y0, y1, y2)
+            k2 = derivs(zz + h / 2, y0 + h / 2 * k1[0], y1 + h / 2 * k1[1], y2 + h / 2 * k1[2])
+            k3 = derivs(zz + h / 2, y0 + h / 2 * k2[0], y1 + h / 2 * k2[1], y2 + h / 2 * k2[2])
+            k4 = derivs(zz + h, y0 + h * k3[0], y1 + h * k3[1], y2 + h * k3[2])
+            y0 = y0 + h / 6 * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0])
+            y1 = y1 + h / 6 * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1])
+            y2 = y2 + h / 6 * (k1[2] + 2 * k2[2] + 2 * k3[2] + k4[2])
+        return y0, y1, y2
+
+    y = (1.0, 1.0, Tnow * (1.0 + z_init))
+    rows = []
+    for i in range(Nz):
+        za = z_init * (Nz - i) / Nz
+        zb = z_init * (Nz - i - 1) / Nz
+        z = zb
+        Trad = Tnow * (1.0 + z)
+        if z > zHe1 + dzHe1:                         # A: fully ionized
+            x0 = 1.0 + 2.0 * fHe
+            y_new = (1.0, 1.0, Trad)
+        elif z > zHe2 + dzHe2:                       # B: HeIII Saha
+            rhs = saha(z, ctx.CB1_He2)
+            x0_He3 = 0.5 * (sqrt((rhs - 1.0 - fHe) ** 2 + 4.0 * (1.0 + 2.0 * fHe) * rhs)
+                            - (rhs - 1.0 - fHe))
+            if z > zHe1 - dzHe1:
+                w = _f1(_clip((zHe1 - z) / dzHe1, -1.0, 1.0))
+                x0 = w * x0_He3 + (1.0 - w) * (1.0 + 2.0 * fHe)
+            else:
+                x0 = x0_He3
+            y_new = (1.0, 1.0, Trad)
+        elif z > zHe3 + dzHe3:                       # C: HeIII done
+            if z > zHe2 - dzHe2:
+                rhs = saha(z, ctx.CB1_He2)
+                x0_He3 = 0.5 * (sqrt((rhs - 1.0 - fHe) ** 2 + 4.0 * (1.0 + 2.0 * fHe) * rhs)
+                                - (rhs - 1.0 - fHe))
+                w = _f1(_clip((zHe2 - z) / dzHe2, -1.0, 1.0))
+                x0 = w * (1.0 + fHe) + (1.0 - w) * x0_He3
+            else:
+                x0 = 1.0 + fHe
+            y_new = (1.0, 1.0, Trad)
+        else:
+            rhs1 = saha(z, ctx.CB1_He1, 4.0)
+            x0_He1 = 0.5 * (sqrt((rhs1 - 1.0) ** 2 + 4.0 * (1.0 + fHe) * rhs1) - (rhs1 - 1.0))
+            if y[1] > trigHe:                         # D: HeI Saha
+                if z > zHe3 - dzHe3:
+                    w = _f1(_clip((zHe3 - z) / dzHe3, -1.0, 1.0))
+                    x0 = w * x0_He1 + (1.0 - w) * (1.0 + fHe)
+                else:
+                    x0 = x0_He1
+                y_new = (1.0, (x0 - 1.0) / fHe, Trad)
+            else:
+                rhsH = saha(z, ctx.CB1)
+                x_H0_saha = 0.5 * (sqrt(rhsH**2 + 4.0 * rhsH) - rhsH)
+                y_int = rk4_interval(y, za, zb)
+                if y[0] > trigH:                      # E: He integrated, H Saha
+                    y_new = (x_H0_saha, y_int[1], y_int[2])
+                    x0_new = y_new[0] + fHe * y_new[1]
+                    if trigHe - y_int[1] < dtrigHe:
+                        w = _f2(_clip((trigHe - y_int[1]) / dtrigHe, 0.0, 1.0))
+                        x0 = w * x0_new + (1.0 - w) * x0_He1
+                    else:
+                        x0 = x0_new
+                else:                                 # F: full integration
+                    y_new = y_int
+                    if trigH - y_int[0] < dtrigH:
+                        w = _f2(_clip((trigH - y_int[0]) / dtrigH, 0.0, 1.0))
+                        x0 = w * y_int[0] + (1.0 - w) * x_H0_saha + fHe * y_int[1]
+                    else:
+                        x0 = y_int[0] + fHe * y_int[1]
+        dTdz = derivs(z, *y_new)[2]
+        Tb = y_new[2]
+        wb = wb_fac * (1.0 + (1.0 / const.not4 - 1.0) * YHe + x0 * (1.0 - YHe)) * Tb
+        cb2 = wb * (1.0 + (1.0 + z) * dTdz / Tb / 3.0)
+        rows.append((z, x0, Tb, wb, cb2, (1.0 + z) ** 2 * dk_fac * x0))
+        y = y_new
+    t = torch.tensor(rows[::-1], dtype=torch.float64).T.contiguous()
+    return RecoTable(*t)
+
+
+class ThIdx:
+    """Column indices of the thermodynamics runtime table (index_th_*)."""
+
+    names = ["xe", "dkappa", "ddkappa", "dddkappa", "exp_m_kappa", "g", "dg", "ddg",
+             "Tb", "cb2", "tau_d_depth", "kappa",
+             "dmu_idm_dr", "dmu_idr", "cidm_dr2"]
+    ix = {n: i for i, n in enumerate(names)}
+    n = len(names)
+
+
+class ThermoResult(NamedTuple):
+    lntau_spline: UniformSpline   # runtime table on the stage's device, ThIdx columns
+    z_grid: torch.Tensor          # merged z-grid tables (host)
+    xe_of_z: torch.Tensor
+    Tb_of_z: torch.Tensor
+    cb2_of_z: torch.Tensor
+    dkappa_of_z: torch.Tensor
+    YHe: float
+    fHe: float
+    z_reio: float
+    tau_reio: float
+    z_rec: float
+    tau_rec: float
+    rs_rec: float
+    z_star: float
+    tau_star: float
+    rs_star: float
+    ra_star: float
+    z_d: float
+    tau_d: float
+    rs_d: float
+    angular_rescaling: float
+    tau_cut: float = None
+    ra_rec: float = None
+    rd_rec: float = None
+    rd_star: float = None
+    n_e: float = None
+
+
+def _xe_reio_camb(z, z_reio, z_start, xe_before, xe_after, fHe, params: CosmoParams):
+    """reio_camb ionization function (thermodynamics_reionization_function,
+    thermodynamics_module.cpp:1893); broadcasts over tensors."""
+    ex = params.reionization_exponent
+    arg = ((1.0 + z_reio) ** ex - (1.0 + z) ** ex) / (ex * (1.0 + z_reio) ** (ex - 1.0)) \
+        / params.reionization_width
+    xe = (xe_after - xe_before) * (torch.tanh(arg) + 1.0) / 2.0 + xe_before
+    arg_he = (params.helium_fullreio_redshift - z) / params.helium_fullreio_width
+    xe = xe + fHe * (torch.tanh(arg_he) + 1.0) / 2.0
+    return torch.where(z > z_start, xe_before, xe)
+
+
+def _tb_march(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine, Tb_start, idx_start,
+              kappa_fac, YHe, T_cmb):
+    """Backward-Euler Tb march through reionization on the fine z grid
+    (thermodynamics_reionization_sample :2880-2960), a host scalar loop."""
+    z, xe, H = z_fine.tolist(), xe_fine.tolist(), H_fine.tolist()
+    rg, rb = rho_g_fine.tolist(), rho_b_fine.tolist()
+    n = len(z)
+
+    def dTdz(i, Tb):
+        opacity = (1.0 + z[i]) ** 2 * kappa_fac * xe[i]
+        mu = const.m_H / (1.0 + (1.0 / const.not4 - 1.0) * YHe + xe[i] * (1.0 - YHe))
+        return (2.0 / (1.0 + z[i]) * Tb
+                - 2.0 * mu / const.m_e * 4.0 * rg[i] / 3.0 / rb[i] * opacity
+                * (T_cmb * (1.0 + z[i]) - Tb) / H[i])
+
+    dzf = z[1] - z[0]
+    Tb = Tb_start
+    out = [0.0] * n
+    out[n - 1] = Tb_start
+    for i in range(n - 2, -1, -1):
+        if i < idx_start:
+            Tb = Tb - dTdz(i + 1, Tb) * dzf
+        out[i] = Tb
+    d = [dTdz(i, out[i]) for i in range(n)]
+    return torch.tensor(out, dtype=torch.float64), torch.tensor(d, dtype=torch.float64)
+
+
+def compute_thermodynamics(params: CosmoParams, pr: PrecisionParams,
+                           bg: BackgroundResult, bidx: BgIdx, device="cuda") -> ThermoResult:
+    """RECFAST -> reio_camb (tau_reio shooting) -> Tb/cb2 through
+    reionization -> merge -> runtime uniform-ln(tau) table
+    (thermodynamics_init, thermodynamics_module.cpp:293-1297). Computed on
+    the host; the runtime table is returned on `device`."""
+    from ..pipeline import resolve_device
+
+    device = resolve_device(device)
+    check_lcdm(params)
+    th = _compute_thermodynamics_impl(params, pr, bg.to(HOST), bidx)
+    return th._replace(lntau_spline=th.lntau_spline.to(device))
+
+
+def _compute_thermodynamics_impl(params, pr, bg, bidx) -> ThermoResult:
+    f64 = torch.float64
+    ctx = make_recfast_ctx(params, pr, bg, bidx)
+    reco = compute_recombination(params, pr, ctx)
+    fHe = ctx.fHe
+    xe_after = 1.0 + fHe
+
+    n_fine = 4096
+    z_fine = torch.linspace(0.0, pr.reionization_z_start_max, n_fine, dtype=f64)
+    H_fine = ctx.H_of_z.eval(-torch.log1p(z_fine))[:, 0]
+    xe_reco_fine = interp(z_fine, reco.z, reco.xe)
+    kappa_fac = ctx.Nnow * const.sigma_T * const.Mpc_over_m
+
+    def tau_of_zreio(z_reio):
+        """Optical depth for each candidate z_reio (any shape)."""
+        z_reio = torch.as_tensor(z_reio, dtype=f64)
+        z_start = torch.clamp(
+            z_reio + pr.reionization_start_factor * params.reionization_width,
+            min=params.helium_fullreio_redshift
+            + pr.reionization_start_factor * params.helium_fullreio_width)
+        xe_before = interp(z_start, reco.z, reco.xe)
+        zs, zr, xb = z_start[..., None], z_reio[..., None], xe_before[..., None]
+        xe = _xe_reio_camb(z_fine, zr, zs, xb, xe_after, fHe, params)
+        integrand = (1.0 + z_fine) ** 2 * kappa_fac * xe / H_fine
+        return torch.trapezoid(torch.where(z_fine <= zs, integrand, 0.0), z_fine, dim=-1)
+
+    if params.z_reio is not None:
+        z_reio = float(params.z_reio)
+        tau_reio = float(tau_of_zreio(z_reio))
+    else:
+        z_cand = torch.linspace(0.0, pr.reionization_z_start_max
+                                - pr.reionization_start_factor * params.reionization_width
+                                - 1e-3, 512, dtype=f64)
+        tau_cand = tau_of_zreio(z_cand)
+        z_reio = float(interp(torch.tensor(params.tau_reio, dtype=f64), tau_cand, z_cand))
+        t0 = float(tau_of_zreio(z_reio))
+        t1 = float(tau_of_zreio(z_reio + 0.01))
+        z_reio = z_reio + (params.tau_reio - t0) * 0.01 / (t1 - t0)
+        tau_reio = float(tau_of_zreio(z_reio))
+
+    z_start = max(z_reio + pr.reionization_start_factor * params.reionization_width,
+                  params.helium_fullreio_redshift
+                  + pr.reionization_start_factor * params.helium_fullreio_width)
+    z_start_t = torch.tensor(z_start, dtype=f64)
+    xe_before = interp(z_start_t, reco.z, reco.xe)
+    xe_fine = _xe_reio_camb(z_fine, z_reio, z_start_t, xe_before, xe_after, fHe, params)
+    xe_fine = torch.where(z_fine > z_start, xe_reco_fine, xe_fine)
+
+    # --- Tb through reionization
+    Tb_start = float(interp(z_start_t, reco.z, reco.Tb))
+    rho_g_fine = bg.Omega0_g * bg.H0**2 * (1.0 + z_fine) ** 4
+    rho_b_fine = bg.Omega0_b * bg.H0**2 * (1.0 + z_fine) ** 3
+    idx_start = int(torch.searchsorted(z_fine, z_start_t))
+    Tb_fine, dTdz_fine = _tb_march(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine,
+                                   Tb_start, idx_start, kappa_fac, ctx.YHe, params.T_cmb)
+    Tb_fine = torch.where(z_fine >= z_start, interp(z_fine, reco.z, reco.Tb), Tb_fine)
+    mu_fine = const.m_H / (1.0 + (1.0 / const.not4 - 1.0) * ctx.YHe + xe_fine * (1.0 - ctx.YHe))
+    wb_fine = const.k_B / (const.c_SI**2) / mu_fine * Tb_fine
+    cb2_fine = wb_fine * (1.0 + (1.0 + z_fine) / 3.0 * dTdz_fine / Tb_fine)
+    cb2_fine = torch.where(z_fine >= z_start, interp(z_fine, reco.z, reco.cb2), cb2_fine)
+    dkappa_fine = (1.0 + z_fine) ** 2 * kappa_fac * xe_fine
+
+    # --- merged z tables: fine grid below z_start_max, reco grid above
+    hi = reco.z > pr.reionization_z_start_max
+    z_merged = torch.cat([z_fine, reco.z[hi]])
+    xe_merged = torch.cat([xe_fine, reco.xe[hi]])
+    Tb_merged = torch.cat([Tb_fine, reco.Tb[hi]])
+    cb2_merged = torch.cat([cb2_fine, reco.cb2[hi]])
+    dkappa_merged = torch.cat([dkappa_fine, reco.dkappadtau[hi]])
+
+    # --- runtime uniform-ln(tau) grid
+    n_rt = 32768
+    lntau_u = torch.linspace(math.log(float(bg.tau_of_loga[0])), math.log(bg.tau0),
+                             n_rt, dtype=f64)
+    dlntau = float(lntau_u[1] - lntau_u[0])
+    tau_u = torch.exp(lntau_u)
+    bgvals = bg.lntau_spline.eval(lntau_u)
+    a_u = bgvals[:, bidx["a"]]
+    z_u = 1.0 / a_u - 1.0
+    loz = torch.log1p(torch.clamp(z_u, min=0.0))
+    lom = torch.log1p(z_merged)
+    zmax = float(z_merged[-1])
+    xe_u = interp(loz, lom, xe_merged)
+    Tb_u = torch.where(z_u > zmax, params.T_cmb * (1.0 + z_u), interp(loz, lom, Tb_merged))
+    cb2_u = torch.where(
+        z_u > zmax,
+        const.k_B / (const.c_SI**2) * (1.0 + (1.0 / const.not4 - 1.0) * ctx.YHe
+                                       + float(xe_merged[-1]) * (1.0 - ctx.YHe))
+        / const.m_H * params.T_cmb * (1.0 + z_u) * 4.0 / 3.0,
+        interp(loz, lom, cb2_merged))
+    dkappa_u = torch.where(z_u > zmax, (1.0 + z_u) ** 2 * kappa_fac * float(xe_merged[-1]),
+                           interp(loz, lom, dkappa_merged))
+
+    integrand = dkappa_u * tau_u
+    kappa_u = spline_integrate_reverse(lntau_u, integrand, spline_d2(lntau_u, integrand))
+    exp_m_kappa = torch.exp(-kappa_u)
+    g_u = dkappa_u * exp_m_kappa
+    x0u = float(lntau_u[0])
+    ddkappa_u = UniformSpline.build(x0u, dlntau, dkappa_u).eval_deriv(lntau_u) / tau_u
+    dddkappa_u = UniformSpline.build(x0u, dlntau, ddkappa_u).eval_deriv(lntau_u) / tau_u
+    dg_u = (ddkappa_u + dkappa_u**2) * exp_m_kappa
+    ddg_u = (dddkappa_u + 3.0 * dkappa_u * ddkappa_u + dkappa_u**3) * exp_m_kappa
+
+    R_u = 3.0 * bgvals[:, bidx["rho_b"]] / (4.0 * bgvals[:, bidx["rho_g"]])
+    integrand_d = dkappa_u / R_u * tau_u
+    taud_u = spline_integrate_reverse(lntau_u, integrand_d, spline_d2(lntau_u, integrand_d))
+    integrand_rd = (1.0 / dkappa_u) * (R_u**2 + 16.0 / 15.0 * (1.0 + R_u)) \
+        / (6.0 * (1.0 + R_u) ** 2) * tau_u
+    I_rd = spline_integrate(lntau_u, integrand_rd, spline_d2(lntau_u, integrand_rd))
+    I_rd = I_rd + 16.0 / (15.0 * 6.0 * 3.0) * tau_u[0] / dkappa_u[0]
+    rd_u = 2.0 * math.pi * torch.sqrt(torch.clamp(I_rd, min=0.0))
+
+    zeros = torch.zeros_like(xe_u)
+    table_u = torch.stack([xe_u, dkappa_u, ddkappa_u, dddkappa_u, exp_m_kappa, g_u, dg_u,
+                           ddg_u, Tb_u, cb2_u, taud_u, kappa_u, zeros, zeros, zeros], dim=1)
+    lntau_spline = UniformSpline.build(x0u, dlntau, table_u)
+
+    # --- derived epochs
+    def bg_at(lnt):
+        return bg.lntau_spline.eval(torch.tensor(lnt, dtype=f64))
+
+    i_rec = int(torch.argmax(g_u))
+    gm, g0, gp = (float(v) for v in g_u[i_rec - 1: i_rec + 2])
+    lntau_rec = float(lntau_u[i_rec]) + 0.5 * (gm - gp) / (gm - 2.0 * g0 + gp) * dlntau
+    tau_rec = math.exp(lntau_rec)
+    bg_rec = bg_at(lntau_rec)
+    z_rec = float(1.0 / bg_rec[bidx["a"]] - 1.0)
+    rs_rec = float(bg_rec[bidx["rs"]])
+
+    def crossing(col, level):
+        """ln tau where the decreasing column crosses `level`."""
+        i = int(torch.searchsorted(-col, torch.tensor(-level, dtype=f64)))
+        c0, c1 = float(col[i - 1]), float(col[i])
+        return float(lntau_u[i - 1]) + (c0 - level) / (c0 - c1) * dlntau
+
+    lntau_star = crossing(kappa_u, 1.0)
+    tau_star = math.exp(lntau_star)
+    bg_star = bg_at(lntau_star)
+    z_star = float(1.0 / bg_star[bidx["a"]] - 1.0)
+    rs_star = float(bg_star[bidx["rs"]])
+    ra_star = bg.tau0 - tau_star
+    ra_rec = bg.tau0 - tau_rec
+    rd_rec = float(interp(torch.tensor(lntau_rec, dtype=f64), lntau_u, rd_u))
+    rd_star = float(interp(torch.tensor(lntau_star, dtype=f64), lntau_u, rd_u))
+    H0_SI = params.h * 1.0e5 / const.Mpc_over_m
+    n_e = 3.0 * H0_SI**2 * params.omega_b / params.h**2 \
+        * (1.0 - ctx.YHe) / (8.0 * math.pi * const.G_SI * const.m_H)
+    vis_ok = g_u > g_u[i_rec] * pr.neglect_CMB_sources_below_visibility
+    i_cut = n_rt - 1 - int(torch.argmax(torch.flip(vis_ok, [0]).to(torch.int8)))
+    tau_cut = float(tau_u[i_cut])
+    lntau_d = crossing(taud_u, 1.0)
+    tau_d = math.exp(lntau_d)
+    bg_d = bg_at(lntau_d)
+    z_d = float(1.0 / bg_d[bidx["a"]] - 1.0)
+    rs_d = float(bg_d[bidx["rs"]])
+
+    return ThermoResult(
+        lntau_spline=lntau_spline, z_grid=z_merged, xe_of_z=xe_merged,
+        Tb_of_z=Tb_merged, cb2_of_z=cb2_merged, dkappa_of_z=dkappa_merged,
+        YHe=ctx.YHe, fHe=fHe, z_reio=float(z_reio), tau_reio=float(tau_reio),
+        z_rec=z_rec, tau_rec=tau_rec, rs_rec=rs_rec,
+        z_star=z_star, tau_star=tau_star, rs_star=rs_star, ra_star=ra_star,
+        z_d=z_d, tau_d=tau_d, rs_d=rs_d,
+        angular_rescaling=ra_rec / (bg.tau0 - tau_rec),
+        tau_cut=tau_cut, ra_rec=ra_rec, rd_rec=rd_rec, rd_star=rd_star, n_e=n_e)

@@ -1,0 +1,185 @@
+"""Pipeline orchestrator: the staged, lazily cached computation chain.
+
+Counterpart of classpp_public_tpu/pipeline.py (`OutputSelection`, the
+`Cosmology` stages :141-467). Each stage is computed once per parameter set;
+downstream stages pull upstream ones on demand. Stage order: background,
+thermodynamics, perturbations, primordial, transfer, spectra, lensing.
+
+Every stage takes an explicit torch.device. Background and thermodynamics
+are computed on the host by design (see their module docstrings) and hand
+their tables over on that device; the later stages run there.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+
+from .config.params import CosmoParams, check_lcdm
+from .config.precision import PrecisionParams
+
+LEVELS = ["background", "thermodynamics", "perturbations", "primordial",
+          "transfer", "spectra", "lensing"]
+# first selection bin and l_max of the large-scale-structure spectra (the
+# reference defaults selection_mean = 1.0, l_max_lss = 300): with lCl they set
+# the lensing potential's k reach (perturbations_module.cpp:1726-1733)
+SELECTION_MEAN0 = 1.0
+L_LSS_MAX = 300
+
+
+@dataclass
+class OutputSelection:
+    """What to compute (reference 'output=' parsing, input_module.cpp)."""
+
+    tCl: bool = False
+    pCl: bool = False
+    lCl: bool = False
+    mPk: bool = False
+    lensing: bool = False
+    l_scalar_max: int = 2500
+    P_k_max: float = 1.0
+    z_pk: tuple = (0.0,)
+    z_max_pk: float = 0.0
+
+    @property
+    def has_cls(self) -> bool:
+        return self.tCl or self.pCl or self.lCl
+
+    @property
+    def has_pk(self) -> bool:
+        return self.mPk
+
+
+def resolve_device(device) -> torch.device:
+    """The stage device. "cuda" needs a card; nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is "
+                           "False; pass device='cpu' explicitly to run on the CPU")
+    return dev
+
+
+class Cosmology:
+    """Lazy pipeline over (CosmoParams, PrecisionParams, OutputSelection)."""
+
+    def __init__(self, params: CosmoParams, precision: Optional[PrecisionParams] = None,
+                 output: Optional[OutputSelection] = None, device="cuda"):
+        check_lcdm(params)
+        self.params = params
+        self.pr = precision or PrecisionParams()
+        self.out = output or OutputSelection()
+        self.device = resolve_device(device)
+        self._cache = {}
+
+    def set_stage(self, name: str, result):
+        """Seed a stage with a result computed elsewhere, e.g. the JAX
+        package's, moved across with classpp_public_torch.interop. name:
+        "background" ((BackgroundResult, BgIdx)) or "thermodynamics"."""
+        keys = {"background": "bg", "thermodynamics": "th"}
+        if name not in keys:
+            raise ValueError(f"set_stage: {name!r} is not one of {sorted(keys)}")
+        self._cache[keys[name]] = result
+
+    @property
+    def background(self):
+        if "bg" not in self._cache:
+            from .models.background import compute_background
+
+            self._cache["bg"] = compute_background(self.params, self.pr, self.device)
+        return self._cache["bg"]
+
+    @property
+    def thermodynamics(self):
+        if "th" not in self._cache:
+            from .models.thermodynamics import compute_thermodynamics
+
+            bg, bidx = self.background
+            self._cache["th"] = compute_thermodynamics(self.params, self.pr, bg, bidx,
+                                                       self.device)
+        return self._cache["th"]
+
+    @property
+    def l_max_internal(self) -> int:
+        # lensing needs unlensed spectra beyond the output l_max
+        # (l_scalar_max += delta_l_max, input_module.cpp)
+        return self.out.l_scalar_max + (self.pr.delta_l_max if self.out.lensing else 0)
+
+    @property
+    def perturbations(self):
+        if "pt" not in self._cache:
+            from .models.perturbations import compute_perturbations
+
+            bg, bidx = self.background
+            k_max_cl_extra = 0.0
+            if self.out.lCl:
+                # resolve L_LSS_MAX at the comoving distance of the nearest
+                # selection bin
+                from .models.background import tau_of_z
+
+                tau1 = float(tau_of_z(bg, SELECTION_MEAN0))
+                k_max_cl_extra = self.pr.k_max_tau0_over_l_max * L_LSS_MAX \
+                    / (float(bg.tau0) - tau1)
+            self._cache["pt"] = compute_perturbations(
+                self.params, self.pr, bg, bidx, self.thermodynamics,
+                l_scalar_max=self.l_max_internal, k_max_for_pk=self.out.P_k_max,
+                has_cls=self.out.has_cls, has_pk=self.out.has_pk,
+                z_max_pk=self.out.z_max_pk,
+                has_lcmb=self.out.lCl and self.out.has_cls,
+                k_max_cl_extra=k_max_cl_extra, device=self.device)
+        return self._cache["pt"]
+
+    @property
+    def primordial(self):
+        if "pm" not in self._cache:
+            from .models.primordial import compute_primordial
+
+            self._cache["pm"] = compute_primordial(self.params)
+        return self._cache["pm"]
+
+    @property
+    def transfer(self):
+        if "tr" not in self._cache:
+            from .models.transfer import compute_transfer
+
+            self._cache["tr"] = compute_transfer(self.perturbations, self.thermodynamics,
+                                                 self.pr, l_max=self.l_max_internal)
+        return self._cache["tr"]
+
+    @property
+    def spectra(self):
+        if "sp" not in self._cache:
+            from .models.spectra import compute_spectra
+
+            self._cache["sp"] = compute_spectra(self.transfer, self.primordial,
+                                                l_max=self.l_max_internal)
+        return self._cache["sp"]
+
+    @property
+    def lensing(self):
+        if "le" not in self._cache:
+            from .models.lensing import compute_lensing
+
+            self._cache["le"] = compute_lensing(self.spectra, self.pr,
+                                                l_lensed_max=self.out.l_scalar_max)
+        return self._cache["le"]
+
+    def stages(self, level: str = "lensing"):
+        """The stage names `compute(level)` runs, in order."""
+        want = LEVELS.index(level)
+        out = []
+        for lv in LEVELS[: want + 1]:
+            if lv in ("transfer", "spectra") and not self.out.has_cls:
+                continue
+            if lv == "lensing" and not (self.out.lensing and self.out.has_cls):
+                continue
+            out.append(lv)
+        return out
+
+    def compute(self, level: Sequence[str] = ("lensing",)):
+        """Pull all stages up to the requested level (classy.pyx compute())."""
+        want = max(LEVELS.index(lv) for lv in level)
+        for lv in self.stages(LEVELS[want]):
+            getattr(self, lv)
+        return self

@@ -1,0 +1,157 @@
+"""The port's whole slice (perturbations -> transfer -> spectra -> lensing ->
+P(k)) against the JAX `Cosmology` as __graft_entry__.dryrun_multichip builds
+it: small precision, l_scalar_max = 100, lensing on, plus mPk (CPU).
+
+Both pipelines start from the same background and thermodynamics (the JAX
+stages moved across with classpp_public_torch.interop): the source sampling
+in tau steps by a rate containing the third derivative of the optical depth,
+whose last-bit noise decides which samples land where, so independently
+computed tables give another (equally valid) sampling. The stage modules are
+compared one by one in the other test_torch_* files.
+
+Tolerance 1e-3 relative (TE against sqrt(TT EE)), ten times tighter than the
+reference CI contract; the two agree to ~1e-8.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import classpp_public_torch as T
+from classpp_public_torch import interop
+from classpp_public_torch.models.nonlinear import pk_linear_at_z as t_pk
+from classpp_public_torch.models.spectra import CT_TYPES
+
+import classpp_public_tpu as J
+from classpp_public_tpu.models.nonlinear import pk_linear_at_z as j_pk
+from test_torch_common import asdict, one_torch_thread  # noqa: F401
+
+SMALL = dict(background_Nloga=1024, recfast_Nz0=4000, perturb_sampling_stepsize=2.0,
+             tol_perturb_integration=1e-4)
+OUT = dict(tCl=True, pCl=True, lCl=True, mPk=True, lensing=True, l_scalar_max=100,
+           P_k_max=0.2)
+TOL = 1e-3
+
+
+def _pk_at(pert_k, pk, k):
+    return float(np.exp(np.interp(np.log(k), np.log(pert_k), np.log(pk))))
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    import dataclasses
+
+    params = J.CosmoParams()
+    prj = J.PrecisionParams(k_chunk_size=8, **SMALL)
+    cj = J.Cosmology(params, precision=prj, output=J.OutputSelection(**OUT))
+    cj.lensing
+    ct = T.Cosmology(interop.cosmo_params(dataclasses.asdict(params)),
+                     interop.precision_params(dataclasses.asdict(prj)),
+                     T.OutputSelection(**OUT), device="cpu")
+    bg, bidx = cj.background
+    ct.set_stage("background", interop.background(asdict(bg), "cpu", names=bidx.names))
+    ct.set_stage("thermodynamics", interop.thermo(asdict(cj.thermodynamics), "cpu"))
+    ct.compute(["lensing"])
+    return cj, ct
+
+
+def _check_cls(a, b, n):
+    a, b = np.asarray(a)[:n], np.asarray(b)[:n]
+    for i, name in enumerate(CT_TYPES):
+        if name in ("tp", "ep"):
+            continue
+        if name == "te":
+            den = np.sqrt(np.abs(b[:, 0] * b[:, 1]))
+        else:
+            den = np.abs(b[:, i])
+        if name == "bb" and not np.any(den):
+            assert np.all(a[:, i] == 0.0)
+            continue
+        rel = np.max(np.abs(a[:, i] - b[:, i]) / den)
+        assert rel <= TOL, (name, rel)
+
+
+def test_grids_match(pipelines):
+    cj, ct = pipelines
+    np.testing.assert_allclose(ct.perturbations.k_np, cj.perturbations.k_np, rtol=1e-13)
+    np.testing.assert_allclose(ct.perturbations.tau_np, cj.perturbations.tau_np, rtol=1e-13)
+    np.testing.assert_array_equal(ct.transfer.l.numpy(), np.asarray(cj.transfer.l))
+
+
+def test_raw_cls_match_jax(pipelines):
+    cj, ct = pipelines
+    assert ct.spectra.cl.shape == tuple(np.asarray(cj.spectra.cl).shape)
+    _check_cls(ct.spectra.cl.numpy(), cj.spectra.cl, n=99)
+
+
+def test_lensed_cls_match_jax(pipelines):
+    cj, ct = pipelines
+    assert ct.lensing.cl.shape == (99, 7)
+    _check_cls(ct.lensing.cl.numpy(), cj.lensing.cl, n=99)
+
+
+def test_pk_lin_matches_jax(pipelines):
+    cj, ct = pipelines
+    bgj, _ = cj.background
+    bgt, _ = ct.background
+    pj = np.asarray(j_pk(cj.perturbations, bgj, cj.primordial, 0.0))
+    pt = t_pk(ct.perturbations, bgt, ct.primordial, 0.0).numpy()
+    assert np.max(np.abs(pt - pj) / pj) <= TOL
+    k = cj.perturbations.k_np
+    assert _pk_at(k, pt, 0.1) == pytest.approx(_pk_at(k, pj, 0.1), rel=TOL)
+
+
+@pytest.mark.parametrize("stage", ["transfer", "lensing"])
+def test_stage_from_jax_input(pipelines, stage):
+    """One port stage fed the JAX stage's own input through interop."""
+    from classpp_public_torch.models.lensing import compute_lensing
+    from classpp_public_torch.models.transfer import compute_transfer
+
+    cj, ct = pipelines
+    if stage == "transfer":
+        got = compute_transfer(interop.perturb(asdict(cj.perturbations), "cpu"),
+                               ct.thermodynamics, ct.pr, l_max=ct.l_max_internal).delta
+        ref = np.asarray(cj.transfer.delta)
+        for i in range(ref.shape[1]):
+            scale = np.max(np.abs(ref[:, i]))
+            assert np.max(np.abs(got[:, i].numpy() - ref[:, i])) <= 1e-6 * scale, i
+    else:
+        got = compute_lensing(interop.spectra(asdict(cj.spectra), "cpu"), ct.pr,
+                              l_lensed_max=OUT["l_scalar_max"]).cl.numpy()
+        _check_cls(got, cj.lensing.cl, n=99)
+
+
+def test_class_api_on_cpu():
+    """The classy entry point runs the slice on its own tables."""
+    c = T.Class(device="cpu")
+    c.set({"output": "tCl,pCl,lCl,mPk", "lensing": "yes", "l_max_scalars": 60,
+           "P_k_max_1/Mpc": 0.2, "delta_l_max": 100, **SMALL})
+    c.compute(["lensing"])
+    cl, raw = c.lensed_cl(), c.raw_cl()
+    for tab in (cl, raw):
+        assert tab["tt"].shape == (61,)
+        assert np.isfinite(tab["tt"]).all() and (tab["tt"][2:] > 0).all()
+    assert np.isfinite(c.pk_lin(0.1, 0.0)) and c.pk_lin(0.1, 0.0) > 0
+    assert c.cosmo.device == torch.device("cpu")
+    from classpp_public_torch.models import lensing, transfer
+
+    assert transfer.launches == 0 and lensing.launches == 0
+
+
+def test_no_card_no_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.Class()
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.Cosmology(T.CosmoParams())
+
+
+def test_unported_inputs_raise():
+    c = T.Class(device="cpu")
+    c.set({"output": "tCl,mPk", "non linear": "halofit"})
+    with pytest.raises(NotImplementedError, match="nonlinear"):
+        c.compute()
+    c = T.Class(device="cpu")
+    c.set({"output": "tCl", "N_ncdm": 1})
+    with pytest.raises(NotImplementedError, match="N_ncdm"):
+        c.compute()
