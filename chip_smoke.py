@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card.
 
-Runs the `planck_row2` configuration (flat LambdaCDM with massless neutrinos:
-lensed TT/TE/EE/phiphi to l = 2500 plus P(k) to k = 10/Mpc) through
-`classpp_public_torch.Class(device="cuda")`, stage by stage, and checks:
+Runs two configurations through `classpp_public_torch.Class(device="cuda")`,
+stage by stage, at full width and depth:
+
+- `planck_row2`: flat LambdaCDM with massless neutrinos, lensed TT/TE/EE/phiphi
+  to l = 2500 plus P(k) to k = 10/Mpc;
+- `row2_exact`: the base_2018_plikHM_TTTEEE_lowl_lowE_lensing parameter set,
+  with one 0.06 eV massive-neutrino species and halofit (P(k) to 20/Mpc);
+
+and checks:
 
 1. the hand-written CUDA kernels (csrc/*.cu) build with nvcc for sm_90a;
-2. the main path launched each kernel (launch counters, reset just before);
-3. the result against the reference C++ probe tests/golden/bench_probe.json
+2. each main path launched each kernel (launch counters, set to 0 just before
+   the path and read just after);
+3. each result against the reference C++ probe tests/golden/bench_probe.json
    (rel TT/EE/TE <= 3e-3 at l = 220, 1000, 2000, 2500; rel P(0.1) <= 1e-2);
-4. each kernel against its plain PyTorch version on the very tensors the
-   pipeline fed it, with both timed on the card (CUDA events, median of 3).
+4. each kernel against its plain PyTorch version on the very tensors each of
+   the two pipelines fed it, with both timed on the card (CUDA events, median
+   of 3; the plain perturbation integrator once, on a stride of the lanes),
+   beside the least time the card could take for the same work (`bound_ms`).
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one card)
 
@@ -28,12 +37,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROBE = os.path.join(ROOT, "tests", "golden", "bench_probe.json")
 
-PLANCK_ROW2 = {
-    "h": 0.6736, "omega_b": 0.02237, "omega_cdm": 0.1200,
-    "A_s": 2.0989e-9, "n_s": 0.9649, "tau_reio": 0.0544,
-    "output": "tCl,pCl,lCl,mPk", "lensing": "yes",
-    "l_max_scalars": 2500, "P_k_max_1/Mpc": 10.0, "z_pk": "0.",
-}
 CL_TOL, PK_TOL = 3e-3, 1e-2
 # kernel vs plain version: max |kernel - plain| over each output column,
 # relative to that column's max |plain|. Both are float64 and differ only in
@@ -42,17 +45,57 @@ CL_TOL, PK_TOL = 3e-3, 1e-2
 # that its mask keeps, where the recurrence is unstable and amplifies those
 # last-bit differences (by up to ~1e9 at l ~ 10): measured ~1.5e-7 of scale.
 # The lensing passes have no such band: ~1e-12 (BB, a difference of terms).
-KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9}
+# The Gaussian-window sums differ in the order of the sum (strided partials
+# and a tree against a sequential trapezoid) and in exp's last bit: ~1e-15.
+KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-11}
+# perturb_ark: the kernel and the plain integrator round differently (FMA
+# contraction, libm), so an accept/reject decided at the threshold can go the
+# other way; the two solutions then differ by the lane's own tolerance. Lanes
+# are classed by their tolerance rows: CMB lanes (every row tight); P(k)-tail
+# lanes (radiation rows at rtol_rad = 30 rtol with an absolute floor atol_rad
+# = 1e-4, matter rows tight); tail lanes beyond the lensing potential's reach
+# (every row at 30 rtol). Per class and source column, max |kernel - plain|
+# over the class is held to
+#   F (rtol_rad max|plain| + atol_rad)            the four radiation columns;
+#   F (rtol_rad + atol_rad / s_rad) max|plain|    the columns derived from the
+#       radiation rows, which carry the floor relative to the radiation
+#       perturbation's own size s_rad = max |delta_g|, |delta_ur| on the class;
+#   F_ncdm rtol_mat max|plain|                    the two ncdm columns;
+#   F rtol_mat max|plain|                         every other (matter, metric)
+#       column, so that the floor enters no column it does not belong to,
+# with F = PERTURB_TOL_FACTOR and F_ncdm = PERTURB_NCDM_FACTOR. On the CMB
+# lanes (atol 1e-11) every limit is 1e-4 of the column's scale (1e-3 for
+# ncdm); measured there: equal step counts and <= 6e-13 of scale. On the
+# highest tail lanes the radiation perturbation is itself of the floor's size
+# (s_rad = 4e-4 at k = 11/Mpc on planck_row2): its columns are noise there
+# (measured up to 1.2 of their scale apart) and only the matter and metric
+# columns, which P(k) is made of, are held (measured <= 3e-7 of scale against
+# 3e-3). The ncdm fluid oscillates through all ~32 000 steps of the
+# k = 20/Mpc lane of row2_exact and the phase difference of two integrations
+# adds up over them (measured 5.5e-3 of delta_ncdm's scale = 18 rtol_mat
+# there, with the step counts 627 apart), hence its own factor.
+# Step counts are held per lane to PERTURB_STEPS_TOL of the plain count
+# (measured: equal on the CMB lanes, 2.0e-2 apart on that k = 20/Mpc lane).
+PERTURB_TOL_FACTOR = 10.0
+PERTURB_NCDM_FACTOR = 100.0
+PERTURB_STEPS_TOL = 0.05
+PERTURB_RADIATION_COLS = ("delta_g", "theta_g", "delta_ur", "theta_ur")
+PERTURB_DERIVED_COLS = ("t0", "t1", "t2", "p", "phi_prime", "H_T_Nb_prime", "theta_tot")
+PERTURB_NCDM_COLS = ("delta_ncdm", "theta_ncdm")
+PERTURB_STRIDE = 24   # lanes of the plain comparison: every 24th and the last
+# card peaks for `bound_ms`: HBM3 rate, and the float64 rate outside the tensor
+# cores taken as half the published 67 TFLOP/s float32 rate
+PEAK_BYTES_S, PEAK_F64_FLOPS = 3.35e12, 33.5e12
 
 
 def phase(name, t0):
     print(f"[phase] {name}: {time.time() - t0:.3f} s", flush=True)
 
 
-def probe_check(cl, pk):
-    """The bench.py rule (bench.py:91-118) against the planck_row2 probe."""
+def probe_check(config, cl, pk):
+    """The bench.py rule (bench.py:91-118) against the configuration's probe."""
     with open(PROBE) as f:
-        ref = json.load(f)["planck_row2"]
+        ref = json.load(f)[config]
     worst = {}
     for spec in ("tt", "ee", "te"):
         errs = []
@@ -84,13 +127,15 @@ def timed(fn, reps=3):
     return sorted(times)[len(times) // 2], out
 
 
-def spy(module, name, captured):
-    """Wrap module.name so that each call records its arguments in
-    captured[name]; returns the original function."""
+def spy(module, name, captured, size=lambda args: 0):
+    """Wrap module.name so that its calls record their arguments in
+    captured[name], keeping the call of the largest size(args) (the latest
+    among equals); returns the original function."""
     orig = getattr(module, name)
 
     def wrapper(*args, **kwargs):
-        captured[name] = (args, kwargs)
+        if name not in captured or size(args) >= size(captured[name][0]):
+            captured[name] = (args, kwargs)
         return orig(*args, **kwargs)
 
     setattr(module, name, wrapper)
@@ -110,6 +155,229 @@ def compare(name, kern, plain):
     return float(diff.max()), float(diff.max() / plain.abs().max().clamp_min(1e-300))
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float64 operations over the peak rate."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def run_config(name, params, mods):
+    """One main path: the configuration through Class(device="cuda") stage by
+    stage with every launch counter set to 0 just before and read just after;
+    checks shapes, finiteness and the reference probe. Returns (launch counts,
+    captured kernel arguments, stage seconds)."""
+    import numpy as np
+    import torch
+
+    import classpp_public_torch as cpt
+
+    c = cpt.Class(device=torch.device("cuda"))
+    c.set(dict(params))
+    cosmo = c.cosmo
+    captured = {}
+    spies = {"perturb_ark": (mods["perturb_ark"], "integrate_sources", lambda a: 0),
+             "halofit_sigma": (mods["halofit_sigma"], "halofit_sums", lambda a: a[2].numel()),
+             "transfer_los": (mods["transfer_los"], "transfer_los", lambda a: 0),
+             "lensing_wigner": (mods["lensing_wigner"], "lensing_wigner", lambda a: 0)}
+    originals = {k: spy(m, fn, captured, size) for k, (m, fn, size) in spies.items()}
+    for m in mods.values():
+        m.launches = 0
+    t_all = time.time()
+    stage_s = {}
+    for st in cosmo.stages("lensing"):
+        t0 = time.time()
+        getattr(cosmo, st)
+        torch.cuda.synchronize()
+        stage_s[st] = time.time() - t0
+        phase(f"{name} stage {st}", t0)
+    t0 = time.time()
+    cl = c.lensed_cl(2500)
+    raw = c.raw_cl(2500)
+    pk = c.pk_lin(0.1, 0.0)
+    pk_nl = c.pk(0.1, 0.0)
+    torch.cuda.synchronize()
+    stage_s["accessors"] = time.time() - t0
+    phase(f"{name} accessors", t0)
+    phase(f"{name} total", t_all)
+    counts = {k: m.launches for k, m in mods.items()}
+    for k, (m, fn, _) in spies.items():
+        setattr(m, fn, originals[k])
+    print(f"[launches] {name} {counts}", flush=True)
+    missing = [k for k, n in counts.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"{name}: kernels not launched on the main path: {missing}")
+    pt = cosmo.perturbations
+    print(f"[shapes] {name} k {tuple(pt.k.shape)} tau {tuple(pt.tau.shape)} sources "
+          f"{tuple(pt.sources.shape)} transfer {tuple(cosmo.transfer.delta.shape)} "
+          f"steps max {int(pt.stats_steps.max())} mean {float(pt.stats_steps.float().mean()):.1f} "
+          f"k_nl {[round(float(v), 6) for v in cosmo.nonlinear.k_nl]} "
+          f"sigma8 {cosmo.nonlinear.sigma8:.6f} m_ncdm {cosmo.params.m_ncdm}", flush=True)
+    for tname, tab in (("lensed", cl), ("raw", raw)):
+        for spec in ("tt", "ee", "te", "bb", "pp"):
+            arr = np.asarray(tab[spec])
+            if arr.shape != (2501,) or not np.isfinite(arr).all():
+                raise RuntimeError(f"{name} {tname} C_l[{spec}]: shape {arr.shape} or non-finite")
+    if not (np.isfinite(pk) and pk > 0 and 0.8 * pk <= pk_nl <= 1.5 * pk):
+        raise RuntimeError(f"{name}: P(k=0.1) linear {pk}, nonlinear {pk_nl}")
+    ok, rel = probe_check(name, cl, pk)
+    print(f"[probe] {name} {json.dumps(rel)} (tol C_l {CL_TOL}, P(k) {PK_TOL})", flush=True)
+    if not ok:
+        raise RuntimeError(f"{name} probe out of contract: {rel}")
+    print(f"[stages] {name} " + " ".join(f"{k}={v:.3f}s" for k, v in stage_s.items()),
+          flush=True)
+    return counts, captured, stage_s
+
+
+def check_perturb_ark(solve, args, tag):
+    """The integrator kernel against its plain version on every
+    PERTURB_STRIDE-th lane and the last (highest k) of the captured call."""
+    import torch
+
+    from classpp_public_torch.models.perturbations.indices import SrcIdx
+
+    lanes, taus, tables, (rtol, atol) = args
+    idx = tables.idx
+    nl = lanes.k.shape[0]
+    ms, (S, nsteps) = timed(lambda: solve.integrate_sources(lanes, taus, tables, (rtol, atol)))
+    sel = torch.as_tensor(sorted(set(range(0, nl, PERTURB_STRIDE)) | {nl - 1}), device=taus.device)
+    rt_sel, at_sel = rtol[sel].contiguous(), atol[sel].contiguous()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    Sp, np_ = solve.integrate_sources_plain(lanes.take(sel), taus, tables, (rt_sel, at_sel))
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    Sk = S[sel]
+    if not bool(torch.isfinite(S).all()):
+        raise RuntimeError(f"perturb_ark ({tag}): kernel output is not finite")
+    # classes of lanes: those that share one row of tolerances
+    _, cls_of = torch.unique(torch.cat([rt_sel, at_sel], dim=1), dim=0, return_inverse=True)
+    worst, max_abs, bad = 0.0, 0.0, []
+    for c in range(int(cls_of.max()) + 1):
+        m = cls_of == c
+        i0 = int(torch.nonzero(m)[0])
+        rad = (float(rt_sel[i0, idx.delta_g]), float(at_sel[i0, idx.delta_g]))
+        rtol_mat = float(rt_sel[i0, idx.delta_cdm])
+        scales = [float(Sp[m][:, :, i].abs().max()) for i in range(SrcIdx.n)]
+        s_rad = max(scales[SrcIdx.ix["delta_g"]], scales[SrcIdx.ix["delta_ur"]])
+        cls_worst = (0.0, "")
+        for i, (cname, scale) in enumerate(zip(SrcIdx.names, scales)):
+            if cname in PERTURB_RADIATION_COLS:
+                lim = PERTURB_TOL_FACTOR * (rad[0] * scale + rad[1])
+            elif cname in PERTURB_DERIVED_COLS:
+                lim = PERTURB_TOL_FACTOR * (rad[0] + rad[1] / s_rad) * scale
+            elif cname in PERTURB_NCDM_COLS:
+                lim = PERTURB_NCDM_FACTOR * rtol_mat * scale
+            else:
+                lim = PERTURB_TOL_FACTOR * rtol_mat * scale
+            err = float((Sk[m][:, :, i] - Sp[m][:, :, i]).abs().max())
+            max_abs = max(max_abs, err)
+            cls_worst = max(cls_worst, (err / lim if lim > 0 else float(err > 0), cname))
+            if not err <= lim:
+                bad.append(f"class {c} column {cname}: |kernel - plain| {err:.3e} > {lim:.3e} "
+                           f"(scale {scale:.3e})")
+        worst = max(worst, cls_worst[0])
+        k_cls = lanes.k[sel][m]
+        print(f"[perturb_ark] {tag} class {c}: {int(m.sum())} lanes, k {float(k_cls.min()):.4g}"
+              f"-{float(k_cls.max()):.4g}/Mpc, radiation rows (rtol, atol) {rad}, matter rows "
+              f"rtol {rtol_mat}; worst column {cls_worst[1]} at {cls_worst[0]:.3e} of its limit",
+              flush=True)
+    if bad:
+        raise RuntimeError(f"perturb_ark ({tag}) disagrees with its plain version:\n"
+                           + "\n".join(bad))
+    dn = (nsteps[sel] - np_).abs()
+    dn_rel = float((dn / np_).max())
+    print(f"[perturb_ark] {tag}: {len(sel)} of {nl} lanes compared, state {idx.size}; worst error "
+          f"{worst:.3e} of its limit; max |nsteps_kernel - nsteps_plain| {int(dn.max())} "
+          f"({dn_rel:.3e} of the plain count, limit {PERTURB_STEPS_TOL}); plain {plain_ms:.0f} ms "
+          f"for {len(sel)} lanes, kernel {ms:.1f} ms for {nl}", flush=True)
+    if not dn_rel <= PERTURB_STEPS_TOL:
+        raise RuntimeError(f"perturb_ark ({tag}): step counts {dn_rel:.3e} apart")
+    # least work: each attempted step is 6 stages of the right-hand side
+    # (~12 n + 400 operations), the stage combinations (30 (n + n_stiff)) and
+    # the solution and error sums (24 n), at the width the lanes keep once the
+    # ncdm block has collapsed to its 3 fluid moments; every input read and
+    # the source table written once
+    n_late = idx.size - (idx.n_ncdm_block - 3 * idx.n_ncdm if idx.n_ncdm else 0)
+    flops = float(nsteps.sum()) * (6 * (12 * n_late + 400) + 30 * (n_late + idx.theta_b + 1)
+                                   + 24 * n_late)
+    bms, bby = bound(nbytes(S, taus, rtol, atol, tables.bg.y, tables.bg.y2, tables.th.y,
+                            tables.th.y2) + 6 * 8 * nl, flops)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, plain_lanes=len(sel),
+                kernel_lanes=nl, nsteps_max_diff=int(dn.max()), bound_ms=bms, bound_by=bby,
+                scaled_err=worst)
+
+
+def check_kernels(tag, captured, solve, nonlinear, transfer, lensing):
+    """Every kernel against its plain version on the tensors the main path
+    `tag` fed it; returns {kernel: measurements}. Raises where a kernel is
+    beyond its tolerance."""
+    out = {"perturb_ark": check_perturb_ark(solve, captured["integrate_sources"][0], tag)}
+
+    def columns(kname, kern, plain, axis):
+        errs = [compare(kname, kern.select(axis, i), plain.select(axis, i))
+                for i in range(kern.shape[axis])]
+        return dict(max_abs_err=max(e[0] for e in errs), scaled_err=max(e[1] for e in errs))
+
+    base, k_hf, R = captured["halofit_sums"][0]
+    ms, kout = timed(lambda: nonlinear.halofit_sums(base, k_hf, R))
+    plain_ms, pout = timed(lambda: nonlinear.halofit_sums_plain(base, k_hf, R))
+    # per (z, R, k): one exp and two log (~20 operations each) and ~15 more
+    bms, bby = bound(nbytes(base, k_hf, R, kout), 75.0 * R.numel() * k_hf.numel())
+    print(f"[halofit_sigma] {tag}: base {tuple(base.shape)} R {tuple(R.shape)}", flush=True)
+    out["halofit_sigma"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                                **columns("halofit_sigma", kout, pout, -1))
+
+    args, kw = captured["transfer_los"]
+    ms, kout = timed(lambda: transfer.transfer_los(*args, **kw))
+    plain_ms, pout = timed(lambda: transfer.transfer_los_plain(*args, **kw))
+    W, taus, _, q, l_emit = args[:5]
+    # per (q, tau): 8 operations per l of the recurrence, ~60 per emitted l
+    bms, bby = bound(nbytes(W, taus, q, kout),
+                     float(q.numel() * taus.numel()) * (8.0 * int(l_emit[-1]) + 60.0 * len(l_emit)))
+    print(f"[transfer_los] {tag}: W {tuple(W.shape)} out {tuple(kout.shape)}", flush=True)
+    out["transfer_los"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                               **columns("transfer_los", kout, pout, 1))
+
+    args, kw = captured["lensing_wigner"]
+    ms, kout = timed(lambda: lensing.lensing_wigner(*args, **kw))
+    plain_ms, pout = timed(lambda: lensing.lensing_wigner_plain(*args, **kw))
+    cl_of_l, mu, w8, l_lensed = args[:4]
+    # per mu: ~190 operations per unlensed l (the two d of the deflection
+    # variances, then the twelve Wigner recurrences and their sums) and ~100
+    # per lensed l of the back-transform
+    bms, bby = bound(nbytes(cl_of_l, mu, w8, kout),
+                     float(mu.numel()) * (190.0 * (cl_of_l.shape[0] - 1) + 100.0 * int(l_lensed)))
+    out["lensing_wigner"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                                 **columns("lensing_wigner", kout, pout, 1))
+
+    scaled = {k: v.pop("scaled_err") for k, v in out.items()}
+    print(f"[kernels] {tag} scaled error: {scaled}; tolerance {KERNEL_TOL} of max |plain|, "
+          f"perturb_ark 1.0 of its per-class, per-column limit", flush=True)
+    bad = [n for n, e in scaled.items() if not e <= KERNEL_TOL.get(n, 1.0)]
+    if bad:
+        raise RuntimeError(f"{tag}: kernels disagree with their plain versions beyond "
+                           f"tolerance: {bad}")
+    return out
+
+
+KERNELS = (
+    ("perturb_ark", "classpp_public_torch/csrc/perturb_ark.cu",
+     "classpp_public_tpu/models/perturbations/solve.py:151"),
+    ("halofit_sigma", "classpp_public_torch/csrc/halofit_sigma.cu",
+     "classpp_public_tpu/models/nonlinear.py:433"),
+    ("transfer_los", "classpp_public_torch/csrc/transfer_los.cu",
+     "classpp_public_tpu/models/transfer.py:360"),
+    ("lensing_wigner", "classpp_public_torch/csrc/lensing_wigner.cu",
+     "classpp_public_tpu/models/lensing.py:94"),
+)
+
+
 def main():
     import torch
 
@@ -118,11 +386,10 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import numpy as np
-
-    import classpp_public_torch as cpt
-    from classpp_public_torch.models import lensing, transfer
+    from classpp_public_torch.models import lensing, nonlinear, transfer
+    from classpp_public_torch.models.perturbations import solve
     from classpp_public_torch.ops import cuda
+    from classpp_public_torch.tools.configs import CONFIGS
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -136,89 +403,28 @@ def main():
     cuda.library()
     phase(f"build kernels ({os.path.relpath(lib_path, ROOT)})", t0)
 
-    # --- main path: planck_row2 through Class(device="cuda"), stage by stage
-    dev = torch.device("cuda")
-    c = cpt.Class(device=dev)
-    c.set(dict(PLANCK_ROW2))
-    cosmo = c.cosmo
-    captured = {}
-    kernel_fns = {"transfer_los": spy(transfer, "transfer_los", captured),
-                  "lensing_wigner": spy(lensing, "lensing_wigner", captured)}
-    transfer.launches = lensing.launches = 0
-    t_all = time.time()
-    stage_s = {}
-    for st in cosmo.stages("lensing"):
+    # --- the main paths, each with its own launch counts and probe
+    mods = {"perturb_ark": solve, "halofit_sigma": nonlinear, "transfer_los": transfer,
+            "lensing_wigner": lensing}
+    counts, captured = {}, {}
+    for tag, params in CONFIGS.items():
+        counts[tag], captured[tag], _ = run_config(tag, params, mods)
+
+    # --- each kernel against its plain version, on the tensors of each path
+    results = {}
+    for tag in CONFIGS:
         t0 = time.time()
-        getattr(cosmo, st)
-        torch.cuda.synchronize()
-        stage_s[st] = time.time() - t0
-        phase(f"stage {st}", t0)
-    t0 = time.time()
-    cl = c.lensed_cl(2500)
-    raw = c.raw_cl(2500)
-    pk = c.pk_lin(0.1, 0.0)
-    torch.cuda.synchronize()
-    phase("accessors", t0)
-    phase("planck_row2 total", t_all)
-    counts = {"transfer_los": transfer.launches, "lensing_wigner": lensing.launches}
-    transfer.transfer_los = kernel_fns["transfer_los"]
-    lensing.lensing_wigner = kernel_fns["lensing_wigner"]
-    print(f"[launches] {counts}", flush=True)
-    missing = [k for k, n in counts.items() if n <= 0]
-    if missing:
-        raise RuntimeError(f"kernels not launched on the main path: {missing}")
-    pt = cosmo.perturbations
-    print(f"[shapes] k {tuple(pt.k.shape)} tau {tuple(pt.tau.shape)} sources "
-          f"{tuple(pt.sources.shape)} transfer {tuple(cosmo.transfer.delta.shape)} "
-          f"steps max {int(pt.stats_steps.max())} mean {float(pt.stats_steps.float().mean()):.1f}",
-          flush=True)
+        results[tag] = check_kernels(tag, captured[tag], solve, nonlinear, transfer, lensing)
+        phase(f"{tag} kernel vs plain comparison", t0)
 
-    # --- the result: finite, shaped, and in contract with the reference probe
-    for name, tab in (("lensed", cl), ("raw", raw)):
-        for spec in ("tt", "ee", "te", "bb", "pp"):
-            arr = np.asarray(tab[spec])
-            if arr.shape != (2501,) or not np.isfinite(arr).all():
-                raise RuntimeError(f"{name} C_l[{spec}]: shape {arr.shape} or non-finite")
-    if not (np.isfinite(pk) and pk > 0):
-        raise RuntimeError(f"P(k=0.1) = {pk}")
-    ok, rel = probe_check(cl, pk)
-    print(f"[probe] planck_row2 {json.dumps(rel)} (tol C_l {CL_TOL}, P(k) {PK_TOL})",
-          flush=True)
-    if not ok:
-        raise RuntimeError(f"planck_row2 probe out of contract: {rel}")
-
-    # --- each kernel against its plain version on the captured inputs
-    t0 = time.time()
-    kernels = []
-    args, kw = captured["transfer_los"]
-    ms, kout = timed(lambda: transfer.transfer_los(*args, **kw))
-    plain_ms, pout = timed(lambda: transfer.transfer_los_plain(*args, **kw))
-    errs = [compare("transfer_los", kout[:, i], pout[:, i]) for i in range(kout.shape[1])]
-    kernels.append(dict(name="transfer_los", route="cuda",
-                        source="classpp_public_torch/csrc/transfer_los.cu",
-                        replaces="classpp_public_tpu/models/transfer.py:360",
-                        launches=counts["transfer_los"],
-                        max_abs_err=max(e[0] for e in errs), ms=ms, plain_ms=plain_ms,
-                        scaled_err=max(e[1] for e in errs)))
-    args, kw = captured["lensing_wigner"]
-    ms, kout = timed(lambda: lensing.lensing_wigner(*args, **kw))
-    plain_ms, pout = timed(lambda: lensing.lensing_wigner_plain(*args, **kw))
-    errs = [compare("lensing_wigner", kout[:, i], pout[:, i]) for i in range(kout.shape[1])]
-    kernels.append(dict(name="lensing_wigner", route="cuda",
-                        source="classpp_public_torch/csrc/lensing_wigner.cu",
-                        replaces="classpp_public_tpu/models/lensing.py:94",
-                        launches=counts["lensing_wigner"],
-                        max_abs_err=max(e[0] for e in errs), ms=ms, plain_ms=plain_ms,
-                        scaled_err=max(e[1] for e in errs)))
-    phase("kernel vs plain comparison", t0)
-    scaled = {k["name"]: k.pop("scaled_err") for k in kernels}
-    print(f"[kernels] scaled error (max |kernel - plain| / max |plain|): {scaled}, "
-          f"tolerance {KERNEL_TOL}", flush=True)
-    print("[stages] " + " ".join(f"{k}={v:.3f}s" for k, v in stage_s.items()), flush=True)
-    bad = [n for n, e in scaled.items() if not e <= KERNEL_TOL[n]]
-    if bad:
-        raise RuntimeError(f"kernels disagree with their plain versions beyond "
-                           f"{KERNEL_TOL} (scaled): {bad}")
+    # one entry per kernel: the numbers of row2_exact (its launches beside its
+    # times), and those of planck_row2 under that key
+    kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=counts["row2_exact"][name], library_ms=None,
+                    **results["row2_exact"][name],
+                    planck_row2=dict(launches=counts["planck_row2"][name], library_ms=None,
+                                     **results["planck_row2"][name]))
+               for name, source, replaces in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

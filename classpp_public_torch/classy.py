@@ -1,6 +1,8 @@
 """classy-compatible entry point (counterpart of classpp_public_tpu/classy.py:
-`Class.set` :76, `compute` :976, `raw_cl` :1007, `lensed_cl` :1086,
-`pk_lin` :1221), for the inputs of the flat-LambdaCDM slice.
+`Class.set` :76, `_m_ncdm_from_omega` :863, `compute` :976, `raw_cl` :1007,
+`lensed_cl` :1086, `pk_lin` :1221, `pk` :1257, `pk_cb` :1275, `sigma8` :1319),
+for the inputs of the flat-LambdaCDM slice with Fermi-Dirac massive neutrinos
+and halofit.
 
 Every other input key raises with the JAX file and line that implements it.
 """
@@ -12,6 +14,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from . import constants as const
 from .config.params import CosmoParams
 from .config.precision import PrecisionParams
 from .pipeline import Cosmology, OutputSelection, resolve_device
@@ -85,6 +88,29 @@ class Class:
         if "tau_reio" in kw and "z_reio" not in kw:
             kw["z_reio"] = None
 
+        # ncdm (classy.py:208-266)
+        n_ncdm = int(p.pop("N_ncdm", 0) or 0)
+        if n_ncdm > 0:
+            if "T_ncdm" in p:
+                kw["T_ncdm"] = tuple(_parse_list(p.pop("T_ncdm")))
+            if "deg_ncdm" in p:
+                kw["deg_ncdm"] = tuple(_parse_list(p.pop("deg_ncdm")))
+            if "m_ncdm" in p or not any(x in p for x in ("Omega_ncdm", "omega_ncdm")):
+                kw["m_ncdm"] = tuple(_parse_list(p.pop("m_ncdm", "0.06")))
+            else:
+                # Omega_ncdm / omega_ncdm given: invert the momentum integral
+                # for the mass per species
+                om = _parse_list(p.pop("Omega_ncdm", "")) or \
+                    [v / (h * h) for v in _parse_list(p.pop("omega_ncdm", ""))]
+                p.pop("omega_ncdm", None)
+                tol_M = float(p.get("tol_M_ncdm", 1.0e-7))
+                kw["m_ncdm"] = tuple(self._m_ncdm_from_omega(dict(kw), i, float(om[i]), h,
+                                                             tol_M=tol_M)
+                                     for i in range(len(om)))
+            if len(kw["m_ncdm"]) != n_ncdm:
+                raise CosmoSevereError(
+                    f"N_ncdm = {n_ncdm} but {len(kw['m_ncdm'])} masses were given")
+
         out = OutputSelection()
         output = str(p.pop("output", ""))
         extra = [t for t in output.replace(",", " ").split() if t not in _OUTPUT_TOKENS]
@@ -109,10 +135,16 @@ class Class:
         if "z_max_pk" in p:
             out.z_max_pk = float(p.pop("z_max_pk"))
         out.z_max_pk = max(out.z_max_pk, max(out.z_pk))
-        if "non linear" in p or "non_linear" in p:
+        nl_explicit = "non linear" in p or "non_linear" in p
+        out.non_linear = str(p.pop("non linear", p.pop("non_linear", ""))).strip().lower()
+        if nl_explicit and output.strip() in ("", "none"):
+            raise CosmoSevereError("Class did not read input parameter(s): non linear")
+        if out.non_linear == "hmcode":
             raise NotImplementedError(
-                "non linear (halofit/hmcode) is not ported "
-                "(classpp_public_tpu/models/nonlinear.py:490, classy.py:535-564)")
+                "non linear = hmcode is not ported "
+                "(classpp_public_tpu/models/nonlinear.py:203, classy.py:546-564)")
+        if out.non_linear not in ("", "halofit"):
+            raise CosmoSevereError(f"unknown non linear method {out.non_linear!r}")
 
         pr_fields = {f.name: f for f in dataclasses.fields(PrecisionParams)}
         prkw = {}
@@ -127,7 +159,51 @@ class Class:
             raise NotImplementedError(
                 "input parameter(s) not ported: " + ", ".join(repr(k) for k in sorted(p))
                 + " (classpp_public_tpu/classy.py:93-860 parses them)")
-        return Cosmology(CosmoParams(**kw), PrecisionParams(**prkw), out, device=self.device)
+        pr = PrecisionParams(**prkw)
+        if out.non_linear:
+            # the sigma(R) integrals need k beyond the requested P(k) range
+            # (input_module.cpp:2806-2811)
+            out.P_k_max = max(out.P_k_max, pr.nonlinear_min_k_max, pr.halofit_min_k_max)
+        return Cosmology(CosmoParams(**kw), pr, out, device=self.device)
+
+    @staticmethod
+    def _m_ncdm_from_omega(kw: dict, i: int, omega_target: float, h: float,
+                           tol_M: float = 1.0e-7) -> float:
+        """Invert Omega_ncdm_i -> m_ncdm_i [eV] by bisection on the momentum
+        integral (background_ncdm_M_from_Omega,
+        tools/non_cold_dark_matter.cpp:893): each iteration is one 128-node
+        quadrature."""
+        from .models.background import _RHO_INTEGRAL_0, ncdm_psd_weights
+
+        T_cmb = float(kw.get("T_cmb", 2.7255))
+        T_list, deg_list = kw.get("T_ncdm", ()), kw.get("deg_ncdm", ())
+        T_ratio = T_list[i] if i < len(T_list) else 0.71611
+        deg = deg_list[i] if i < len(deg_list) else 1.0
+        qn, wn, _ = ncdm_psd_weights(CosmoParams(m_ncdm=(0.0,) * (i + 1)), 128, gauss=False)
+        w_i = wn[i]
+        H0 = h / 2997.92458
+        Omega_g = const.rho_gamma_class_units(T_cmb) / H0**2
+        T0_eV = const.k_B * T_cmb * T_ratio / const.eV_SI
+
+        def omega_of_m(m):
+            x = m / T0_eV
+            i_rho = np.sum(qn**2 * np.sqrt(qn**2 + x**2) * w_i) / _RHO_INTEGRAL_0
+            return deg * (7.0 / 8.0) * T_ratio**4 * Omega_g * i_rho
+
+        lo, hi = 0.0, 1.0
+        while omega_of_m(hi) < omega_target and hi < 1.0e6:
+            hi *= 10.0
+        if omega_of_m(hi) < omega_target:
+            raise CosmoSevereError(f"cannot match Omega_ncdm={omega_target} with any mass")
+        for _ in range(200):
+            mid = 0.5 * (lo + hi)
+            if omega_of_m(mid) < omega_target:
+                lo = mid
+            else:
+                hi = mid
+            if mid > 0.0 and (hi - lo) / mid < tol_M:
+                break
+        return 0.5 * (lo + hi)
 
     def compute(self, level=("lensing",)):
         if isinstance(level, str):
@@ -139,7 +215,7 @@ class Class:
         if not self._cosmo.out.lensing:
             lv = ["spectra" if x == "lensing" else x for x in lv]
         if not self._cosmo.out.has_cls:
-            lv = ["primordial" if x in ("lensing", "spectra", "transfer") else x for x in lv]
+            lv = ["nonlinear" if x in ("lensing", "spectra", "transfer") else x for x in lv]
         if not (self._cosmo.out.has_cls or self._cosmo.out.has_pk):
             lv = ["thermodynamics"]
         self._cosmo.compute(lv)
@@ -181,13 +257,76 @@ class Class:
         le = self.cosmo.lensing
         return self._cl_dict(le.ell, le.cl, self.cosmo.out.l_scalar_max if lmax < 0 else lmax)
 
-    def pk_lin(self, k, z):
-        """Linear P_m(k, z) in Mpc^3 (classy.pyx pk_lin)."""
-        from .models.nonlinear import pk_linear_at_z
-
+    def _require_mpk(self):
         if not self.cosmo.out.has_pk:
             raise CosmoSevereError("no mPk in output: P(k) was not computed")
+
+    def _pk_lin_col(self, k, z, col):
+        from .models.nonlinear import pk_linear_at_z
+
+        self._require_mpk()
         bg, _ = self.cosmo.background
         pert = self.cosmo.perturbations
-        pk = pk_linear_at_z(pert, bg, self.cosmo.primordial, float(z)).cpu().numpy()
+        pk = pk_linear_at_z(pert, bg, self.cosmo.primordial, float(z), col).cpu().numpy()
         return float(np.exp(np.interp(np.log(k), np.log(pert.k_np), np.log(pk))))
+
+    def pk_lin(self, k, z):
+        """Linear P_m(k, z) in Mpc^3 (classy.pyx pk_lin)."""
+        return self._pk_lin_col(k, z, "delta_m")
+
+    def _pk_nl_row(self, z, pk_table):
+        """ln P_nl(k) row at redshift z: ln P interpolated linearly in
+        ln(1+z) between the two adjacent tabulated z_pk rows; raises outside
+        the tabulated range (classy.py:1232)."""
+        zs = self.cosmo.nonlinear.z.cpu().numpy()
+        order = np.argsort(zs)
+        zs_s = zs[order]
+        lnp = np.log(pk_table.cpu().numpy())[order]
+        if z < zs_s[0] - 1e-10 or z > zs_s[-1] + 1e-10:
+            if abs(z - zs_s[0]) < 1e-8:
+                return lnp[0]
+            if abs(z - zs_s[-1]) < 1e-8:
+                return lnp[-1]
+            raise CosmoSevereError(
+                f"z={z} outside computed nonlinear z_pk range [{zs_s[0]}, {zs_s[-1]}]")
+        if len(zs_s) == 1:
+            return lnp[0]
+        x = np.log1p(zs_s)
+        j = int(np.clip(np.searchsorted(x, np.log1p(z)) - 1, 0, len(x) - 2))
+        w = (np.log1p(z) - x[j]) / (x[j + 1] - x[j])
+        return (1.0 - w) * lnp[j] + w * lnp[j + 1]
+
+    def _pk_nl(self, k, z, pk_table):
+        lnk = np.log(self.cosmo.perturbations.k_np)
+        return float(np.exp(np.interp(np.log(k), lnk, self._pk_nl_row(z, pk_table))))
+
+    def pk(self, k, z):
+        """P_m(k, z): halofit if 'non linear' was requested, else linear."""
+        self._require_mpk()
+        if self.cosmo.out.non_linear:
+            return self._pk_nl(k, z, self.cosmo.nonlinear.pk_nl)
+        return self.pk_lin(k, z)
+
+    def _require_pk_cb(self):
+        if self.cosmo.params.N_ncdm == 0:
+            raise CosmoSevereError("P_cb not computed (probably because there are no massive "
+                                   "neutrinos) so you cannot ask for it")
+
+    def pk_cb_lin(self, k, z):
+        self._require_pk_cb()
+        return self._pk_lin_col(k, z, "delta_cb")
+
+    def pk_cb(self, k, z):
+        if self.cosmo.out.non_linear:
+            return self._pk_nl(k, z, self.cosmo.nonlinear.pk_cb_nl)
+        return self.pk_cb_lin(k, z)
+
+    def sigma8(self):
+        """sigma8 of the linear total-matter spectrum at z = 0."""
+        from .models.nonlinear import pk_linear_at_z, sigma_R
+
+        self._require_mpk()
+        bg, _ = self.cosmo.background
+        pert = self.cosmo.perturbations
+        pk = pk_linear_at_z(pert, bg, self.cosmo.primordial, 0.0)
+        return float(sigma_R(pert.k, pk, 8.0 / self.cosmo.params.h)[0])

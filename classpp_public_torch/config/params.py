@@ -23,7 +23,7 @@ class CosmoParams:
 
     Defaults replicate the reference's built-in `input_default_params`
     (input_module.cpp:3150-3400). Fields of features outside the ported
-    flat-LambdaCDM slice are kept so that a parameter set carries over from
+    flat-LambdaCDM + massive-neutrino slice are kept so that a parameter set carries over from
     the JAX package unchanged; the stages raise when one is switched on."""
 
     # background
@@ -147,15 +147,23 @@ class CosmoParams:
     def N_ncdm(self) -> int:
         return len(self.m_ncdm)
 
+    def T_ncdm_of(self, i: int) -> float:
+        # 0.71611 is the CLASS default accounting for non-instantaneous decoupling
+        return self.T_ncdm[i] if i < len(self.T_ncdm) else 0.71611
+
+    def deg_ncdm_of(self, i: int) -> float:
+        return self.deg_ncdm[i] if i < len(self.deg_ncdm) else 1.0
+
     @property
     def N_eff(self) -> float:
-        """Relativistic species count for the BBN YHe lookup. Massive
-        neutrinos are outside this slice, so it is N_ur."""
-        if self.N_ncdm:
-            raise NotImplementedError(
-                "ncdm species are not ported yet "
-                "(classpp_public_tpu/config/params.py CosmoParams.N_eff)")
-        return self.N_ur
+        """Relativistic species count in the early universe, for the BBN YHe
+        lookup: N_ur plus each (then-relativistic) Fermi-Dirac ncdm species
+        weighted by deg (T_ncdm / (4/11)^(1/3))^4
+        (NonColdDarkMatter::GetNeff, tools/non_cold_dark_matter.cpp:1010)."""
+        t_std = (4.0 / 11.0) ** (1.0 / 3.0)
+        return self.N_ur + sum(
+            self.deg_ncdm_of(i) * (self.T_ncdm_of(i) / t_std) ** 4
+            for i in range(self.N_ncdm))
 
     def replace(self, **kw) -> "CosmoParams":
         return dataclasses.replace(self, **kw)
@@ -163,10 +171,15 @@ class CosmoParams:
 
 def check_lcdm(params: CosmoParams) -> None:
     """Raise for every parameter that switches on physics outside the
-    flat-LambdaCDM slice, naming the JAX code that implements it."""
+    flat-LambdaCDM + massive-neutrino slice, naming the JAX code that implements it."""
     bad = []
-    if params.N_ncdm:
-        bad.append("ncdm species (classpp_public_tpu/models/background.py:387)")
+    if any(params.ksi_ncdm) or any(params.ncdm_psd_files):
+        bad.append("ncdm chemical potentials and tabulated phase-space distributions "
+                   "(classpp_public_tpu/models/background.py:132)")
+    if params.ncdm_quadrature_strategy:
+        bad.append("ncdm 'Quadrature strategy' (classpp_public_tpu/models/background.py:163)")
+    if params.N_ncdm_decay_dr:
+        bad.append("decaying ncdm (classpp_public_tpu/models/background.py:469)")
     if params.Omega_k != 0.0:
         bad.append("spatial curvature (classpp_public_tpu/models/transfer.py:534)")
     if params.use_fld:

@@ -139,6 +139,10 @@ class PrecisionParams:
     l_switch_limber: float = 10.0
 
     # --- nonlinear (precisions.h:418-449)
+    nonlinear_min_k_max: float = 20.0
+    halofit_min_k_max: float = 5.0
+    halofit_min_k_nonlinear: float = 1.0e-4
+    halofit_k_per_decade: float = 80.0
     sBBN_file: str = "sBBN_2017.dat"
 
     # --- lensing (precisions.h:492-495)

@@ -1,0 +1,119 @@
+// Scalar perturbation integrator: every k mode (lane) integrated from its
+// initial time through all source sampling times by adaptive IMEX
+// ARK4(3)6L[2]SA steps, with the approximation-switch clipping and remaps and
+// the source emission, in ONE launch.
+//
+// Replaces the jitted solver heads of
+// classpp_public_tpu/models/perturbations/solve.py (`_stepper` :198-314,
+// `solve_one_k` :317, the init/advance/emit/window heads :151,172,410,426,442),
+// whose plain PyTorch version is `integrate_sources_plain` in
+// classpp_public_torch/models/perturbations/solve.py. The per-lane program
+// itself is perturb_ark.cuh.
+//
+// Design: one lane per warp, one warp per block. Each lane runs its own
+// while loop to its last sample: no lockstep between lanes, no host reads, no
+// state table. The state, the six explicit and six implicit stage vectors and
+// the step's scratch (9 n + 7 n_stiff doubles per lane; n = 46 without massive
+// neutrinos, 334 with one species on 16 momenta: 4 KB and 25 KB) live in the
+// block's shared memory. The 32 threads share every loop over state
+// components, hierarchy moments and momenta, and each reads one column of the
+// two table splines per stage time; the scalar Einstein and
+// tight-coupling block and the step control are computed by every thread, so
+// all branches are uniform; the ncdm momentum sums and the error ratio are
+// xor-butterfly reductions over the warp, whose order is fixed (no atomics)
+// and which leave the same bits in every thread. What bounds it on an H100:
+// latency, not bytes or operations. A few hundred lanes are a few hundred
+// warps (4-5 per SM), and the launch lasts as long as the slowest lane's
+// serial chain of steps (3500 on planck_row2; 32 000 on the k = 20/Mpc lane
+// of a run with massive neutrinos, whose fluid keeps oscillating); within a
+// step the dependent chain is the scalar block of each of the six stages.
+//
+// A lane that runs past max_steps or cannot produce a finite step sets its
+// status word (1, 2); the wrapper reads the words once and raises.
+
+#include <cuda_runtime.h>
+
+#include "perturb_ark.cuh"
+
+#ifdef PK_PROFILE
+// section cycles of the last lane (the highest k) of the latest launch
+__device__ long long g_profile[pk::kProfSections];
+extern "C" int perturb_ark_profile(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_profile, sizeof(long long) * pk::kProfSections);
+}
+#define PK_PROFILE_OUT(lane, nlanes) ((lane) == (nlanes) - 1 ? g_profile : nullptr)
+#else
+#define PK_PROFILE_OUT(lane, nlanes) nullptr
+#endif
+
+namespace {
+
+constexpr int kWarp = 32;
+
+__global__ void __launch_bounds__(kWarp)
+perturb_ark_kernel(pk::Layout L, pk::Tables T,
+                   const double* __restrict__ lanes,  // (6, nl): k, tau_ini, t_tca, t_ufa, t_rsa, t_ncfa
+                   const double* __restrict__ taus,   // (ntau,)
+                   const double* __restrict__ rtol,   // (nl, n)
+                   const double* __restrict__ atol,   // (nl, n)
+                   double k_eta_split, long max_steps, int nlanes, int ntau,
+                   double* __restrict__ S,            // (nl, ntau, 27)
+                   long long* __restrict__ nsteps,    // (nl,)
+                   int* __restrict__ status) {        // (nl,)
+  extern __shared__ double work[];                    // work_doubles(L)
+  const int lane = blockIdx.x;
+  const pk::Team tm{(int)threadIdx.x, kWarp};
+  pk::Lane ln;
+  ln.k = lanes[lane];
+  const double tau_ini = lanes[nlanes + lane];
+  ln.t_tca = lanes[2 * nlanes + lane];
+  ln.t_ufa = lanes[3 * nlanes + lane];
+  ln.t_rsa = lanes[4 * nlanes + lane];
+  ln.t_ncfa = lanes[5 * nlanes + lane];
+  ln.eta_off = ln.k < k_eta_split ? 1.0 : 0.0;
+  long long steps = 0;
+  const int st = pk::integrate_lane(
+      L, T, tm, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n, atol + (long)lane * L.n,
+      max_steps, work, S + (long)lane * ntau * pk::kNSrc, &steps,
+      PK_PROFILE_OUT(lane, nlanes));
+  if (tm.tid == 0) {
+    nsteps[lane] = steps;
+    status[lane] = st;
+  }
+}
+
+}  // namespace
+
+// layout: kLayoutInts host ints in pk::Layout order. Every other pointer is a
+// device pointer. ncdm: q (nq), w (ns, nq), dlnf0 (ns, nq), x_fac (ns),
+// pref (ns) packed in this order (unused when ns = 0). The lane's scratch is
+// dynamic shared memory: a state too wide for one block's 227 KB is refused.
+extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const double* taus,
+                                  const double* bg_y, const double* bg_y2, double bg_x0,
+                                  double bg_dx, int bg_n, const double* th_y,
+                                  const double* th_y2, double th_x0, double th_dx, int th_n,
+                                  const double* ncdm, const double* rtol, const double* atol,
+                                  double k_eta_split, long long max_steps, int nlanes, int ntau,
+                                  double* S, long long* nsteps, int* status, void* stream) {
+  pk::Layout L;
+  int* li = reinterpret_cast<int*>(&L);
+  for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
+  const size_t smem = (size_t)pk::work_doubles(L) * sizeof(double);
+  if (L.ns > pk::kMaxSpecies || nlanes < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        perturb_ark_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  pk::Tables T;
+  T.bg_y = bg_y; T.bg_y2 = bg_y2; T.bg_x0 = bg_x0; T.bg_dx = bg_dx; T.bg_n = bg_n;
+  T.bg_ncol = pk::kNBgBase + 3 * L.ns;
+  T.th_y = th_y; T.th_y2 = th_y2; T.th_x0 = th_x0; T.th_dx = th_dx; T.th_n = th_n;
+  const long nsq = (long)L.ns * L.nq;
+  T.q = ncdm; T.w = ncdm + L.nq; T.dlnf0 = T.w + nsq; T.x_fac = T.dlnf0 + nsq;
+  T.pref = T.x_fac + L.ns;
+  perturb_ark_kernel<<<nlanes, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
+      L, T, lanes, taus, rtol, atol, k_eta_split, (long)max_steps, nlanes, ntau, S, nsteps,
+      status);
+  return (int)cudaGetLastError();
+}

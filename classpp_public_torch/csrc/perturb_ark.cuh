@@ -1,0 +1,870 @@
+// Per-lane scalar perturbation integrator: equations, IMEX step and source
+// emission for ONE k mode, written as plain C++ functions for a TEAM of
+// threads that share the lane's vectors: every loop over state components,
+// hierarchy moments or momenta is strided over the team (`for (c = tid; c < n;
+// c += nt)`), the scalar Einstein/tight-coupling block and all step control are
+// computed redundantly by every thread (so every branch is uniform), and the
+// momentum sums and the error ratio are butterfly reductions that leave the
+// same bits in every thread. perturb_ark.cu runs one lane per warp (a team of
+// 32) on vectors in shared memory; compiled without nvcc the same functions
+// build for the host with a team of one, which is how the arithmetic can be
+// checked against the plain PyTorch version without a card.
+//
+// Synchronisation rule: a function that writes a shared vector ends with
+// team_sync(); a function that reads may assume its inputs are visible.
+//
+// Counterparts, line by line: classpp_public_torch/models/perturbations/
+// equations.py (rhs_full, stiff_apply, stiff_solve, adiabatic_ic, the remaps,
+// compute_sources), ops/ode.py (ark_step) and solve.py (_step). Flat
+// universe, synchronous gauge, adiabatic mode; photons, polarization,
+// baryons, cdm, massless neutrinos, n_s massive-neutrino species on a shared
+// momentum grid, and the metric.
+
+#pragma once
+
+#include <math.h>
+
+#ifdef __CUDACC__
+#define PK_FN __device__
+#define PK_HOST_FN __host__ __device__
+#define PK_TABLE __constant__ const
+#else
+#define PK_FN inline
+#define PK_HOST_FN inline
+#define PK_TABLE static const
+#endif
+
+namespace pk {
+
+constexpr int kMaxSpecies = 4;   // ncdm species a frame can hold
+constexpr int kNSrc = 27;        // SrcIdx.n
+constexpr int kNBgBase = 10;     // BG_COLS without the ncdm columns
+constexpr int kNTh = 6;          // TH_COLS
+constexpr int kStages = 6;
+
+// status word of a lane
+constexpr int kOk = 0, kTooManySteps = 1, kNonFinite = 2;
+
+// Section profile of integrate_lane, compiled in with -DPK_PROFILE (card
+// only): cycles (clock64) spent in each section, summed over the lane's steps.
+// Sections: 0 table reads, 1 stage combination, 2 stiff solve, 3 stiff apply,
+// 4 right-hand side, 5 explicit part, 6 solution/error sums and ratio,
+// 7 step control, remaps and sources.
+constexpr int kProfSections = 8;
+#if defined(__CUDACC__) && defined(PK_PROFILE)
+#define PK_PROF_BEGIN long long prof_[pk::kProfSections] = {}; long long prof_t_ = clock64();
+#define PK_PROF(i) { const long long c_ = clock64(); prof_[i] += c_ - prof_t_; prof_t_ = c_; }
+#define PK_PROF_END(out) \
+  if (tm.tid == 0 && (out)) for (int i_ = 0; i_ < pk::kProfSections; ++i_) (out)[i_] = prof_[i_];
+#else
+#define PK_PROF_BEGIN
+#define PK_PROF(i)
+#define PK_PROF_END(out)
+#endif
+
+// ARK4(3)6L[2]SA (Kennedy & Carpenter 2003), as in ops/ode.py
+PK_TABLE double kGamma = 0.25;
+PK_TABLE double kC[kStages] = {0.0, 1.0 / 2.0, 83.0 / 250.0, 31.0 / 50.0, 17.0 / 20.0, 1.0};
+PK_TABLE double kAE[kStages][kStages - 1] = {
+    {0, 0, 0, 0, 0},
+    {1.0 / 2.0, 0, 0, 0, 0},
+    {13861.0 / 62500.0, 6889.0 / 62500.0, 0, 0, 0},
+    {-116923316275.0 / 2393684061468.0, -2731218467317.0 / 15368042101831.0,
+     9408046702089.0 / 11113171139209.0, 0, 0},
+    {-451086348788.0 / 2902428689909.0, -2682348792572.0 / 7519795681897.0,
+     12662868775082.0 / 11960479115383.0, 3355817975965.0 / 11060851509271.0, 0},
+    {647845179188.0 / 3216320057751.0, 73281519250.0 / 8382639484533.0,
+     552539513391.0 / 3454668386233.0, 3354512671639.0 / 8306763924573.0, 4040.0 / 17871.0}};
+PK_TABLE double kAI[kStages][kStages - 1] = {
+    {0, 0, 0, 0, 0},
+    {1.0 / 4.0, 0, 0, 0, 0},
+    {8611.0 / 62500.0, -1743.0 / 31250.0, 0, 0, 0},
+    {5012029.0 / 34652500.0, -654441.0 / 2922500.0, 174375.0 / 388108.0, 0, 0},
+    {15267082809.0 / 155376265600.0, -71443401.0 / 120774400.0, 730878875.0 / 902184768.0,
+     2285395.0 / 8070912.0, 0},
+    {82889.0 / 524892.0, 0.0, 15625.0 / 83664.0, 69875.0 / 102672.0, -2260.0 / 8211.0}};
+PK_TABLE double kB[kStages] = {82889.0 / 524892.0, 0.0, 15625.0 / 83664.0,
+                               69875.0 / 102672.0, -2260.0 / 8211.0, 1.0 / 4.0};
+PK_TABLE double kBH[kStages] = {4586570599.0 / 29645900160.0, 0.0,
+                                178811875.0 / 945068544.0, 814220225.0 / 1159782912.0,
+                                -3700637.0 / 11593932.0, 61727.0 / 225920.0};
+
+// State layout (PtIdx): offsets and lengths, filled by the Python wrapper in
+// this order.
+struct Layout {
+  int n;                        // state size
+  int delta_g, theta_g, shear_g;
+  int F_g, n_F_g;               // l = 3..l_max_g
+  int G_g, n_G_g;               // l = 0..l_max_pol_g
+  int delta_b, theta_b, delta_cdm;
+  int delta_ur, theta_ur, shear_ur;
+  int F_ur, n_F_ur;             // l = 3..l_max_ur
+  int ncdm, ns, nq, nl;         // ncdm block: (ns, nq, nl)
+  int eta;
+};
+constexpr int kLayoutInts = 21;
+
+// The two table splines over ln(tau) and the ncdm momentum data.
+struct Tables {
+  const double* bg_y;
+  const double* bg_y2;
+  double bg_x0, bg_dx;
+  int bg_n, bg_ncol;            // bg_ncol = kNBgBase + 3 ns
+  const double* th_y;
+  const double* th_y2;
+  double th_x0, th_dx;
+  int th_n;
+  const double* q;              // (nq,)
+  const double* w;              // (ns, nq)
+  const double* dlnf0;          // (ns, nq)
+  const double* x_fac;          // (ns,)
+  const double* pref;           // (ns,)
+};
+
+// One lane's vector (contiguous).
+typedef double* Vec;
+
+// The threads that share a lane: thread tid of nt.
+struct Team {
+  int tid, nt;
+};
+
+#ifdef __CUDACC__
+// one warp per lane
+PK_FN void team_sync(const Team&) { __syncwarp(); }
+PK_FN double team_sum(const Team&, double v) {
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+PK_FN double team_max(const Team&, double v) {
+  for (int m = 16; m > 0; m >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+#else
+PK_FN void team_sync(const Team&) {}
+PK_FN double team_sum(const Team&, double v) { return v; }
+PK_FN double team_max(const Team&, double v) { return v; }
+#endif
+
+struct Frame {
+  double tau, a, H, Hp, rho_g, rho_b, rho_cdm, rho_ur, rho_tot, p_tot, p_tot_prime;
+  double kap, kapp, g, dg, emk, cb2;
+  double rho_nc[kMaxSpecies], p_nc[kMaxSpecies], pp_nc[kMaxSpecies];
+};
+
+struct Flags {
+  bool tca, rsa, ufa, ncfa;
+};
+
+struct Lane {
+  double k, eta_off, t_tca, t_ufa, t_rsa, t_ncfa;
+};
+
+struct Locals {
+  double aH, aH_prime, h_prime, eta_prime, alpha, alpha_prime, P;
+  double delta_m, theta_m, delta_cb, theta_cb, theta_b_prime, eta;
+  double phi, psi, phi_plus_psi, phi_prime;
+  double delta_g_eff, theta_g_eff, delta_ur_eff, theta_ur_eff;
+  double delta_nc, theta_nc, delta_tot, theta_tot, H_T_Nb_prime;
+};
+
+PK_FN Flags flags_at(const Lane& ln, double t) {
+  return Flags{t < ln.t_tca, t >= ln.t_rsa, t >= ln.t_ufa, t >= ln.t_ncfa};
+}
+
+// UniformSpline.eval of column c at x (ops/splines.py:170)
+PK_FN double spline_col(const double* y, const double* y2, double x0, double dx, int n,
+                        int ncol, double x, int c) {
+  const double t = (x - x0) / dx;
+  int i = (int)floor(t);
+  i = i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
+  const double b = t - (double)i, a = 1.0 - b;
+  const double ca = a * a * a - a, cb = b * b * b - b, h2 = dx * dx;
+  const double* yl = y + (long)i * ncol;
+  const double* y2l = y2 + (long)i * ncol;
+  return a * yl[c] + b * yl[ncol + c] + (ca * y2l[c] + cb * y2l[ncol + c]) * h2 / 6.0;
+}
+
+constexpr int kFrameCols = kNBgBase + 3 * kMaxSpecies + kNTh;   // room in the frame buffer
+
+// Table values at tau, the same in every thread. The columns (background,
+// then thermodynamics) are spread over the team: one table row read per
+// thread instead of a serial walk over the columns. `buf` (kFrameCols doubles,
+// shared by the team) carries them across.
+PK_FN void frame_at(const Tables& T, const Team& tm, int ns, double tau, double* buf, Frame& f) {
+  const double lntau = log(tau);
+  const int nbg = T.bg_ncol;
+  team_sync(tm);   // the previous frame has been read by every thread
+  for (int c = tm.tid; c < nbg + kNTh; c += tm.nt)
+    buf[c] = c < nbg ? spline_col(T.bg_y, T.bg_y2, T.bg_x0, T.bg_dx, T.bg_n, nbg, lntau, c)
+                     : spline_col(T.th_y, T.th_y2, T.th_x0, T.th_dx, T.th_n, kNTh, lntau, c - nbg);
+  team_sync(tm);
+  const double* bgv = buf;
+  const double* thv = buf + nbg;
+  f.tau = tau;
+  f.a = bgv[0]; f.H = bgv[1]; f.Hp = bgv[2]; f.rho_g = bgv[3]; f.rho_b = bgv[4];
+  f.rho_cdm = bgv[5]; f.rho_ur = bgv[6]; f.rho_tot = bgv[7]; f.p_tot = bgv[8];
+  f.p_tot_prime = bgv[9];
+  for (int s = 0; s < ns; ++s) {
+    f.rho_nc[s] = bgv[kNBgBase + 3 * s];
+    f.p_nc[s] = bgv[kNBgBase + 3 * s + 1];
+    f.pp_nc[s] = bgv[kNBgBase + 3 * s + 2];
+  }
+  f.kap = thv[0]; f.kapp = thv[1]; f.g = thv[2]; f.dg = thv[3]; f.emk = thv[4];
+  f.cb2 = thv[5];
+}
+
+// The exact ncdm momentum sums of species s (perturb_total_stress_energy
+// :6347-6395), reduced over the team: out = {sum qw eps Psi0, sum qw q Psi1,
+// sum qw q^2/eps Psi2, sum qw q^2/eps Psi0}, the same in every thread.
+PK_FN void ncdm_sums(const Layout& L, const Tables& T, const Team& tm, double a, int s,
+                     const Vec y, double out[4]) {
+  const int nq = L.nq, nl = L.nl, base = L.ncdm + s * nq * nl;
+  const double ax = a * T.x_fac[s];
+  double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+  for (int iq = tm.tid; iq < nq; iq += tm.nt) {
+    const double q = T.q[iq];
+    const double eps = sqrt(q * q + ax * ax);
+    const double qw = T.w[s * nq + iq] * q * q;
+    const int o = base + iq * nl;
+    const double P0 = y[o], P1 = y[o + 1], P2 = y[o + 2];
+    s0 += qw * eps * P0;
+    s1 += qw * q * P1;
+    s2 += qw * q * q / eps * P2;
+    s3 += qw * q * q / eps * P0;
+  }
+  out[0] = team_sum(tm, s0); out[1] = team_sum(tm, s1);
+  out[2] = team_sum(tm, s2); out[3] = team_sum(tm, s3);
+}
+
+// dy/dtau into dy (when want_dy) and the local quantities the sources need
+// (equations.py rhs_full), the same in every thread. Under the ncdm fluid
+// approximation with one species only the three fluid slots of the ncdm block
+// are written: the caller skips the rest of the block (its state and
+// derivative are zero). Ends with team_sync() when it wrote dy.
+PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
+                    const Lane& ln, const Flags& fl, const Vec y, const Vec dy, bool want_dy,
+                    Locals& loc) {
+  const int tid = tm.tid, nt = tm.nt;
+  const double k = ln.k, k2 = k * k, tau = fr.tau;
+  const double a = fr.a, H = fr.H, Hp = fr.Hp;
+  const double rho_g = fr.rho_g, rho_b = fr.rho_b, rho_cdm = fr.rho_cdm, rho_ur = fr.rho_ur;
+  const double kap = fr.kap, kapp = fr.kapp, cb2 = fr.cb2;
+  const double a2 = a * a, aH = a * H;
+  const double app_a = Hp * a + 2.0 * aH * aH;
+  const double aH_prime = Hp * a + aH * aH;
+  const double R = 4.0 / 3.0 * rho_g / rho_b;
+  const double cotKgen = 1.0 / (k * tau);
+  const bool tca = fl.tca, rsa = fl.rsa, ufa = fl.ufa, ncfa = fl.ncfa;
+
+  const double delta_g = y[L.delta_g], theta_g = y[L.theta_g], shear_g = y[L.shear_g];
+  const double delta_b = y[L.delta_b], theta_b = y[L.theta_b], delta_cdm = y[L.delta_cdm];
+  const double delta_ur = y[L.delta_ur], theta_ur = y[L.theta_ur], shear_ur = y[L.shear_ur];
+  const double eta = y[L.eta] + ln.eta_off;
+  const double G0 = y[L.G_g], G2 = y[L.G_g + 2];
+
+  // ncdm: exact momentum sums or fluid variables, per species
+  // (JAX equations.py:320-346)
+  const int ns = L.ns, nq = L.nq, nl = L.nl;
+  double sum_rho_delta = 0.0, sum_rpt = 0.0, sum_rps = 0.0, sum_dp = 0.0;
+  double sum_rho_nc = 0.0, sum_rpp_nc = 0.0;
+  for (int s = 0; s < ns; ++s) {
+    const int base = L.ncdm + s * nq * nl;
+    const double rho_s = fr.rho_nc[s], p_s = fr.p_nc[s], pp_s = fr.pp_nc[s];
+    const double w_s = p_s / rho_s;
+    double rd, rt, rs, dp;
+    if (ncfa) {
+      const double d_fl = y[base], t_fl = y[base + 1], s_fl = y[base + 2];
+      const double cg2 = w_s * (1.0 - (3.0 * w_s - 2.0 + pp_s / p_s) / (3.0 + 3.0 * w_s));
+      rd = rho_s * d_fl;
+      rt = (rho_s + p_s) * t_fl;
+      rs = (rho_s + p_s) * s_fl;
+      dp = cg2 * rho_s * d_fl;
+    } else {
+      const double fac = T.pref[s] / a2 / a2;
+      double sm[4];
+      ncdm_sums(L, T, tm, a, s, y, sm);
+      rd = fac * sm[0];
+      rt = k * fac * sm[1];
+      rs = 2.0 / 3.0 * fac * sm[2];
+      dp = fac / 3.0 * sm[3];
+    }
+    sum_rho_delta += rd; sum_rpt += rt; sum_rps += rs; sum_dp += dp;
+    sum_rho_nc += rho_s; sum_rpp_nc += rho_s + p_s;
+  }
+
+  // effective photon/ur variables in the Einstein sums
+  const double d_g0 = rsa ? 0.0 : delta_g, t_g0 = rsa ? 0.0 : theta_g;
+  const double s_g0 = (rsa || tca) ? 0.0 : shear_g;
+  const double d_ur0 = rsa ? 0.0 : delta_ur, t_ur0 = rsa ? 0.0 : theta_ur;
+  const double s_ur0 = rsa ? 0.0 : shear_ur;
+  double delta_rho = rho_g * d_g0 + rho_b * delta_b + rho_cdm * delta_cdm + rho_ur * d_ur0;
+  double rho_plus_p_theta = 4.0 / 3.0 * rho_g * t_g0 + rho_b * theta_b
+                            + 4.0 / 3.0 * rho_ur * t_ur0;
+  double rho_plus_p_shear = 4.0 / 3.0 * rho_g * s_g0 + 4.0 / 3.0 * rho_ur * s_ur0;
+  double delta_p = 1.0 / 3.0 * rho_g * d_g0 + cb2 * rho_b * delta_b + 1.0 / 3.0 * rho_ur * d_ur0;
+  if (ns) {
+    delta_rho += sum_rho_delta;
+    rho_plus_p_theta += sum_rpt;
+    rho_plus_p_shear += sum_rps;
+    delta_p += sum_dp;
+  }
+
+  // Einstein 00 and the radiation-streaming values
+  const double h_prime = (k2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH);
+  const double rsa_delta_g = 4.0 / k2 * (aH * h_prime - k2 * eta)
+                             - 4.0 / k2 * kap * (theta_b + 0.5 * h_prime);
+  const double rsa_theta_g = -0.5 * h_prime + 3.0 / k2 * (
+      kapp * (theta_b + 0.5 * h_prime)
+      + kap * (-aH * theta_b + cb2 * k2 * delta_b - aH * h_prime + k2 * eta));
+  const double rsa_delta_ur = 4.0 / k2 * (aH * h_prime - k2 * eta);
+  const double rsa_theta_ur = -0.5 * h_prime;
+  if (rsa) {
+    delta_rho += rho_g * rsa_delta_g + rho_ur * rsa_delta_ur;
+    rho_plus_p_theta += 4.0 / 3.0 * rho_g * rsa_theta_g + 4.0 / 3.0 * rho_ur * rsa_theta_ur;
+  }
+
+  // Einstein 0i, trace, shear
+  const double eta_prime = 1.5 * a2 * rho_plus_p_theta / k2;
+  const double alpha = (h_prime + 6.0 * eta_prime) / (2.0 * k2);
+  const double tca_shear_g_1 = 16.0 / 45.0 / kap * (theta_g + k2 * alpha);
+  if (tca) rho_plus_p_shear += 4.0 / 3.0 * rho_g * tca_shear_g_1;
+  const double alpha_prime = -2.0 * aH * alpha + eta - 4.5 * (a2 / k2) * rho_plus_p_shear;
+  const double metric_continuity = 0.5 * h_prime;
+  const double metric_shear = k2 * alpha;
+  const double metric_shear_prime = k2 * alpha_prime;
+
+  const double d_g = rsa ? rsa_delta_g : delta_g;
+  const double t_g = rsa ? rsa_theta_g : theta_g;
+
+  // TCA slip and shear, compromise_CLASS
+  const double tau_c = 1.0 / kap;
+  const double dtau_c = -kapp * tau_c * tau_c;
+  const double F = tau_c / (1.0 + R);
+  const double F_prime = dtau_c / (1.0 + R) + tau_c * aH * R / ((1.0 + R) * (1.0 + R));
+  const double slip_1 = (dtau_c / tau_c - 2.0 * aH / (1.0 + R)) * (theta_b - t_g) + F * (
+      -app_a * theta_b
+      + k2 * (-aH * d_g / 2.0 + cb2 * (-theta_b - metric_continuity)
+              + (t_g + metric_continuity) / 3.0));
+  const double shear_g_tca1 = 16.0 / 45.0 * tau_c * (t_g + metric_shear);
+  const double theta_prime0 = (-aH * theta_b + k2 * (cb2 * delta_b + R / 4.0 * d_g)) / (1.0 + R);
+  const double shear_g_prime1 = 16.0 / 45.0 * (tau_c * (theta_prime0 + metric_shear_prime)
+                                                + dtau_c * (t_g + metric_shear));
+  const double tca_slip = (1.0 - 2.0 * aH * F) * slip_1 + F * k2 * (
+      2.0 * aH * shear_g_tca1 + shear_g_prime1
+      - (1.0 / 3.0 - cb2) * (F * theta_prime0 + 2.0 * F_prime * theta_b));
+  const double tca_shear_g = (1.0 - 11.0 / 6.0 * dtau_c) * shear_g_tca1
+      - 11.0 / 6.0 * tau_c * 16.0 / 45.0 * tau_c * (theta_prime0 + metric_shear_prime);
+
+  const double theta_b_prime_notca = -aH * theta_b + k2 * cb2 * delta_b + R * kap * (t_g - theta_b);
+  const double theta_b_prime_tca = (-aH * theta_b + k2 * (cb2 * delta_b + R * (d_g / 4.0 - tca_shear_g))
+                                    + R * tca_slip) / (1.0 + R);
+  const double theta_b_prime = tca ? theta_b_prime_tca : theta_b_prime_notca;
+  const double P0 = (G0 + G2 + 2.0 * shear_g) / 8.0;
+
+  if (want_dy) {
+    const bool hier_on = !(tca || rsa);
+    const bool ur_on = !rsa;
+    if (tid == 0) {
+      // the scalar slots
+      dy[L.delta_g] = rsa ? 0.0 : -4.0 / 3.0 * (t_g + metric_continuity);
+      dy[L.delta_b] = -(theta_b + metric_continuity);
+      dy[L.theta_b] = theta_b_prime;
+      const double theta_g_prime_full = k2 * (d_g / 4.0 - shear_g) + kap * (theta_b - t_g);
+      const double theta_g_prime_tca = -(theta_b_prime + aH * theta_b - k2 * cb2 * delta_b) / R
+                                       + k2 * (0.25 * d_g - tca_shear_g);
+      dy[L.theta_g] = rsa ? 0.0 : (tca ? theta_g_prime_tca : theta_g_prime_full);
+      dy[L.shear_g] = hier_on ? 0.5 * (8.0 / 15.0 * (theta_g + metric_shear)
+                                       - 3.0 / 5.0 * k * y[L.F_g]
+                                       - kap * (2.0 * shear_g - 4.0 / 5.0 * P0))
+                              : 0.0;
+      dy[L.delta_cdm] = -metric_continuity;
+      dy[L.delta_ur] = ur_on ? -4.0 / 3.0 * (theta_ur + metric_continuity) : 0.0;
+      dy[L.theta_ur] = ur_on ? k2 * (delta_ur / 4.0 - shear_ur) : 0.0;
+      const double d_shear_ur_full = 0.5 * (8.0 / 15.0 * (theta_ur + metric_shear)
+                                            - 3.0 / 5.0 * k * y[L.F_ur]);
+      const double d_shear_ur_ufa = -3.0 / tau * shear_ur
+                                    + 2.0 / 3.0 * (theta_ur + metric_continuity);
+      dy[L.shear_ur] = ur_on ? (ufa ? d_shear_ur_ufa : d_shear_ur_full) : 0.0;
+      dy[L.eta] = eta_prime;
+    }
+
+    // photon moments l = 3..l_max_g
+    const int nF = L.n_F_g;
+    for (int j = tid; j < nF; j += nt) {
+      double d = 0.0;
+      if (hier_on) {
+        const double l = 3.0 + j, cur = y[L.F_g + j];
+        const double lm1 = j == 0 ? 2.0 * shear_g : y[L.F_g + j - 1];
+        d = j < nF - 1 ? k / (2.0 * l + 1.0) * (l * lm1 - (l + 1.0) * y[L.F_g + j + 1]) - kap * cur
+                       : k * (lm1 - (nF + 2 + 1.0) * cotKgen * cur) - kap * cur;
+      }
+      dy[L.F_g + j] = d;
+    }
+    // polarization l = 0..l_max_pol_g
+    const int nG = L.n_G_g;
+    for (int j = tid; j < nG; j += nt) {
+      double d = 0.0;
+      if (hier_on) {
+        const double l = (double)j, cur = y[L.G_g + j];
+        const double lm1 = j == 0 ? 0.0 : y[L.G_g + j - 1];
+        if (j == nG - 1) {
+          d = k * (lm1 - (nG - 1 + 1.0) * cotKgen * cur) - kap * cur;
+        } else {
+          const double nxt = y[L.G_g + j + 1];
+          d = k / (2.0 * l + 1.0) * (l * lm1 - (l + 1.0) * nxt) - kap * cur;
+          if (j == 0) d = -k * nxt - kap * (cur - 4.0 * P0);
+          if (j == 2) d = k / 5.0 * (2.0 * lm1 - 3.0 * nxt) - kap * (cur - 4.0 / 5.0 * P0);
+        }
+      }
+      dy[L.G_g + j] = d;
+    }
+    // massless neutrino moments l = 3..l_max_ur
+    const int nU = L.n_F_ur;
+    const bool ur_hier = ur_on && !ufa;
+    for (int j = tid; j < nU; j += nt) {
+      double d = 0.0;
+      if (ur_hier) {
+        const double l = 3.0 + j, cur = y[L.F_ur + j];
+        const double lm1 = j == 0 ? 2.0 * shear_ur : y[L.F_ur + j - 1];
+        d = j < nU - 1 ? k / (2.0 * l + 1.0) * (l * lm1 - (l + 1.0) * y[L.F_ur + j + 1])
+                       : k * (lm1 - (nU + 2 + 1.0) * cotKgen * cur);
+      }
+      dy[L.F_ur + j] = d;
+    }
+
+    // ncdm (JAX equations.py:693-729)
+    for (int s = 0; s < ns; ++s) {
+      const int base = L.ncdm + s * nq * nl;
+      if (ncfa) {
+        if (ns > 1)
+          for (int i = 3 + tid; i < nq * nl; i += nt) dy[base + i] = 0.0;
+        if (tid == 0) {
+          const double rho_s = fr.rho_nc[s], p_s = fr.p_nc[s], pp_s = fr.pp_nc[s];
+          const double w_s = p_s / rho_s;
+          const double d_fl = y[base], t_fl = y[base + 1], s_fl = y[base + 2];
+          const double ca2 = w_s / 3.0 / (1.0 + w_s) * (5.0 - pp_s / p_s);
+          const double ceff2 = ca2, cvis2 = 3.0 * w_s * ca2;
+          dy[base] = -(1.0 + w_s) * (t_fl + metric_continuity) - 3.0 * aH * (ceff2 - w_s) * d_fl;
+          dy[base + 1] = -aH * (1.0 - 3.0 * ca2) * t_fl + ceff2 / (1.0 + w_s) * k2 * d_fl
+                         - k2 * s_fl;
+          dy[base + 2] = -3.0 * (aH * (2.0 / 3.0 - ca2 - pp_s / p_s / 3.0) + 1.0 / tau) * s_fl
+                         + 8.0 / 3.0 * cvis2 / (1.0 + w_s) * (t_fl + metric_continuity);
+        }
+      } else {
+        const double ax = a * T.x_fac[s];
+        for (int e = tid; e < nq * nl; e += nt) {
+          const int iq = e / nl, l = e - iq * nl;
+          const double q = T.q[iq];
+          const double eps = sqrt(q * q + ax * ax);
+          const double qk_eps = k * q / eps;
+          const double dl0 = T.dlnf0[s * nq + iq];
+          const int o = base + iq * nl;
+          const double cur = y[o + l], lm1 = l == 0 ? 0.0 : y[o + l - 1];
+          double d;
+          if (l == nl - 1) {
+            d = qk_eps * lm1 - (1.0 + (nl - 1.0)) * k * cotKgen * cur;
+          } else {
+            const double nxt = y[o + l + 1];
+            if (l == 0) d = -qk_eps * nxt + metric_continuity * dl0 / 3.0;
+            else if (l == 1) d = qk_eps / 3.0 * (lm1 - 2.0 * nxt);
+            else if (l == 2) d = qk_eps / 5.0 * (2.0 * lm1 - 3.0 * nxt)
+                                 - metric_shear * 2.0 / 15.0 * dl0;
+            else d = qk_eps / (2.0 * l + 1.0) * (l * lm1 - (l + 1.0) * nxt);
+          }
+          dy[o + l] = d;
+        }
+      }
+    }
+    team_sync(tm);
+  }
+
+  // gauge-invariant matter variables and the rest of the locals
+  const double rho_m_cb = rho_b + rho_cdm;
+  const double theta_cb_gauge = rho_b * theta_b / rho_m_cb;
+  const double delta_cb = (rho_b * delta_b + rho_cdm * delta_cdm) / rho_m_cb
+                          + 3.0 * aH * theta_cb_gauge / k2;
+  const double theta_cb = theta_cb_gauge + k2 * alpha;
+  if (ns) {
+    const double rho_m = rho_m_cb + sum_rho_nc, rpp_m = rho_m_cb + sum_rpp_nc;
+    const double delta_rho_m = rho_b * delta_b + rho_cdm * delta_cdm + sum_rho_delta;
+    const double theta_m_gauge = (rho_b * theta_b + sum_rpt) / rpp_m;
+    loc.delta_m = delta_rho_m / rho_m + 3.0 * aH * theta_m_gauge / k2;
+    loc.theta_m = theta_m_gauge + k2 * alpha;
+    loc.delta_nc = sum_rho_delta / sum_rho_nc;
+    loc.theta_nc = sum_rpt / sum_rpp_nc;
+  } else {
+    loc.delta_m = delta_cb;
+    loc.theta_m = theta_cb;
+    loc.delta_nc = 0.0;
+    loc.theta_nc = 0.0;
+  }
+  loc.delta_cb = delta_cb;
+  loc.theta_cb = theta_cb;
+  loc.P = rsa ? 0.0 : (tca ? 5.0 * tca_shear_g / 8.0 : P0);
+  const double rpp_tot = fr.rho_tot + fr.p_tot;
+  loc.aH = aH; loc.aH_prime = aH_prime; loc.h_prime = h_prime; loc.eta_prime = eta_prime;
+  loc.alpha = alpha; loc.alpha_prime = alpha_prime; loc.theta_b_prime = theta_b_prime;
+  loc.eta = eta;
+  loc.phi = eta - aH * alpha;
+  loc.psi = aH * alpha + alpha_prime;
+  loc.phi_plus_psi = eta + alpha_prime;
+  loc.phi_prime = eta_prime - aH_prime * alpha - aH * alpha_prime;
+  loc.delta_g_eff = d_g; loc.theta_g_eff = t_g;
+  loc.delta_ur_eff = rsa ? rsa_delta_ur : delta_ur;
+  loc.theta_ur_eff = rsa ? rsa_theta_ur : theta_ur;
+  loc.delta_tot = delta_rho / (rho_g + rho_b + rho_cdm + rho_ur + sum_rho_nc);
+  loc.theta_tot = rho_plus_p_theta / rpp_tot;
+  loc.H_T_Nb_prime = 3.0 * aH / rpp_tot * (
+      -delta_p + fr.p_tot_prime * rho_plus_p_theta / (rpp_tot * k2) + rho_plus_p_shear);
+}
+
+// --- stiff (Thomson) split: J_s y over the stiff range [0, theta_b].
+// Ends with team_sync().
+PK_FN void stiff_apply(const Layout& L, const Team& tm, const Frame& fr, const Flags& fl,
+                       const Vec y, const Vec out) {
+  const double kap = (fl.tca || fl.rsa) ? 0.0 : fr.kap;
+  const double R = 4.0 / 3.0 * fr.rho_g / fr.rho_b;
+  const double theta_g = y[L.theta_g], theta_b = y[L.theta_b], shear_g = y[L.shear_g];
+  const double P0 = (y[L.G_g] + y[L.G_g + 2] + 2.0 * shear_g) / 8.0;
+  if (tm.tid == 0) {
+    out[L.delta_g] = 0.0;
+    out[L.delta_b] = 0.0;
+    out[L.theta_g] = kap * (theta_b - theta_g);
+    out[L.theta_b] = R * kap * (theta_g - theta_b);
+    out[L.shear_g] = kap * (0.4 * P0 - shear_g);
+  }
+  for (int i = L.F_g + tm.tid; i < L.G_g + L.n_G_g; i += tm.nt) {
+    double v = -kap * y[i];
+    if (i == L.G_g) v += kap * 4.0 * P0;
+    if (i == L.G_g + 2) v += kap * 0.8 * P0;
+    out[i] = v;
+  }
+  team_sync(tm);
+}
+
+// x = (I - gh J_s)^-1 r in closed form, in place on r. Ends with team_sync().
+PK_FN void stiff_solve(const Layout& L, const Team& tm, const Frame& fr, const Flags& fl,
+                       double gh, const Vec r) {
+  const double kap = (fl.tca || fl.rsa) ? 0.0 : fr.kap;
+  const double R = 4.0 / 3.0 * fr.rho_g / fr.rho_b;
+  const double a = gh * kap;
+  const double r_sh = r[L.shear_g], r_G0 = r[L.G_g], r_G2 = r[L.G_g + 2];
+  const double r_g = r[L.theta_g], r_b = r[L.theta_b];
+  team_sync(tm);   // every thread has read before any writes
+  const double vr = 2.0 * r_sh + r_G0 + r_G2;
+  const double den = (1.0 + a) * (1.0 + (1.0 - 0.7) * a);
+  for (int i = L.F_g + tm.tid; i < L.G_g + L.n_G_g; i += tm.nt) {
+    double v = r[i] / (1.0 + a);
+    if (i == L.G_g) v = r_G0 / (1.0 + a) + a * 0.5 * vr / den;
+    if (i == L.G_g + 2) v = r_G2 / (1.0 + a) + a * 0.1 * vr / den;
+    r[i] = v;
+  }
+  if (tm.tid == 0) {
+    r[L.shear_g] = r_sh / (1.0 + a) + a * 0.05 * vr / den;
+    const double det = 1.0 + a * (1.0 + R);
+    r[L.theta_g] = ((1.0 + a * R) * r_g + a * r_b) / det;
+    r[L.theta_b] = (a * R * r_g + (1.0 + a) * r_b) / det;
+  }
+  team_sync(tm);
+}
+
+// Adiabatic initial state at fr.tau (equations.py adiabatic_ic). Ends with
+// team_sync().
+PK_FN void adiabatic_ic(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
+                        const Lane& ln, const Vec y) {
+  const double k = ln.k, tau = fr.tau, ci = 1.0;
+  const double rho_r = fr.rho_g + fr.rho_ur, rho_m = fr.rho_b + fr.rho_cdm;
+  const double fracnu = fr.rho_ur / rho_r, fracb = fr.rho_b / rho_m;
+  const double om = fr.a * rho_m / sqrt(rho_r);
+  const double kt = k * tau, ktau2 = kt * kt, ktau3 = kt * kt * kt;
+  const double delta_g = -ktau2 / 3.0 * (1.0 - om * tau / 5.0) * ci;
+  const double theta_g = -k * ktau3 / 36.0 * (1.0 - 3.0 * (1.0 + 5.0 * fracb - fracnu)
+                                              / 20.0 / (1.0 - fracnu) * om * tau) * ci;
+  const double theta_ur = -k * ktau3 / 36.0 / (4.0 * fracnu + 15.0) * (
+      4.0 * fracnu + 11.0 + 12.0
+      - 3.0 * (8.0 * fracnu * fracnu + 50.0 * fracnu + 275.0) / 20.0
+      / (2.0 * fracnu + 15.0) * tau * om) * ci;
+  const double shear_ur = ktau2 / (45.0 + 12.0 * fracnu) * 2.0 * (
+      1.0 + (4.0 * fracnu - 5.0) / 4.0 / (2.0 * fracnu + 15.0) * tau * om) * ci;
+  const double l3_ur = ktau3 * 2.0 / 7.0 / (12.0 * fracnu + 45.0) * ci;
+  double eta_hat = -ci * ktau2 / 12.0 / (15.0 + 4.0 * fracnu) * (
+      5.0 + 4.0 * fracnu
+      - (16.0 * fracnu * fracnu + 280.0 * fracnu + 325.0) / 10.0 / (2.0 * fracnu + 15.0) * tau * om);
+  eta_hat = eta_hat + (ci - ln.eta_off);
+  for (int i = tm.tid; i < L.n; i += tm.nt) y[i] = 0.0;
+  team_sync(tm);
+  if (tm.tid == 0) {
+    y[L.delta_g] = delta_g;
+    y[L.theta_g] = theta_g;
+    y[L.delta_b] = 0.75 * delta_g;
+    y[L.theta_b] = theta_g;
+    y[L.delta_cdm] = 0.75 * delta_g;
+    y[L.delta_ur] = delta_g;
+    y[L.theta_ur] = theta_ur;
+    y[L.shear_ur] = shear_ur;
+    y[L.F_ur] = l3_ur;
+    y[L.eta] = eta_hat;
+  }
+  // relativistic ncdm: Psi_l = (ur multipole) x coefficient x dlnf0/dlnq
+  for (int e = tm.tid; e < L.ns * L.nq; e += tm.nt) {
+    const int s = e / L.nq, iq = e - s * L.nq;
+    const double ax = fr.a * T.x_fac[s];
+    const double q = T.q[iq], eps = sqrt(q * q + ax * ax);
+    const double dl0 = T.dlnf0[s * L.nq + iq];
+    const int o = L.ncdm + (s * L.nq + iq) * L.nl;
+    y[o] = -0.25 * delta_g * dl0;
+    y[o + 1] = -eps / (3.0 * q * k) * theta_ur * dl0;
+    y[o + 2] = -0.5 * shear_ur * dl0;
+    y[o + 3] = -0.25 * l3_ur * dl0;
+  }
+  team_sync(tm);
+}
+
+// Photon hierarchy from its tight-coupling values (remap_tca_off). `fl` are
+// the flags at the switch time; the shear is evaluated with tca forced on.
+// Ends with team_sync().
+PK_FN void remap_tca_off(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
+                         const Lane& ln, Flags fl, const Vec y) {
+  Locals loc;
+  fl.tca = true;
+  rhs_full(L, T, tm, fr, ln, fl, y, y, false, loc);
+  team_sync(tm);   // every thread has read y
+  if (tm.tid == 0) {
+    const double kk = ln.k / fr.kap;
+    const double shear_g = 8.0 / 5.0 * loc.P;
+    y[L.shear_g] = shear_g;
+    y[L.F_g] = 6.0 / 7.0 * kk * shear_g;
+    y[L.G_g] = 2.5 * shear_g;
+    y[L.G_g + 1] = kk * (5.0 - 2.0) / 6.0 * shear_g;
+    y[L.G_g + 2] = 0.5 * shear_g;
+    y[L.G_g + 3] = kk * 3.0 / 14.0 * shear_g;
+  }
+  team_sync(tm);
+}
+
+PK_FN void remap_ufa_on(const Layout& L, const Team& tm, const Vec y) {
+  for (int j = tm.tid; j < L.n_F_ur; j += tm.nt) y[L.F_ur + j] = 0.0;
+  team_sync(tm);
+}
+
+PK_FN void remap_rsa_on(const Layout& L, const Team& tm, const Vec y) {
+  for (int i = L.delta_g + tm.tid; i < L.G_g + L.n_G_g; i += tm.nt) y[i] = 0.0;
+  for (int i = L.delta_ur + tm.tid; i < L.F_ur + L.n_F_ur; i += tm.nt) y[i] = 0.0;
+  team_sync(tm);
+}
+
+// Collapse each ncdm block to its fluid moments (remap_ncdmfa_on). Ends with
+// team_sync().
+PK_FN void remap_ncdmfa_on(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
+                           const Lane& ln, const Vec y) {
+  const double a2 = fr.a * fr.a;
+  for (int s = 0; s < L.ns; ++s) {
+    const int base = L.ncdm + s * L.nq * L.nl;
+    const double fac = T.pref[s] / (a2 * a2);
+    double sm[4];
+    ncdm_sums(L, T, tm, fr.a, s, y, sm);
+    team_sync(tm);   // every thread has read the block
+    for (int i = tm.tid; i < L.nq * L.nl; i += tm.nt) y[base + i] = 0.0;
+    team_sync(tm);
+    if (tm.tid == 0) {
+      const double rho_s = fr.rho_nc[s], rpp = fr.rho_nc[s] + fr.p_nc[s];
+      y[base] = fac * sm[0] / rho_s;
+      y[base + 1] = ln.k * fac * sm[1] / rpp;
+      y[base + 2] = 2.0 / 3.0 * fac * sm[2] / rpp;
+    }
+    team_sync(tm);
+  }
+}
+
+// The 27 source columns at (k, fr.tau) (compute_sources), SrcIdx order,
+// written by thread 0 to `out` (which no thread of the team reads).
+PK_FN void compute_sources(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
+                           const Lane& ln, const Flags& fl, const Vec y, double* out) {
+  Locals c;
+  rhs_full(L, T, tm, fr, ln, fl, y, y, false, c);
+  if (tm.tid != 0) return;
+  const double k = ln.k, k2 = k * k;
+  const double g = fr.g, dg = fr.dg, emk = fr.emk;
+  const double aH = c.aH, al = c.alpha, alp = c.alpha_prime;
+  const double theta_b = y[L.theta_b];
+  out[0] = g * (c.delta_g_eff / 4.0 + alp)
+           + (g * (c.eta - alp - 2.0 * aH * al)
+              + emk * 2.0 * (c.eta_prime - c.aH_prime * al - aH * alp))
+           + (g * (c.theta_b_prime / k2 + alp) + dg * (theta_b / k2 + al));
+  out[1] = emk * k * (alp + 2.0 * aH * al - c.eta);
+  out[2] = g * c.P;
+  out[3] = sqrt(6.0) * g * c.P;
+  out[4] = c.phi; out[5] = c.psi; out[6] = c.phi_plus_psi; out[7] = c.phi_prime;
+  out[8] = c.delta_m; out[9] = c.theta_m; out[10] = c.delta_cb; out[11] = c.theta_cb;
+  out[12] = c.h_prime; out[13] = c.eta;
+  out[14] = c.delta_g_eff; out[15] = c.theta_g_eff;
+  out[16] = y[L.delta_b]; out[17] = theta_b;
+  out[18] = y[L.delta_cdm]; out[19] = 0.0;
+  out[20] = c.delta_ur_eff; out[21] = c.theta_ur_eff;
+  out[22] = c.delta_nc; out[23] = c.theta_nc;
+  out[24] = c.delta_tot; out[25] = c.H_T_Nb_prime; out[26] = c.theta_tot;
+}
+
+// Scratch of one lane, in doubles: y, Y, ynew (n each), FE (6 n), FI (6 nst),
+// E (nst), with nst = theta_b + 1 the stiff range, and the frame buffer.
+PK_HOST_FN long work_doubles(const Layout& L) {
+  return 9L * L.n + 7L * (L.theta_b + 1) + kFrameCols;
+}
+
+// Integrate one lane from tau_ini through every sample (solve.py `_step`
+// until the lane's last sample), writing its source rows to S (ntau, 27).
+// rtol/atol: this lane's per-component tolerances; work: the lane's scratch,
+// shared by the team. Every thread returns the same status word and step
+// count.
+PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, const Lane& ln,
+                         double tau_ini, const double* taus, int ntau, const double* rtol,
+                         const double* atol, long max_steps, const Vec work, double* S,
+                         long long* nsteps_out, long long* prof_out = nullptr) {
+  const int tid = tm.tid, nt = tm.nt;
+  const int n = L.n, nst = L.theta_b + 1, ns = L.ns;
+  const Vec y = work, Y = work + n, ynew = work + 2L * n, FE = work + 3L * n;
+  const Vec FI = work + 9L * n, E = work + 9L * n + 6L * nst, fbuf = E + nst;
+  const double sw[4] = {ln.t_tca, ln.t_ufa, ln.t_rsa, ln.t_ncfa};
+  const int nsw = ns ? 4 : 3;
+  const double inf = INFINITY;
+
+  Frame fr;
+  double t = tau_ini, h = 0.1 * tau_ini;
+  frame_at(T, tm, ns, t, fbuf, fr);
+  adiabatic_ic(L, T, tm, fr, ln, y);
+
+  int j = 0, bad_in_a_row = 0, status = kOk;
+  long long nsteps = 0;
+  PK_PROF_BEGIN
+  while (j < ntau) {
+    if (nsteps >= max_steps) { status = kTooManySteps; break; }
+    const double t_b = taus[j];
+    double t_stop = t_b;
+    for (int s = 0; s < nsw; ++s)
+      if (sw[s] > t * (1.0 + 1e-14) && sw[s] < t_stop) t_stop = sw[s];
+    const double h_eff = fmin(h, t_stop - t);
+    const Flags fl = flags_at(ln, t);
+    const double gh = kGamma * h_eff;
+    // with one species in its fluid phase the ncdm block beyond the three
+    // fluid slots is identically zero: the live components are [0, na) and
+    // [na + gap, n), m of them
+    const bool skip = fl.ncfa && ns == 1;
+    const int na = skip ? L.ncdm + 3 : n, gap = skip ? L.nq * L.nl - 3 : 0, m = n - gap;
+
+    // --- six stages (ops/ode.py ark_step)
+    for (int i = 0; i < kStages; ++i) {
+      frame_at(T, tm, ns, t + kC[i] * h_eff, fbuf, fr);
+      PK_PROF(0)
+      const Vec fe = FE + (long)i * n, fi = FI + (long)i * nst;
+      if (i > 0) {
+        for (int ci = tid; ci < m; ci += nt) {
+          const int c = ci < na ? ci : ci + gap;
+          double acc = 0.0;
+          for (int mm = 0; mm < i; ++mm) acc += kAE[i][mm] * FE[mm * n + c];
+          if (c < nst)
+            for (int mm = 0; mm < i; ++mm)
+              if (kAI[i][mm] != 0.0) acc += kAI[i][mm] * FI[mm * nst + c];
+          Y[c] = y[c] + h_eff * acc;
+        }
+        team_sync(tm);
+        PK_PROF(1)
+        stiff_solve(L, tm, fr, fl, gh, Y);
+        PK_PROF(2)
+      }
+      const Vec Ys = i == 0 ? y : Y;
+      Locals unused;
+      stiff_apply(L, tm, fr, fl, Ys, fi);
+      PK_PROF(3)
+      rhs_full(L, T, tm, fr, ln, fl, Ys, fe, true, unused);
+      PK_PROF(4)
+      for (int c = tid; c < nst; c += nt) fe[c] -= fi[c];
+      team_sync(tm);
+      PK_PROF(5)
+    }
+
+    // --- solution, embedded error through (I - gh J)^-1, error ratio
+    double ratio = 0.0, bad = 0.0;
+    for (int pass = 0; pass < 2; ++pass) {
+      // pass 0: combine; the stiff range of the error goes through E
+      // pass 1: ratio over the stiff range after the solve
+      const int cnt = pass == 0 ? m : nst;
+      for (int ci = tid; ci < cnt; ci += nt) {
+        const int c = ci < na ? ci : ci + gap;
+        double err;
+        if (pass == 0) {
+          double sb = 0.0, se = 0.0;
+          for (int mm = 0; mm < kStages; ++mm) {
+            if (kB[mm] == 0.0) continue;
+            const double f = FE[mm * n + c] + (c < nst ? FI[mm * nst + c] : 0.0);
+            sb += kB[mm] * f;
+            se += (kB[mm] - kBH[mm]) * f;
+          }
+          ynew[c] = y[c] + h_eff * sb;
+          err = h_eff * se;
+          if (c < nst) { E[c] = err; continue; }
+        } else {
+          err = E[c];
+        }
+        const double k1 = FE[c] + (c < nst ? FI[c] : 0.0);
+        const double scale = rtol[c] * (fabs(y[c]) + fabs(h_eff * k1) + 1e-30) + atol[c];
+        const double r = fabs(err) / scale;
+        if (!(r <= inf) || r == inf) bad = 1.0;
+        else if (r > ratio) ratio = r;
+      }
+      if (pass == 0) {
+        team_sync(tm);
+        stiff_solve(L, tm, fr, fl, gh, E);
+      }
+    }
+    ratio = team_max(tm, ratio);
+    bad = team_max(tm, bad);
+    if (bad > 0.0) ratio = inf;
+    PK_PROF(6)
+
+    const bool accept = ratio <= 1.0;
+    double fac = 0.9 * (ratio > 0.0 ? pow(ratio, -0.25) : 5.0);
+    fac = fac < 0.2 ? 0.2 : (fac > 5.0 ? 5.0 : fac);
+    const double h_next = (accept && h_eff < h) ? fmax(h, h_eff * fac) : h_eff * fac;
+    const double t_new = accept ? t + h_eff : t;
+    ++nsteps;
+    h = fmax(h_next, 1e-300);
+    bad_in_a_row = bad > 0.0 ? bad_in_a_row + 1 : 0;
+    if (bad_in_a_row > 64 || !(h <= inf) || !(t_new <= inf)) { status = kNonFinite; break; }
+    if (accept) {
+      for (int ci = tid; ci < m; ci += nt) {
+        const int c = ci < na ? ci : ci + gap;
+        y[c] = ynew[c];
+      }
+      team_sync(tm);
+      // remaps where the step lands on a switch time
+      bool crossed[4];
+      bool any = false;
+      for (int s = 0; s < nsw; ++s) {
+        crossed[s] = t_new >= sw[s] && t < sw[s];
+        any = any || crossed[s];
+      }
+      if (any) {
+        const Flags fn = flags_at(ln, t_new);
+        frame_at(T, tm, ns, t_new, fbuf, fr);
+        if (crossed[0]) remap_tca_off(L, T, tm, fr, ln, fn, y);
+        if (crossed[1]) remap_ufa_on(L, tm, y);
+        if (crossed[2]) remap_rsa_on(L, tm, y);
+        if (ns && crossed[3]) remap_ncdmfa_on(L, T, tm, fr, ln, y);
+      }
+      t = t_new;
+      if (t_new >= t_b * (1.0 - 1e-15)) {
+        frame_at(T, tm, ns, t_b, fbuf, fr);
+        compute_sources(L, T, tm, fr, ln, flags_at(ln, t_b), y, S + (long)j * kNSrc);
+        t = t_b;
+        ++j;
+      }
+    }
+    PK_PROF(7)
+  }
+  PK_PROF_END(prof_out)
+  *nsteps_out = nsteps;
+  return status;
+}
+
+}  // namespace pk

@@ -1,0 +1,48 @@
+// Host build of the per-lane perturbation integrator (perturb_ark.cuh): the
+// same functions that perturb_ark.cu runs one lane per warp on the card, here
+// with a team of one thread in a plain loop over the lanes. It exists so that
+// the kernel's arithmetic can be held against the plain PyTorch version on a
+// machine with no card and no nvcc:
+//
+//   g++ -O2 -std=c++17 -shared -fPIC -o libperturb_ark_host.so perturb_ark_host.cpp
+//
+// The arguments are those of perturb_ark_launch (perturb_ark.cu) with host
+// pointers and a scratch of work_doubles, without the stream. The package
+// never loads this library; tests/test_torch_perturbations.py does.
+
+#include "perturb_ark.cuh"
+
+extern "C" int perturb_ark_host(const int* layout, const double* lanes, const double* taus,
+                                const double* bg_y, const double* bg_y2, double bg_x0,
+                                double bg_dx, int bg_n, const double* th_y,
+                                const double* th_y2, double th_x0, double th_dx, int th_n,
+                                const double* ncdm, const double* rtol, const double* atol,
+                                double k_eta_split, long long max_steps, int nlanes, int ntau,
+                                double* work, double* S, long long* nsteps, int* status) {
+  pk::Layout L;
+  int* li = reinterpret_cast<int*>(&L);
+  for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
+  if (L.ns > pk::kMaxSpecies) return 1;
+  pk::Tables T;
+  T.bg_y = bg_y; T.bg_y2 = bg_y2; T.bg_x0 = bg_x0; T.bg_dx = bg_dx; T.bg_n = bg_n;
+  T.bg_ncol = pk::kNBgBase + 3 * L.ns;
+  T.th_y = th_y; T.th_y2 = th_y2; T.th_x0 = th_x0; T.th_dx = th_dx; T.th_n = th_n;
+  const long nsq = (long)L.ns * L.nq;
+  T.q = ncdm; T.w = ncdm + L.nq; T.dlnf0 = T.w + nsq; T.x_fac = T.dlnf0 + nsq;
+  T.pref = T.x_fac + L.ns;
+  for (int lane = 0; lane < nlanes; ++lane) {
+    pk::Lane ln;
+    ln.k = lanes[lane];
+    const double tau_ini = lanes[nlanes + lane];
+    ln.t_tca = lanes[2 * nlanes + lane];
+    ln.t_ufa = lanes[3 * nlanes + lane];
+    ln.t_rsa = lanes[4 * nlanes + lane];
+    ln.t_ncfa = lanes[5 * nlanes + lane];
+    ln.eta_off = ln.k < k_eta_split ? 1.0 : 0.0;
+    status[lane] = pk::integrate_lane(
+        L, T, pk::Team{0, 1}, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n,
+        atol + (long)lane * L.n, (long)max_steps, work, S + (long)lane * ntau * pk::kNSrc,
+        &nsteps[lane]);
+  }
+  return 0;
+}

@@ -17,6 +17,8 @@ import torch
 from .config.params import CosmoParams
 from .config.precision import PrecisionParams
 from .models.background import BackgroundResult, BgIdx
+from .models.nonlinear import PkResult
+from .models.perturbations.equations import NcdmCtx
 from .models.perturbations.solve import PerturbResult
 from .models.spectra import SpectraResult
 from .models.thermodynamics import ThermoResult
@@ -55,13 +57,17 @@ def spline(d: dict, device) -> UniformSpline:
 def background(d: dict, device, names=None) -> tuple:
     """(BackgroundResult, BgIdx) from a JAX BackgroundResult dict. `names`
     (the JAX BgIdx.names) reorders the table columns when given."""
-    idx = BgIdx()
+    n_ncdm = len(np.atleast_1d(np.asarray(d.get("rho_ncdm0", ()))))
+    idx = BgIdx(n_ncdm)
     cols = slice(None) if names is None else [list(names).index(n) for n in idx.names]
     table = np.asarray(d["table"])[:, cols]
     spl = d["lntau_spline"]
     spl = dict(spl, y=np.asarray(spl["y"])[:, cols], y2=np.asarray(spl["y2"])[:, cols])
     scalars = {k: _f(d[k]) for k in BackgroundResult._fields
-               if k not in ("loga", "tau_of_loga", "table", "lntau_spline") and k in d}
+               if k not in ("loga", "tau_of_loga", "table", "lntau_spline", "rho_ncdm0")
+               and k in d}
+    scalars["rho_ncdm0"] = tuple(float(v) for v in np.atleast_1d(np.asarray(
+        d.get("rho_ncdm0", ()))))
     return BackgroundResult(loga=_t(d["loga"], device), tau_of_loga=_t(d["tau_of_loga"], device),
                             table=_t(table, device), lntau_spline=spline(spl, device),
                             **scalars), idx
@@ -102,3 +108,14 @@ def spectra(d: dict, device) -> SpectraResult:
                          cl=_t(d["cl"], device),
                          l_list=torch.as_tensor(np.array(d["l_list"]), device=device),
                          cl_list=_t(d["cl_list"], device))
+
+
+def ncdm_ctx(d: dict, device) -> NcdmCtx:
+    """NcdmCtx from the JAX NcdmCtx arrays (the decay fields are dropped)."""
+    return NcdmCtx(*(_t(d[k], device) for k in NcdmCtx._fields))
+
+
+def pk_result(d: dict, device) -> PkResult:
+    """PkResult from a JAX PkResult dict."""
+    kw = {k: _t(d[k], device) for k in PkResult._fields if k != "sigma8"}
+    return PkResult(sigma8=_f(d["sigma8"]), **kw)

@@ -1,8 +1,9 @@
-"""Background cosmology: flat LambdaCDM with massless neutrinos.
+"""Background cosmology: flat LambdaCDM with massless and massive neutrinos.
 
 Counterpart of classpp_public_tpu/models/background.py
-(`_compute_background_impl` :364, `tau_of_z` :944). Every density has a
-closed form on a fixed uniform ln(a) grid, the time-like integrals (tau, t,
+(`_compute_background_impl` :364, the ncdm momentum integrals :113-262,
+`tau_of_z` :944). Every density has a closed form on a fixed uniform ln(a)
+grid (ncdm through fixed-node momentum sums), the time-like integrals (tau, t,
 r_s) are exact cumulative spline integrals, and the growth factor is an RK4
 march. Runtime queries go through a uniform-in-ln(tau) respline.
 
@@ -24,6 +25,7 @@ from .. import constants as const
 from ..config.params import CosmoParams, check_lcdm
 from ..config.precision import PrecisionParams
 from ..ops.ode import rk4_fixed
+from ..ops.quadrature import trapz_weights_np
 from ..ops.splines import (UniformSpline, interp, spline_d2, spline_eval,
                            spline_integrate)
 
@@ -32,16 +34,19 @@ HOST = torch.device("cpu")
 
 class BgIdx:
     """Column indices of the background runtime table (index_bg_*,
-    source/background_module.h:40-99), LambdaCDM + ur layout."""
+    source/background_module.h:40-99), LambdaCDM + ur + ncdm layout: three
+    columns (rho, p, pseudo-pressure) per ncdm species after rho_ur."""
 
-    def __init__(self):
-        self.key = (0, False, False, False, False, 0, 0)
-        self.names = ["a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm",
-                      "rho_lambda", "rho_ur", "rho_tot", "p_tot", "p_tot_prime",
-                      "rho_crit", "Omega_m", "Omega_r", "conf_distance",
-                      "ang_distance", "lum_distance", "time", "rs", "D", "f"]
-        self.ix = {n: i for i, n in enumerate(self.names)}
-        self.n = len(self.names)
+    def __init__(self, n_ncdm: int = 0):
+        self.key = (n_ncdm, False, False, False, False, 0, 0)
+        names = ["a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm", "rho_lambda", "rho_ur"]
+        for i in range(n_ncdm):
+            names += [f"rho_ncdm{i}", f"p_ncdm{i}", f"pseudo_p_ncdm{i}"]
+        names += ["rho_tot", "p_tot", "p_tot_prime", "rho_crit", "Omega_m", "Omega_r",
+                  "conf_distance", "ang_distance", "lum_distance", "time", "rs", "D", "f"]
+        self.names = names
+        self.ix = {n: i for i, n in enumerate(names)}
+        self.n = len(names)
 
     def __getitem__(self, name):
         return self.ix[name]
@@ -69,12 +74,88 @@ class BackgroundResult(NamedTuple):
     Omega0_lambda: float
     Omega0_ur: float
     Omega0_ncdm_tot: float = 0.0
+    rho_ncdm0: tuple = ()       # today's rho per ncdm species
 
     def to(self, device) -> "BackgroundResult":
         return self._replace(loga=self.loga.to(device),
                              tau_of_loga=self.tau_of_loga.to(device),
                              table=self.table.to(device),
                              lntau_spline=self.lntau_spline.to(device))
+
+
+# --- ncdm momentum integrals (tools/non_cold_dark_matter.cpp momenta) --------
+_NCDM_NQ = 128
+_NCDM_QMAX = 32.0
+_RHO_INTEGRAL_0 = 7.0 * math.pi**4 / 120.0  # int q^3/(e^q+1) dq
+
+
+def _ncdm_quadrature():
+    """Dense trapezoid grid for the background Fermi-Dirac integrals: nodes q
+    and weights times f0(q) (numpy)."""
+    q = np.linspace(1e-5, _NCDM_QMAX, _NCDM_NQ)
+    return q, trapz_weights_np(q) / (np.exp(q) + 1.0)
+
+
+_Q_NCDM, _WF_NCDM = _ncdm_quadrature()
+
+
+def ncdm_psd_f0(params, i, q):
+    """Normalised phase-space distribution of species i on momenta q (numpy):
+    Fermi-Dirac with zero chemical potential, 1/(e^q + 1). Tabulated files
+    and chemical potentials (classpp_public_tpu/models/background.py:142-160)
+    are not ported; check_lcdm refuses them."""
+    q = np.asarray(q, dtype=np.float64)
+    return 1.0 / (np.exp(np.minimum(q, 700.0)) + 1.0)
+
+
+def ncdm_q_rule(params, pr=None):
+    """The perturbation momentum-grid rule (nq, gauss, qmax): the default
+    16-node Gauss-Laguerre grid shared by all species. The 'Quadrature
+    strategy' branches (classpp_public_tpu/models/background.py:183-209) are
+    not ported; check_lcdm refuses them."""
+    return 16, True, _NCDM_QMAX
+
+
+def ncdm_psd_weights(params, nq, gauss=True, qmax=None):
+    """Per-species quadrature data on shared momentum nodes: (q (nq,),
+    w (ns, nq), dlnf0 (ns, nq)), w = weight x f0(q) so that sum w q^2 eps
+    reproduces int q^2 eps f0 dq; dlnf0 = dln f0/dln q by central difference
+    (numpy)."""
+    if gauss:
+        qn, wn = np.polynomial.laguerre.laggauss(nq)
+        base_w = wn * np.exp(qn)
+    else:
+        qn = np.linspace(1e-5, qmax if qmax is not None else _NCDM_QMAX, nq)
+        base_w = trapz_weights_np(qn)
+    ws, dls = [], []
+    dq = 1e-4
+    for i in range(params.N_ncdm):
+        f0 = ncdm_psd_f0(params, i, qn)
+        f_hi = ncdm_psd_f0(params, i, qn * (1.0 + dq))
+        f_lo = ncdm_psd_f0(params, i, qn * (1.0 - dq))
+        dln = np.where(f0 > 0.0, (f_hi - f_lo) / (2.0 * dq * np.maximum(f0, 1e-300)), 0.0)
+        ws.append(base_w * f0)
+        dls.append(dln)
+    return (qn, np.asarray(ws).reshape(params.N_ncdm, nq),
+            np.asarray(dls).reshape(params.N_ncdm, nq))
+
+
+def ncdm_momenta(x: torch.Tensor, q=None, wf=None):
+    """Dimensionless Fermi-Dirac integrals at x = a m / T0, normalised so
+    that I_rho(0) = 3 I_p(0) = 1:
+      I_rho = int q^2 eps f0 / I0,  eps = sqrt(q^2 + x^2)
+      I_p   = (1/3) int q^4/eps f0 / I0
+      I_pp  = (1/3) int q^6/eps^3 f0 / I0   (pseudo-pressure of the ncdm fluid
+              approximation; background_ncdm_momenta)."""
+    if q is None:
+        q, wf = _Q_NCDM, _WF_NCDM
+    q = torch.as_tensor(q, dtype=x.dtype)
+    wf = torch.as_tensor(wf, dtype=x.dtype)
+    eps = torch.sqrt(q**2 + x[..., None] ** 2)
+    i_rho = torch.sum(q**2 * eps * wf, dim=-1) / _RHO_INTEGRAL_0
+    i_p = torch.sum(q**4 / eps * wf, dim=-1) / (3.0 * _RHO_INTEGRAL_0)
+    i_pp = torch.sum(q**6 / eps**3 * wf, dim=-1) / (3.0 * _RHO_INTEGRAL_0)
+    return i_rho, i_p, i_pp
 
 
 def _scalar_spline(spl: UniformSpline):
@@ -127,17 +208,37 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
     rho_cdm = Omega0_cdm * H0**2 / a**3
     rho_ur = Omega0_ur * H0**2 / a**4
 
-    Omega0_others = Omega0_g + Omega0_b + Omega0_cdm + Omega0_ur
+    # ncdm species (background.py:386-416)
+    n_ncdm = params.N_ncdm
+    rho_ncdm, p_ncdm, pp_ncdm = [], [], []
+    for i in range(n_ncdm):
+        T_ratio = params.T_ncdm_of(i)
+        T0_eV = const.k_B * params.T_cmb * T_ratio / const.eV_SI  # T_ncdm today in eV
+        i_rho, i_p, i_pp = ncdm_momenta(a * params.m_ncdm[i] / T0_eV)
+        pref = params.deg_ncdm_of(i) * (7.0 / 8.0) * T_ratio**4 * rho_g0 / a**4
+        rho_ncdm.append(pref * i_rho)
+        p_ncdm.append(pref * i_p)
+        pp_ncdm.append(pref * i_pp)
+    rho_ncdm0 = tuple(float(r[-1]) for r in rho_ncdm)
+    Omega0_ncdm_tot = sum(rho_ncdm0) / H0**2
+
+    Omega0_others = Omega0_g + Omega0_b + Omega0_cdm + Omega0_ur + Omega0_ncdm_tot
     Omega0_lambda = 1.0 - params.Omega_k - Omega0_others
     rho_lambda = torch.full_like(a, Omega0_lambda * H0**2)
 
     rho_tot = rho_g + rho_b + rho_cdm + rho_ur + rho_lambda
     p_tot = (rho_g + rho_ur) / 3.0 - rho_lambda
+    for i in range(n_ncdm):
+        rho_tot = rho_tot + rho_ncdm[i]
+        p_tot = p_tot + p_ncdm[i]
     rho_crit = rho_tot
     H = torch.sqrt(rho_crit)
     aH = a * H
     H_prime = -1.5 * a * (rho_tot + p_tot)
     p_tot_prime = -(4.0 / 3.0) * aH * (rho_g + rho_ur)
+    for i in range(n_ncdm):
+        # dp_ncdm/dtau = aH (pseudo_p - 5 p)  (tools/non_cold_dark_matter.cpp)
+        p_tot_prime = p_tot_prime + aH * (pp_ncdm[i] - 5.0 * p_ncdm[i])
 
     # --- time-like integrals on the loga grid
     inv_aH = 1.0 / aH
@@ -176,6 +277,9 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
     # --- z_eq (radiation-matter equality)
     rho_r_tot = rho_g + rho_ur
     rho_m_tot = rho_b + rho_cdm
+    for i in range(n_ncdm):
+        rho_r_tot = rho_r_tot + 3.0 * p_ncdm[i]
+        rho_m_tot = rho_m_tot + (rho_ncdm[i] - 3.0 * p_ncdm[i])
     ratio = torch.log(rho_r_tot / rho_m_tot)
     i_eq = int(torch.argmin(torch.abs(ratio)))
     sl = (ratio[i_eq + 1] - ratio[i_eq - 1]) / (loga[i_eq + 1] - loga[i_eq - 1])
@@ -183,7 +287,7 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
     z_eq = float(torch.exp(-loga_eq) - 1.0)
     tau_eq = float(interp(loga_eq, loga, tau))
 
-    idx = BgIdx()
+    idx = BgIdx(n_ncdm)
     cols = {
         "a": a, "H": H, "H_prime": H_prime,
         "rho_g": rho_g, "rho_b": rho_b, "rho_cdm": rho_cdm,
@@ -195,6 +299,10 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
         "lum_distance": lum_distance,
         "time": t / const.Gyr_over_Mpc, "rs": rs, "D": D, "f": f,
     }
+    for i in range(n_ncdm):
+        cols[f"rho_ncdm{i}"] = rho_ncdm[i]
+        cols[f"p_ncdm{i}"] = p_ncdm[i]
+        cols[f"pseudo_p_ncdm{i}"] = pp_ncdm[i]
     table = torch.stack([cols[n] for n in idx.names], dim=1)
 
     # --- uniform ln(tau) respline for runtime queries
@@ -211,9 +319,10 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
     res = BackgroundResult(
         loga=loga, tau_of_loga=tau, table=table, lntau_spline=lntau_spline,
         tau0=tau0, age=age, z_eq=z_eq, tau_eq=tau_eq, a_today=1.0, H0=H0,
-        Omega0_m=Omega0_b + Omega0_cdm, Omega0_r=Omega0_g + Omega0_ur,
+        Omega0_m=Omega0_b + Omega0_cdm + Omega0_ncdm_tot, Omega0_r=Omega0_g + Omega0_ur,
         Omega0_g=Omega0_g, Omega0_b=Omega0_b, Omega0_cdm=Omega0_cdm,
-        Omega0_lambda=Omega0_lambda, Omega0_ur=Omega0_ur)
+        Omega0_lambda=Omega0_lambda, Omega0_ur=Omega0_ur,
+        Omega0_ncdm_tot=Omega0_ncdm_tot, rho_ncdm0=rho_ncdm0)
     return res, idx
 
 

@@ -5,10 +5,12 @@ source functions.
 Counterpart of classpp_public_tpu/models/perturbations/equations.py
 (`PertCtx` :134, `rhs_full` :225, `stiff_apply` :1017, `stiff_solve` :1057,
 `adiabatic_ic` :1109, `remap_tca_off` :1421, `remap_ufa_on` :1448,
-`remap_rsa_on` :1482, `compute_sources` :1501), restricted to the flat
-synchronous-gauge LambdaCDM branches: photons, polarization, baryons, cdm,
-massless neutrinos and the metric. In a flat universe the curvature factors
-s_l are exactly 1 and are left out.
+`remap_ncdmfa_on` :1456, `remap_rsa_on` :1482, `compute_sources` :1501),
+restricted to the flat synchronous-gauge branches: photons, polarization,
+baryons, cdm, massless neutrinos, massive neutrinos (ncdm: the Psi_l(q)
+hierarchy on a shared momentum grid, or its fluid approximation) and the
+metric. In a flat universe the curvature factors s_l are exactly 1 and are
+left out; in synchronous gauge metric_euler is 0.
 
 Every function takes the state as (L, n): one row per lane (k mode), each
 with its own time, wavenumber and approximation flags. The tables are read
@@ -31,14 +33,31 @@ BG_COLS = ("a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm", "rho_ur",
 TH_COLS = ("dkappa", "ddkappa", "g", "dg", "exp_m_kappa", "cb2")
 
 
+class NcdmCtx(NamedTuple):
+    """ncdm phase-space data on the shared momentum grid (equations.py:34).
+    eps(q, a) = sqrt(q^2 + (a m/T0)^2), q in units of T_ncdm0;
+    rho_s = pref_s / a^4 sum_q w_q q^2 eps."""
+
+    q: torch.Tensor       # (nq,) shared momentum nodes
+    w: torch.Tensor       # (ns, nq) per-species weights including f0(q)
+    dlnf0: torch.Tensor   # (ns, nq) dln f0 / dln q
+    x_fac: torch.Tensor   # (ns,) m/T_ncdm0
+    pref: torch.Tensor    # (ns,) normalisation (class units, Mpc^-2)
+
+    def to(self, device) -> "NcdmCtx":
+        return NcdmCtx(*(v.to(device) for v in self))
+
+
 class PertTables(NamedTuple):
     """Background and thermodynamics runtime splines restricted to the
-    columns the equations read (BG_COLS, TH_COLS). Column-wise splines, so
-    restricting the columns is exact."""
+    columns the equations read (BG_COLS then rho, p, pseudo_p of each ncdm
+    species; TH_COLS). Column-wise splines, so restricting the columns is
+    exact."""
 
     bg: object    # UniformSpline over ln(tau)
     th: object    # UniformSpline over ln(tau)
     idx: PtIdx
+    ncdm: NcdmCtx = None   # when idx.n_ncdm > 0
 
 
 class Frame(NamedTuple):
@@ -61,24 +80,31 @@ class Frame(NamedTuple):
     dg: torch.Tensor
     emk: torch.Tensor
     cb2: torch.Tensor
+    rho_nc: torch.Tensor = None   # (L, ns) per ncdm species
+    p_nc: torch.Tensor = None
+    pp_nc: torch.Tensor = None
 
 
-def make_tables(bg, bidx, th, idx: PtIdx) -> PertTables:
-    """Restrict the runtime splines to BG_COLS / TH_COLS."""
+def make_tables(bg, bidx, th, idx: PtIdx, ncdm: NcdmCtx = None) -> PertTables:
+    """Restrict the runtime splines to BG_COLS (+ ncdm columns) / TH_COLS."""
     bi = [bidx[n] for n in BG_COLS]
+    for i in range(idx.n_ncdm):
+        bi += [bidx[f"rho_ncdm{i}"], bidx[f"p_ncdm{i}"], bidx[f"pseudo_p_ncdm{i}"]]
     ti = [ThIdx.ix[n] for n in TH_COLS]
     b, t = bg.lntau_spline, th.lntau_spline
     return PertTables(
         bg=b._replace(y=b.y[:, bi].contiguous(), y2=b.y2[:, bi].contiguous()),
         th=t._replace(y=t.y[:, ti].contiguous(), y2=t.y2[:, ti].contiguous()),
-        idx=idx)
+        idx=idx, ncdm=ncdm)
 
 
 def frame_at(tau: torch.Tensor, tables: PertTables) -> Frame:
     lntau = torch.log(tau)
-    bgv = tables.bg.eval(lntau).unbind(-1)
+    bgv = tables.bg.eval(lntau)
     thv = tables.th.eval(lntau).unbind(-1)
-    return Frame(tau, *bgv, *thv)
+    nb = len(BG_COLS)
+    nc = bgv[:, nb:].reshape(bgv.shape[0], -1, 3).unbind(-1) if tables.idx.n_ncdm else ()
+    return Frame(tau, *bgv[:, :nb].unbind(-1), *thv, *nc)
 
 
 class PertCtx(NamedTuple):
@@ -92,6 +118,26 @@ class PertCtx(NamedTuple):
     ufa_on: torch.Tensor
     eta_off: torch.Tensor
     tables: PertTables
+    ncdmfa_on: torch.Tensor = None   # ncdm fluid approximation (bool)
+
+
+def _ncdm_moments(fr: Frame, y: torch.Tensor, ctx: PertCtx):
+    """Psi (L, ns, nq, nl), eps (L, ns, nq), fac (L, ns) and the exact
+    momentum sums (rho delta, (rho+p) theta, (rho+p) shear, delta p), each
+    (L, ns) (perturb_total_stress_energy :6347-6395)."""
+    idx, nc = ctx.tables.idx, ctx.tables.ncdm
+    ns, nq, nl = idx.n_ncdm, idx.q_size_ncdm, idx.n_l_ncdm
+    Psi = y[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block].reshape(-1, ns, nq, nl)
+    a = fr.a
+    eps = torch.sqrt(nc.q[None, None, :] ** 2 + (a[:, None, None] * nc.x_fac[None, :, None]) ** 2)
+    fac = nc.pref[None, :] / (a * a * a * a)[:, None]
+    q = nc.q[None, None, :]
+    qw = (nc.w * nc.q[None, :] ** 2)[None]
+    rho_delta = fac * torch.sum(qw * eps * Psi[..., 0], dim=-1)
+    rpt = ctx.k[:, None] * fac * torch.sum(qw * q * Psi[..., 1], dim=-1)
+    rps = 2.0 / 3.0 * fac * torch.sum(qw * q**2 / eps * Psi[..., 2], dim=-1)
+    dp = fac / 3.0 * torch.sum(qw * q**2 / eps * Psi[..., 0], dim=-1)
+    return Psi, eps, fac, (rho_delta, rpt, rps, dp)
 
 
 def _w(cond, a, b):
@@ -130,6 +176,21 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     F_ur = y[:, idx.F_ur: idx.F_ur + idx.n_F_ur]
     eta = y[:, idx.eta] + ctx.eta_off
 
+    if idx.n_ncdm:
+        # exact momentum integrals or the fluid variables in slots
+        # (s, 0, 0:3) (equations.py:320-346)
+        ncfa = ctx.ncdmfa_on[:, None]
+        Psi, eps_nc, _, (rho_delta_ex, rpt_ex, rps_ex, dp_ex) = _ncdm_moments(fr, y, ctx)
+        rho_nc, p_nc, pp_nc = fr.rho_nc, fr.p_nc, fr.pp_nc
+        w_nc = p_nc / rho_nc
+        rho_plus_p_nc = rho_nc + p_nc
+        d_fl, t_fl, s_fl = Psi[:, :, 0, 0], Psi[:, :, 0, 1], Psi[:, :, 0, 2]
+        cg2_nc = w_nc * (1.0 - (3.0 * w_nc - 2.0 + pp_nc / p_nc) / (3.0 + 3.0 * w_nc))
+        rho_delta_nc = _w(ncfa, rho_nc * d_fl, rho_delta_ex)
+        rpt_nc = _w(ncfa, rho_plus_p_nc * t_fl, rpt_ex)
+        rps_nc = _w(ncfa, rho_plus_p_nc * s_fl, rps_ex)
+        dp_nc = _w(ncfa, cg2_nc * rho_nc * d_fl, dp_ex)
+
     # effective photon/ur variables in the Einstein sums
     # (perturb_total_stress_energy :6107-6170)
     d_g = _w(rsa, zero, delta_g)
@@ -142,6 +203,11 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     rho_plus_p_theta = 4.0 / 3.0 * rho_g * t_g + rho_b * theta_b + 4.0 / 3.0 * rho_ur * t_ur
     rho_plus_p_shear = 4.0 / 3.0 * rho_g * s_g + 4.0 / 3.0 * rho_ur * s_ur
     delta_p = 1.0 / 3.0 * rho_g * d_g + cb2 * rho_b * delta_b + 1.0 / 3.0 * rho_ur * d_ur
+    if idx.n_ncdm:
+        delta_rho = delta_rho + rho_delta_nc.sum(dim=1)
+        rho_plus_p_theta = rho_plus_p_theta + rpt_nc.sum(dim=1)
+        rho_plus_p_shear = rho_plus_p_shear + rps_nc.sum(dim=1)
+        delta_p = delta_p + dp_nc.sum(dim=1)
 
     # Einstein 00 (perturb_einstein :5911) and the radiation-streaming
     # values (perturb_rsa_delta_and_theta :9581-9615, rsa_MD_with_reio)
@@ -252,6 +318,38 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     dFu[:, -1] = k * (F_ur[:, -2] - (lmax_u + 1.0) * cotKgen * F_ur[:, -1])
     dy[:, idx.F_ur: idx.F_ur + idx.n_F_ur] = _w((ur_on & ~ufa)[:, None], dFu, 0.0)
 
+    # ncdm (perturb_derivs :8725-8894)
+    if idx.n_ncdm:
+        nc = ctx.tables.ncdm
+        nl = idx.n_l_ncdm
+        qk_eps = (k[:, None, None] * nc.q[None, None, :] / eps_nc)[..., None]   # (L, ns, nq, 1)
+        dl0 = nc.dlnf0[None]
+        ln_ = torch.arange(0, nl, dtype=y.dtype, device=y.device)
+        zcol = torch.zeros_like(Psi[..., :1])
+        Ps_m1 = torch.cat([zcol, Psi[..., :-1]], dim=-1)
+        Ps_p1 = torch.cat([Psi[..., 1:], zcol], dim=-1)
+        dPsi = qk_eps / (2.0 * ln_ + 1.0) * (ln_ * Ps_m1 - (ln_ + 1.0) * Ps_p1)
+        dPsi[..., 0] = -qk_eps[..., 0] * Psi[..., 1] \
+            + metric_continuity[:, None, None] * dl0 / 3.0
+        dPsi[..., 2] = qk_eps[..., 0] / 5.0 * (2.0 * Psi[..., 1] - 3.0 * Psi[..., 3]) \
+            - metric_shear[:, None, None] * 2.0 / 15.0 * dl0
+        dPsi[..., -1] = qk_eps[..., 0] * Psi[..., -2] \
+            - (1.0 + (nl - 1.0)) * (k * cotKgen)[:, None, None] * Psi[..., -1]
+        # fluid approximation (ncdmfa_CLASS, :8770-8790)
+        ca2 = w_nc / 3.0 / (1.0 + w_nc) * (5.0 - pp_nc / p_nc)
+        ceff2 = ca2
+        cvis2 = 3.0 * w_nc * ca2
+        aHc, k2c, mc = aH[:, None], k2[:, None], metric_continuity[:, None]
+        dPsi_fl = torch.zeros_like(dPsi)
+        dPsi_fl[:, :, 0, 0] = -(1.0 + w_nc) * (t_fl + mc) - 3.0 * aHc * (ceff2 - w_nc) * d_fl
+        dPsi_fl[:, :, 0, 1] = (-aHc * (1.0 - 3.0 * ca2) * t_fl
+                               + ceff2 / (1.0 + w_nc) * k2c * d_fl - k2c * s_fl)
+        dPsi_fl[:, :, 0, 2] = (
+            -3.0 * (aHc * (2.0 / 3.0 - ca2 - pp_nc / p_nc / 3.0) + 1.0 / tau[:, None]) * s_fl
+            + 8.0 / 3.0 * cvis2 / (1.0 + w_nc) * (t_fl + mc))
+        dPsi = _w(ctx.ncdmfa_on[:, None, None, None], dPsi_fl, dPsi)
+        dy[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block] = dPsi.reshape(y.shape[0], -1)
+
     dy[:, idx.eta] = eta_prime
 
     # gauge-invariant matter variables (perturb_einstein :5986-6006)
@@ -259,18 +357,32 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     theta_cb_gauge = rho_b * theta_b / rho_m_cb
     delta_cb = (rho_b * delta_b + rho_cdm * delta_cdm) / rho_m_cb + 3.0 * aH * theta_cb_gauge / k2
     theta_cb = theta_cb_gauge + k2 * alpha
+    rho_tot_species = rho_g + rho_b + rho_cdm + rho_ur
+    if idx.n_ncdm:
+        sum_rho_nc = rho_nc.sum(dim=1)
+        sum_rpp_nc = rho_plus_p_nc.sum(dim=1)
+        theta_m_gauge = (rho_b * theta_b + rpt_nc.sum(dim=1)) / (rho_m_cb + sum_rpp_nc)
+        delta_m = (rho_b * delta_b + rho_cdm * delta_cdm + rho_delta_nc.sum(dim=1)) \
+            / (rho_m_cb + sum_rho_nc) + 3.0 * aH * theta_m_gauge / k2
+        theta_m = theta_m_gauge + k2 * alpha
+        delta_nc = rho_delta_nc.sum(dim=1) / sum_rho_nc
+        theta_nc = rpt_nc.sum(dim=1) / sum_rpp_nc
+        rho_tot_species = rho_tot_species + sum_rho_nc
+    else:
+        delta_m, theta_m, delta_nc, theta_nc = delta_cb, theta_cb, zero, zero
     P = _w(rsa, zero, _w(tca, 5.0 * tca_shear_g / 8.0,
                           (G[:, 0] + G[:, 2] + 2.0 * shear_g) / 8.0))
     rpp_tot = fr.rho_tot + fr.p_tot
     loc = dict(
         aH=aH, aH_prime=aH_prime, h_prime=h_prime, eta_prime=eta_prime, alpha=alpha,
-        alpha_prime=alpha_prime, P=P, delta_m=delta_cb, theta_m=theta_cb,
+        alpha_prime=alpha_prime, P=P, delta_m=delta_m, theta_m=theta_m,
+        delta_cb=delta_cb, theta_cb=theta_cb, delta_nc=delta_nc, theta_nc=theta_nc,
         theta_b_prime=theta_b_prime, eta=eta, phi=phi, psi=psi,
         phi_plus_psi=phi_plus_psi, phi_prime=phi_prime,
         delta_g_eff=_w(rsa, rsa_delta_g, delta_g), theta_g_eff=t_g,
         delta_ur_eff=_w(rsa, rsa_delta_ur, delta_ur),
         theta_ur_eff=_w(rsa, rsa_theta_ur, theta_ur),
-        delta_tot=delta_rho / (rho_g + rho_b + rho_cdm + rho_ur),
+        delta_tot=delta_rho / rho_tot_species,
         theta_tot=rho_plus_p_theta / rpp_tot,
         H_T_Nb_prime=3.0 * aH / rpp_tot * (
             -delta_p + fr.p_tot_prime * rho_plus_p_theta / (rpp_tot * k2) + rho_plus_p_shear))
@@ -371,6 +483,21 @@ def adiabatic_ic(fr: Frame, ctx: PertCtx, curvature_ini: float = 1.0) -> torch.T
     y[:, idx.shear_ur] = shear_ur
     y[:, idx.F_ur] = l3_ur
     y[:, idx.eta] = eta_hat
+    if idx.n_ncdm:
+        # relativistic ncdm (perturb_initial_conditions :5249-5252):
+        # Psi_l = (ur multipole) x coefficient x dlnf0/dlnq
+        nc = ctx.tables.ncdm
+        ns, nq, nl = idx.n_ncdm, idx.q_size_ncdm, idx.n_l_ncdm
+        eps = torch.sqrt(nc.q[None, None, :] ** 2
+                         + (fr.a[:, None, None] * nc.x_fac[None, :, None]) ** 2)
+        dl0 = nc.dlnf0[None]
+        Psi = torch.zeros((k.shape[0], ns, nq, nl), dtype=k.dtype, device=k.device)
+        Psi[..., 0] = -0.25 * delta_g[:, None, None] * dl0
+        Psi[..., 1] = -eps / (3.0 * nc.q[None, None, :] * k[:, None, None]) \
+            * theta_ur[:, None, None] * dl0
+        Psi[..., 2] = -0.5 * shear_ur[:, None, None] * dl0
+        Psi[..., 3] = -0.25 * l3_ur[:, None, None] * dl0
+        y[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block] = Psi.reshape(k.shape[0], -1)
     return y
 
 
@@ -397,6 +524,22 @@ def remap_ufa_on(y: torch.Tensor, idx: PtIdx, on: torch.Tensor) -> torch.Tensor:
     y = y.clone()
     sl = slice(idx.F_ur, idx.F_ur + idx.n_F_ur)
     y[:, sl] = torch.where(on[:, None], 0.0, y[:, sl])
+    return y
+
+
+def remap_ncdmfa_on(y: torch.Tensor, fr: Frame, ctx: PertCtx, on: torch.Tensor) -> torch.Tensor:
+    """Collapse each ncdm phase-space block to its fluid moments where the
+    fluid approximation switches on (perturb_vector_init :4485-4517)."""
+    idx = ctx.tables.idx
+    Psi, _, _, (rho_delta, rpt, rps, _) = _ncdm_moments(fr, y, ctx)
+    rpp = fr.rho_nc + fr.p_nc
+    Psi_new = torch.zeros_like(Psi)
+    Psi_new[:, :, 0, 0] = rho_delta / fr.rho_nc
+    Psi_new[:, :, 0, 1] = rpt / rpp
+    Psi_new[:, :, 0, 2] = rps / rpp
+    y = y.clone()
+    sl = slice(idx.ncdm, idx.ncdm + idx.n_ncdm_block)
+    y[:, sl] = torch.where(on[:, None], Psi_new.reshape(y.shape[0], -1), y[:, sl])
     return y
 
 
@@ -429,12 +572,12 @@ def compute_sources(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
         "t0": t0, "t1": t1, "t2": g * L["P"], "p": math.sqrt(6.0) * g * L["P"],
         "phi": L["phi"], "psi": L["psi"], "phi_plus_psi": L["phi_plus_psi"],
         "phi_prime": L["phi_prime"], "delta_m": L["delta_m"], "theta_m": L["theta_m"],
-        "delta_cb": L["delta_m"], "theta_cb": L["theta_m"], "h_prime": L["h_prime"],
+        "delta_cb": L["delta_cb"], "theta_cb": L["theta_cb"], "h_prime": L["h_prime"],
         "eta_src": L["eta"], "delta_g": L["delta_g_eff"], "theta_g": L["theta_g_eff"],
         "delta_b": y[:, idx.delta_b], "theta_b": y[:, idx.theta_b],
         "delta_cdm": y[:, idx.delta_cdm], "theta_cdm": zero,
         "delta_ur": L["delta_ur_eff"], "theta_ur": L["theta_ur_eff"],
-        "delta_ncdm": zero, "theta_ncdm": zero, "delta_tot": L["delta_tot"],
+        "delta_ncdm": L["delta_nc"], "theta_ncdm": L["theta_nc"], "delta_tot": L["delta_tot"],
         "H_T_Nb_prime": L["H_T_Nb_prime"], "theta_tot": L["theta_tot"],
     }
     return torch.stack([cols[n] for n in SrcIdx.names], dim=1)

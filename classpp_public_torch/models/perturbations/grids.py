@@ -107,10 +107,13 @@ class KSchedule(NamedTuple):
     tau_tca_off: np.ndarray
     tau_ufa_on: np.ndarray
     tau_rsa_on: np.ndarray
+    tau_ncdmfa_on: np.ndarray = None
 
 
 def get_k_schedule(ks: np.ndarray, pr: PrecisionParams, bg, bidx, th,
-                   tau_first_sample: float, k_max_cmb: float = np.inf) -> KSchedule:
+                   tau_first_sample: float, n_ncdm: int = 0,
+                   tol_ncdm_initial_w: float = 1.0e-3,
+                   k_max_cmb: float = np.inf) -> KSchedule:
     """Vectorised tau_ini (perturb_solve, :2541) and switch times
     (perturb_approximations, :5443) by inverting monotone triggers on the
     dense ln(tau) grid."""
@@ -147,5 +150,19 @@ def get_k_schedule(ks: np.ndarray, pr: PrecisionParams, bg, bidx, th,
     tau_fs = tau_grid[i_after_rec + min(j, len(fs_ratio) - 1)]
     tau_rsa_on = np.maximum(pr.radiation_streaming_trigger_tau_over_tau_k / ks, tau_fs)
     tau_ufa_on = pr.ur_fluid_trigger_tau_over_tau_k / ks
+    tau_ncdmfa_on = pr.ncdm_fluid_trigger_tau_over_tau_k / ks
+    # ncdm must still be ultra-relativistic at the start (perturb_solve
+    # :2568: |p/rho - 1/3| < tol_ncdm_initial_w)
+    if n_ncdm:
+        wdev = np.zeros_like(tau_grid)
+        for i in range(n_ncdm):
+            p_i = bgy[:, bidx[f"p_ncdm{i}"]]
+            r_i = bgy[:, bidx[f"rho_ncdm{i}"]]
+            with np.errstate(invalid="ignore", divide="ignore"):
+                dev_i = np.abs(3.0 * p_i / np.where(r_i > 0.0, r_i, 1.0) - 1.0)
+            wdev = np.maximum(wdev, np.where(r_i > 0.0, dev_i, 0.0))
+        j = np.searchsorted(wdev > 3.0 * tol_ncdm_initial_w, True)
+        tau_ini = np.minimum(tau_ini, tau_grid[max(j - 1, 1)])
     return KSchedule(k=ks, tau_ini=tau_ini, tau_tca_off=tau_tca_off,
-                     tau_ufa_on=tau_ufa_on, tau_rsa_on=tau_rsa_on)
+                     tau_ufa_on=tau_ufa_on, tau_rsa_on=tau_rsa_on,
+                     tau_ncdmfa_on=tau_ncdmfa_on)

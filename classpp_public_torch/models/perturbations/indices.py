@@ -3,8 +3,8 @@ classpp_public_tpu/models/perturbations/indices.py).
 
 One fixed maximal layout: slots inactive under the current approximation
 carry zero derivative and are re-initialised by a remap at the switch. The
-port holds the flat, synchronous-gauge LambdaCDM + ur layout; the other
-species' flags of the JAX PtIdx raise.
+port holds the flat, synchronous-gauge LambdaCDM + ur layout plus the ncdm
+phase-space block; the other species' flags of the JAX PtIdx raise.
 """
 
 from __future__ import annotations
@@ -15,12 +15,18 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class PtIdx:
     """Index layout, parametrised by the hierarchy truncations l_max_g,
-    l_max_pol_g and l_max_ur (include/precisions.h:209-215)."""
+    l_max_pol_g, l_max_ur, l_max_ncdm (include/precisions.h:209-215) and the
+    ncdm phase-space discretisation (species x momentum x multipole)."""
 
     l_max_g: int = 12
     l_max_pol_g: int = 10
     l_max_ur: int = 17
     n_ncdm: int = 0
+    q_size_ncdm: int = 16
+    # momentum-node rule behind q_size_ncdm (background.ncdm_q_rule)
+    q_gauss: bool = True
+    q_max_ncdm: float = 32.0
+    l_max_ncdm: int = 17
     has_fld: bool = False
     has_dcdm: bool = False
     has_scf: bool = False
@@ -30,7 +36,7 @@ class PtIdx:
     nbody: bool = False
 
     def __post_init__(self):
-        extra = [n for n in ("n_ncdm", "has_fld", "has_dcdm", "has_scf",
+        extra = [n for n in ("has_fld", "has_dcdm", "has_scf",
                              "has_idm_dr", "sgnK", "nbody") if getattr(self, n)]
         if extra or self.gauge != "synchronous":
             raise NotImplementedError(
@@ -86,9 +92,23 @@ class PtIdx:
     def n_F_ur(self):
         return self.l_max_ur - 2
 
+    # ncdm: per species a (q_size x (l_max_ncdm + 1)) block; under the fluid
+    # approximation only its first three slots (delta, theta, sigma) evolve
+    @property
+    def ncdm(self):
+        return self.F_ur + self.n_F_ur
+
+    @property
+    def n_l_ncdm(self):
+        return self.l_max_ncdm + 1
+
+    @property
+    def n_ncdm_block(self):
+        return self.n_ncdm * self.q_size_ncdm * self.n_l_ncdm
+
     @property
     def eta(self):
-        return self.F_ur + self.n_F_ur
+        return self.ncdm + self.n_ncdm_block
 
     @property
     def size(self):

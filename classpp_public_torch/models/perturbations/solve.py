@@ -1,44 +1,50 @@
-"""Batched perturbation solve: every k mode of a batch steps in lockstep.
+"""Perturbation solve: every k mode (lane) integrated through all source
+sampling times.
 
 Counterpart of classpp_public_tpu/models/perturbations/solve.py
-(`_stepper` :198-314, `solve_one_k` :317, `compute_perturbations` :448-755).
-Lanes form the leading axis of a (nlanes, 46) state; each lane has its own
-time, step, next sample and switch times. One loop iteration is one
-adaptive ARK4(3)6L step of every live lane:
+(`make_ncdm_ctx` :37, `_stepper` :198-314, `solve_one_k` :317,
+`compute_perturbations` :448-755). Each lane has its own time, step, next
+sample and switch times, and takes adaptive ARK4(3)6L steps:
 
 - the step is clipped so it never straddles a switch time (TCA off, UFA on,
-  RSA on) or the lane's next sample time;
+  RSA on, ncdm fluid on) or the lane's next sample time;
 - accept/reject per lane with the 0.9 ratio^(-1/4) controller clipped to
   [0.2, 5];
 - the state remaps fire where an accepted step lands on a switch;
-- a lane that reaches its next sample time stores its state there.
+- at each sample reached, the source row S[k, tau, :] is evaluated from the
+  state.
 
-The source rows S[k, tau, :] are evaluated from the stored states in one
-batched pass after the loop (the same compute_sources at the same (tau, y,
-flags) as the JAX scan emits per interval). The host reads the device only
-every `SYNC_EVERY` iterations, to stop, drop finished lanes and skip the TCA
-remap once no lane can cross that switch any more.
-
-`integrate_sources` is the boundary a CUDA kernel of the whole integrator
-replaces: it takes lanes, samples, tables and tolerances and returns
-(S, nsteps).
+`integrate_sources` takes lanes, samples, tables and tolerances and returns
+(S, nsteps). On CUDA tensors it is one launch of the hand-written kernel
+csrc/perturb_ark.cu, in which every lane has a warp of its own and runs its
+own loop to its last sample. On CPU tensors it is `integrate_sources_plain`: the lanes form the
+leading axis of a (nlanes, nstate) state and step in lockstep; lanes that
+reach a sample store their state in a table, and the sources are evaluated
+from it in one batched pass after the loop. The host reads the lane state
+only every `SYNC_EVERY` iterations, to stop, drop finished lanes and skip the
+TCA remap once no lane can cross that switch any more.
 
 The JAX package's chunk, window and mesh scheduling and its 256-bucketing
-(solve.py:514-737) are TPU launch shaping and have no counterpart here; the
-CMB lanes and the P(k)-tail lanes still run as separate batches because
-their tolerances differ (solve.py:590-655).
+(solve.py:514-737) are TPU launch shaping and have no counterpart here: the
+CMB lanes and the P(k)-tail lanes, which differ in their tolerances
+(solve.py:590-655), go in one call with per-lane, per-component tolerances.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ... import constants as const
 from ...config.params import CosmoParams
 from ...config.precision import PrecisionParams
+from ...ops import cuda
 from ...ops.ode import ark43_step
+from ..background import ncdm_psd_weights, ncdm_q_rule
 from . import equations as eq
 from .grids import get_k_list, get_k_schedule, get_tau_sampling
 from .indices import PtIdx, SrcIdx
@@ -46,7 +52,27 @@ from .indices import PtIdx, SrcIdx
 K_ETA_SPLIT = 0.02   # 1/Mpc: below this, adiabatic lanes store eta - 1
 SYNC_EVERY = 32      # loop iterations between host reads of the lane state
 SOURCE_CHUNK = 65536  # lanes per batched source evaluation
-MAX_ITERATIONS = 1_000_000  # a batch still running after this many steps has stalled
+MAX_ITERATIONS = 1_000_000  # a lane still running after this many steps has stalled
+
+launches = 0  # perturb_ark kernel launches (integrate_sources on CUDA tensors)
+
+
+def make_ncdm_ctx(params: CosmoParams, idx: PtIdx) -> eq.NcdmCtx:
+    """The shared ncdm phase-space context: Gauss-Laguerre momentum nodes
+    shared across species with per-species weights w = weight e^q f0(q) and
+    dln f0/dln q (tensors on the host; solve.py:37-75)."""
+    qn, wf, dlnf0 = ncdm_psd_weights(params, idx.q_size_ncdm, gauss=idx.q_gauss,
+                                     qmax=idx.q_max_ncdm)
+    I0 = 7.0 * math.pi**4 / 120.0
+    rho_g0 = const.rho_gamma_class_units(params.T_cmb)
+    x_fac, pref = [], []
+    for i in range(idx.n_ncdm):
+        T_ratio = params.T_ncdm_of(i)
+        T0_eV = const.k_B * params.T_cmb * T_ratio / const.eV_SI
+        x_fac.append(params.m_ncdm[i] / T0_eV)
+        pref.append(params.deg_ncdm_of(i) * (7.0 / 8.0) * T_ratio**4 * rho_g0 / I0)
+    return eq.NcdmCtx(*(torch.as_tensor(np.asarray(a, dtype=np.float64))
+                        for a in (qn, wf, dlnf0, x_fac, pref)))
 
 
 class Lanes(NamedTuple):
@@ -57,6 +83,7 @@ class Lanes(NamedTuple):
     t_tca: torch.Tensor
     t_ufa: torch.Tensor
     t_rsa: torch.Tensor
+    t_ncfa: torch.Tensor   # +inf without ncdm: the switch never fires
 
     def take(self, sel) -> "Lanes":
         return Lanes(*(v[sel] for v in self))
@@ -75,7 +102,8 @@ class PerturbResult(NamedTuple):
 
 def _ctx(lanes: Lanes, t, eta_off, tables):
     return eq.PertCtx(k=lanes.k, tca_on=t < lanes.t_tca, rsa_on=t >= lanes.t_rsa,
-                      ufa_on=t >= lanes.t_ufa, eta_off=eta_off, tables=tables)
+                      ufa_on=t >= lanes.t_ufa, eta_off=eta_off, tables=tables,
+                      ncdmfa_on=t >= lanes.t_ncfa)
 
 
 def _eta_off(k):
@@ -86,7 +114,7 @@ class _LaneState:
     """The integration state of the live lanes, as tensors updated in place
     by `_step` (so that a CUDA graph of one step can be replayed)."""
 
-    FIELDS = ("ids", "k", "tau_ini", "t_tca", "t_ufa", "t_rsa", "eta_off", "rtol", "atol",
+    FIELDS = ("ids", "k", "tau_ini", "t_tca", "t_ufa", "t_rsa", "t_ncfa", "eta_off", "rtol", "atol",
               "t", "y", "h", "j", "done", "nsteps")
 
     def __init__(self, **kw):
@@ -97,14 +125,14 @@ class _LaneState:
         return _LaneState(**{f: getattr(self, f)[sel] for f in self.FIELDS})
 
     def lanes(self) -> Lanes:
-        return Lanes(self.k, self.tau_ini, self.t_tca, self.t_ufa, self.t_rsa)
+        return Lanes(self.k, self.tau_ini, self.t_tca, self.t_ufa, self.t_rsa, self.t_ncfa)
 
 
 def _step(s: _LaneState, tables, taus_ext, Yflat, ntau: int, need_tca: bool):
     """One adaptive step of every lane, in place (solve.py:268-312)."""
     ln = s.lanes()
     t, y, h, j, done = s.t, s.y, s.h, s.j, s.done
-    sw = torch.stack([ln.t_tca, ln.t_ufa, ln.t_rsa], dim=1)
+    sw = torch.stack([ln.t_tca, ln.t_ufa, ln.t_rsa, ln.t_ncfa], dim=1)
     t_b = taus_ext[j]
     cand = torch.where(sw > (t * (1.0 + 1e-14))[:, None], sw, torch.inf)
     t_stop = torch.minimum(cand.min(dim=1).values, t_b)
@@ -131,6 +159,9 @@ def _step(s: _LaneState, tables, taus_ext, Yflat, ntau: int, need_tca: bool):
         y_out = torch.where(crossed[:, 0:1], remapped, y_out)
     y_out = eq.remap_ufa_on(y_out, tables.idx, crossed[:, 1])
     y_out = eq.remap_rsa_on(y_out, tables.idx, crossed[:, 2])
+    if tables.idx.n_ncdm:
+        y_out = eq.remap_ncdmfa_on(y_out, eq.frame_at(t_new, tables),
+                                   _ctx(ln, t_new, s.eta_off, tables), crossed[:, 3])
     # a lane that reaches its next sample stores its state there; the others
     # write to their spare slot
     arrived = live & (t_new >= t_b * (1.0 - 1e-15))
@@ -161,13 +192,10 @@ def _runner(fn, on_card: bool):
     return graph.replay, 1
 
 
-def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
-                      tolerances) -> tuple:
-    """Integrate every lane from tau_ini through all samples `taus`.
-
-    tolerances: (rtol, atol), each (nlanes, nstate). Returns
-    (S (nlanes, ntau, SrcIdx.n), nsteps (nlanes,)), nsteps counting step
-    attempts as the JAX integrator does."""
+def integrate_sources_plain(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
+                            tolerances) -> tuple:
+    """Plain PyTorch version of `integrate_sources`: all lanes in lockstep
+    (on a card, one CUDA graph per step)."""
     rtol_all, atol_all = tolerances
     dev, f64 = taus.device, taus.dtype
     nl_tot, ntau = lanes.k.shape[0], taus.shape[0]
@@ -183,7 +211,8 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
     t0 = lanes.tau_ini.clone()
     y0 = eq.adiabatic_ic(eq.frame_at(t0, tables), _ctx(lanes, t0, eta_off, tables))
     s = _LaneState(ids=torch.arange(nl_tot, device=dev), k=lanes.k, tau_ini=lanes.tau_ini,
-                   t_tca=lanes.t_tca, t_ufa=lanes.t_ufa, t_rsa=lanes.t_rsa, eta_off=eta_off,
+                   t_tca=lanes.t_tca, t_ufa=lanes.t_ufa, t_rsa=lanes.t_rsa,
+                   t_ncfa=lanes.t_ncfa, eta_off=eta_off,
                    rtol=rtol_all, atol=atol_all, t=t0, y=y0, h=0.1 * lanes.tau_ini,
                    j=torch.zeros(nl_tot, dtype=torch.long, device=dev),
                    done=torch.zeros(nl_tot, dtype=torch.bool, device=dev),
@@ -232,6 +261,80 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
     return S, nsteps_all
 
 
+def _layout_ints(idx: PtIdx) -> list:
+    """PtIdx as the int fields of the kernel's pk::Layout, in its order."""
+    return [idx.size, idx.delta_g, idx.theta_g, idx.shear_g, idx.F_g, idx.n_F_g,
+            idx.G_g, idx.n_G_g, idx.delta_b, idx.theta_b, idx.delta_cdm,
+            idx.delta_ur, idx.theta_ur, idx.shear_ur, idx.F_ur, idx.n_F_ur,
+            idx.ncdm, idx.n_ncdm, idx.q_size_ncdm if idx.n_ncdm else 0,
+            idx.n_l_ncdm if idx.n_ncdm else 0, idx.eta]
+
+
+def work_doubles(idx: PtIdx) -> int:
+    """Scratch doubles per lane of the kernel (pk::work_doubles; its shared
+    memory per block): y, Y, ynew, 6 explicit stage vectors (9 n) and 6
+    implicit ones plus the error over the stiff range [0, theta_b], and the
+    28-column frame buffer (kFrameCols)."""
+    return 9 * idx.size + 7 * (idx.theta_b + 1) + 28
+
+
+KERNEL_STATUS = {1: "exceeded MAX_ITERATIONS", 2: "produced a non-finite step"}
+
+
+def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
+                      tolerances) -> tuple:
+    """Integrate every lane from tau_ini through all samples `taus`.
+
+    tolerances: (rtol, atol), each (nlanes, nstate). Returns
+    (S (nlanes, ntau, SrcIdx.n), nsteps (nlanes,)), nsteps counting step
+    attempts as the JAX integrator does. CUDA tensors: one launch of the
+    perturb_ark kernel (one lane per warp); CPU tensors: the plain version."""
+    global launches
+    dev = taus.device
+    if dev.type == "cpu":
+        return integrate_sources_plain(lanes, taus, tables, tolerances)
+    if dev.type != "cuda":
+        raise ValueError(f"integrate_sources: unsupported device {dev}")
+    idx = tables.idx
+    rtol, atol = tolerances
+    nl, ntau, n = lanes.k.shape[0], taus.shape[0], idx.size
+    bg, th = tables.bg, tables.th
+    nbg = len(eq.BG_COLS) + 3 * idx.n_ncdm
+    if rtol.shape != (nl, n) or atol.shape != (nl, n) or bg.y.shape[1] != nbg \
+            or th.y.shape[1] != len(eq.TH_COLS):
+        raise ValueError(f"integrate_sources: bad shapes rtol{tuple(rtol.shape)} "
+                         f"atol{tuple(atol.shape)} bg{tuple(bg.y.shape)} th{tuple(th.y.shape)}")
+    lane_tab = torch.stack(list(lanes), dim=0).contiguous()   # (6, nl)
+    ncdm = None
+    if idx.n_ncdm:
+        nc = tables.ncdm
+        ncdm = torch.cat([v.reshape(-1) for v in (nc.q, nc.w, nc.dlnf0, nc.x_fac, nc.pref)])
+    ins = [lane_tab, taus, bg.y, bg.y2, th.y, th.y2, rtol, atol] + ([ncdm] if idx.n_ncdm else [])
+    for t in ins:
+        if t.dtype != torch.float64 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"integrate_sources: every input must be contiguous float64 on {dev}")
+    lib = cuda.library()
+    S = torch.empty((nl, ntau, SrcIdx.n), dtype=torch.float64, device=dev)
+    nsteps = torch.zeros(nl, dtype=torch.long, device=dev)
+    status = torch.zeros(nl, dtype=torch.int32, device=dev)
+    layout = (ctypes.c_int * 21)(*_layout_ints(idx))
+    err = lib.perturb_ark_launch(
+        layout, lane_tab.data_ptr(), taus.data_ptr(), bg.y.data_ptr(), bg.y2.data_ptr(),
+        float(bg.x0), float(bg.dx), int(bg.n), th.y.data_ptr(), th.y2.data_ptr(),
+        float(th.x0), float(th.dx), int(th.n), ncdm.data_ptr() if idx.n_ncdm else None,
+        rtol.data_ptr(), atol.data_ptr(), K_ETA_SPLIT, MAX_ITERATIONS, nl, ntau,
+        S.data_ptr(), nsteps.data_ptr(), status.data_ptr(), cuda.stream_ptr(dev))
+    cuda.check(err, "perturb_ark")
+    launches += 1
+    st = status.cpu()   # the one host read: waits for the launch
+    if bool(st.any()):
+        i = int(torch.nonzero(st)[0])
+        raise RuntimeError(f"perturbation integration failed: lane k = {float(lanes.k[i]):.6g}/Mpc "
+                           f"{KERNEL_STATUS.get(int(st[i]), st[i])} after {int(nsteps[i])} steps "
+                           f"({int((st != 0).sum())} of {nl} lanes failed)")
+    return S, nsteps
+
+
 def _tolerances(k: np.ndarray, idx: PtIdx, pr: PrecisionParams, tail: bool,
                 k_pp_max: float):
     """Per-lane, per-component (rtol, atol) (solve.py:594-655): CMB lanes
@@ -269,12 +372,18 @@ def compute_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th
     k_max_cmb = pr.k_max_tau0_over_l_max * l_scalar_max / float(bg.tau0) if has_cls else 0.0
     k_max_cmb = max(k_max_cmb, k_max_cl_extra)
     sched = get_k_schedule(ks, pr, bg, bidx, th, tau_first_sample=float(taus[0]),
+                           n_ncdm=params.N_ncdm, tol_ncdm_initial_w=pr.tol_ncdm_initial_w,
                            k_max_cmb=k_max_cmb)
     k_size_cmb = int(np.searchsorted(ks, k_max_cmb, side="right")) if has_cls else 0
     k_size_cmb = min(k_size_cmb + 1, len(ks))
-    idx = PtIdx(l_max_g=pr.l_max_g, l_max_pol_g=pr.l_max_pol_g, l_max_ur=pr.l_max_ur)
-    tables = eq.make_tables(bg, bidx, th, idx)
+    nq_ncdm, q_gauss, q_max_ncdm = ncdm_q_rule(params, pr)
+    idx = PtIdx(l_max_g=pr.l_max_g, l_max_pol_g=pr.l_max_pol_g, l_max_ur=pr.l_max_ur,
+                n_ncdm=params.N_ncdm, l_max_ncdm=pr.l_max_ncdm, q_size_ncdm=nq_ncdm,
+                q_gauss=q_gauss, q_max_ncdm=q_max_ncdm)
+    ncdm = make_ncdm_ctx(params, idx).to(device) if idx.n_ncdm else None
+    tables = eq.make_tables(bg, bidx, th, idx, ncdm)
     tables = tables._replace(bg=tables.bg.to(device), th=tables.th.to(device))
+    t_ncfa = sched.tau_ncdmfa_on if idx.n_ncdm else np.full_like(ks, np.inf)
     taus_t = torch.as_tensor(taus, dtype=torch.float64, device=device)
     k_pp_max = (l_scalar_max + 0.5) / 900.0 if has_lcmb else 0.0
     n_cmb = int(np.searchsorted(ks, k_max_cmb, side="right")) if k_max_cmb > 0 else 0
@@ -282,19 +391,17 @@ def compute_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th
     def dt(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=device)
 
-    src, steps = [], []
-    for i0, i1, tail in ((0, min(n_cmb, len(ks)), False), (min(n_cmb, len(ks)), len(ks), True)):
-        if i1 <= i0:
-            continue
-        lanes = Lanes(*(dt(a[i0:i1]) for a in (sched.k, sched.tau_ini, sched.tau_tca_off,
-                                               sched.tau_ufa_on, sched.tau_rsa_on)))
-        rt, at = _tolerances(ks[i0:i1], idx, pr, tail, k_pp_max)
-        S, n = integrate_sources(lanes, taus_t, tables, (dt(rt), dt(at)))
-        src.append(S)
-        steps.append(n)
-    sources = torch.cat(src, dim=0)
+    # the CMB lanes and the P(k)-tail lanes go in one call: the tolerances
+    # are per lane and no lane waits for another
+    n_cmb = min(n_cmb, len(ks))
+    tols = [_tolerances(ks[i0:i1], idx, pr, tail, k_pp_max)
+            for i0, i1, tail in ((0, n_cmb, False), (n_cmb, len(ks), True))]
+    lanes = Lanes(*(dt(a) for a in (sched.k, sched.tau_ini, sched.tau_tca_off,
+                                    sched.tau_ufa_on, sched.tau_rsa_on, t_ncfa)))
+    sources, steps = integrate_sources(
+        lanes, taus_t, tables, tuple(dt(np.concatenate([t[i] for t in tols])) for i in (0, 1)))
     if pr.curvature_ini != 1.0:
         sources = sources * pr.curvature_ini
     return PerturbResult(k=dt(ks), tau=taus_t, sources=sources, tau0=float(bg.tau0),
-                         k_size_cmb=k_size_cmb, stats_steps=torch.cat(steps),
+                         k_size_cmb=k_size_cmb, stats_steps=steps,
                          k_np=np.asarray(ks), tau_np=np.asarray(taus))

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
-The kernels are compiled with nvcc for sm_90a into one shared library with a
-plain C interface, loaded through ctypes. The build runs at the first launch
-(never at import), into `classpp_public_torch/_build/`, keyed by a hash of
-the sources so an edited kernel is rebuilt. A failed build raises; there is
-no fallback.
+The kernels are compiled with nvcc for sm_90a (one nvcc per source, all
+started together) and linked into one shared library with a plain C
+interface, loaded through ctypes. The build runs at the first launch (never
+at import), into `classpp_public_torch/_build/`, keyed by a hash of the
+sources so an edited kernel is rebuilt. A failed build raises; there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -21,17 +22,20 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _LIB = None
 _LOCK = threading.Lock()
 
 # C signatures: (argtypes) of each exported launcher; every one returns the
 # cudaError_t of its launches as an int
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_P, _I, _D, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 SIGNATURES = {
     "transfer_los_launch": [_P, _P, _D, _P, _P, _P, _P, _D, _I, _I, _I, _I, _P, _P],
     "lensing_wigner_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "perturb_ark_launch": [_P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _P, _P, _P,
+                           _D, _L, _I, _I, _P, _P, _P, _P],
+    "halofit_sigma_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -61,14 +65,26 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", str(tmp)] + [str(s) for s in srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc, tag = _nvcc(), f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
+                              + ["-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[1] for p in procs]
+    failed = [f"{s.name} ({p.returncode}):\n{log}"
+              for s, p, log in zip(srcs, procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     if verbose:
-        print(res.stderr, flush=True)
+        print("\n".join(logs), flush=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp)] + [str(o) for o in objs],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     return out
 

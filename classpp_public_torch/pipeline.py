@@ -3,7 +3,8 @@
 Counterpart of classpp_public_tpu/pipeline.py (`OutputSelection`, the
 `Cosmology` stages :141-467). Each stage is computed once per parameter set;
 downstream stages pull upstream ones on demand. Stage order: background,
-thermodynamics, perturbations, primordial, transfer, spectra, lensing.
+thermodynamics, perturbations, primordial, nonlinear, transfer, spectra,
+lensing.
 
 Every stage takes an explicit torch.device. Background and thermodynamics
 are computed on the host by design (see their module docstrings) and hand
@@ -15,13 +16,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .config.params import CosmoParams, check_lcdm
 from .config.precision import PrecisionParams
 
 LEVELS = ["background", "thermodynamics", "perturbations", "primordial",
-          "transfer", "spectra", "lensing"]
+          "nonlinear", "transfer", "spectra", "lensing"]
 # first selection bin and l_max of the large-scale-structure spectra (the
 # reference defaults selection_mean = 1.0, l_max_lss = 300): with lCl they set
 # the lensing potential's k reach (perturbations_module.cpp:1726-1733)
@@ -42,6 +44,7 @@ class OutputSelection:
     P_k_max: float = 1.0
     z_pk: tuple = (0.0,)
     z_max_pk: float = 0.0
+    non_linear: str = ""   # "" or "halofit"
 
     @property
     def has_cls(self) -> bool:
@@ -139,12 +142,70 @@ class Cosmology:
         return self._cache["pm"]
 
     @property
+    def nonlinear(self):
+        if "nl" not in self._cache:
+            from .models.nonlinear import compute_nonlinear
+
+            bg, bidx = self.background
+            self._cache["nl"] = compute_nonlinear(
+                self.perturbations, bg, bidx, self.primordial, self.pr, self.params,
+                z_pk=self.out.z_pk, method=self.out.non_linear or "halofit")
+        return self._cache["nl"]
+
+    @property
+    def nl_source_ratio(self) -> torch.Tensor:
+        """sqrt(P_nl/P_lin)(tau, k) on the source sampling: the reference's
+        nl_corr_density, multiplied into the metric/density transfer sources
+        whenever a nonlinear method is on (transfer_module.cpp:542-597).
+        Computed on a fixed 24-point z grid (z <= 10; beyond it the ratio is 1)
+        and interpolated linearly in tau per k column. (ntau, nk)."""
+        if "nlr" not in self._cache:
+            from .models.background import tau_of_z
+            from .models.nonlinear import compute_nonlinear
+
+            bg, bidx = self.background
+            pert = self.perturbations
+            z_grid = np.concatenate([[0.0], np.geomspace(0.05, 10.0, 23)])
+            nl = compute_nonlinear(pert, bg, bidx, self.primordial, self.pr, self.params,
+                                   z_pk=tuple(z_grid), method=self.out.non_linear or "halofit")
+            ratio = torch.sqrt(nl.pk_nl / torch.clamp(nl.pk_lin, min=1e-300))
+            ratio = torch.where(torch.isfinite(ratio) & (ratio > 0), ratio, 1.0)
+            tau_z = tau_of_z(bg, torch.as_tensor(z_grid)).to(ratio.device)
+            order = torch.argsort(tau_z)
+            tau_s, r_s = tau_z[order].contiguous(), ratio[order]     # (nz,), (nz, nk)
+            taus = pert.tau
+            j = torch.clamp(torch.searchsorted(tau_s, taus) - 1, 0, len(tau_s) - 2)
+            f = torch.clamp((taus - tau_s[j]) / (tau_s[j + 1] - tau_s[j]), 0.0, 1.0)
+            out = (1.0 - f)[:, None] * r_s[j] + f[:, None] * r_s[j + 1]
+            out[taus < tau_s[0]] = 1.0                               # z > 10: linear
+            self._cache["nlr"] = out
+        return self._cache["nlr"]
+
+    def _pert_for_transfer(self, pert):
+        """The scalar-source table entering the CMB transfer integrals: with a
+        nonlinear method on, phi+psi (the lensing source) carries the halofit
+        correction as the reference's copied sources do
+        (transfer_module.cpp:566-588); without one it is the linear table."""
+        if not self.out.non_linear:
+            return pert
+        from .models.perturbations.indices import SrcIdx
+
+        r = self.nl_source_ratio.T                                   # (nk, ntau)
+        if r.shape != pert.sources.shape[:2]:
+            raise AssertionError(f"nl_source_ratio {tuple(r.shape)} does not match the "
+                                 f"source table {tuple(pert.sources.shape[:2])}")
+        src = pert.sources.clone()
+        src[:, :, SrcIdx.ix["phi_plus_psi"]] *= r
+        return pert._replace(sources=src)
+
+    @property
     def transfer(self):
         if "tr" not in self._cache:
             from .models.transfer import compute_transfer
 
-            self._cache["tr"] = compute_transfer(self.perturbations, self.thermodynamics,
-                                                 self.pr, l_max=self.l_max_internal)
+            self._cache["tr"] = compute_transfer(
+                self._pert_for_transfer(self.perturbations), self.thermodynamics,
+                self.pr, l_max=self.l_max_internal)
         return self._cache["tr"]
 
     @property
@@ -170,6 +231,8 @@ class Cosmology:
         want = LEVELS.index(level)
         out = []
         for lv in LEVELS[: want + 1]:
+            if lv == "nonlinear" and not self.out.has_pk:
+                continue
             if lv in ("transfer", "spectra") and not self.out.has_cls:
                 continue
             if lv == "lensing" and not (self.out.lensing and self.out.has_cls):

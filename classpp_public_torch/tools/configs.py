@@ -1,0 +1,23 @@
+"""The two parameter sets the port is driven with at full size.
+
+`planck_row2`: flat LambdaCDM with massless neutrinos, lensed TT/TE/EE/phiphi
+to l = 2500 and P(k) to k = 10/Mpc. `row2_exact`: the
+base_2018_plikHM_TTTEEE_lowl_lowE_lensing parameter set, with one 0.06 eV
+massive-neutrino species and halofit (P(k) to 20/Mpc).
+"""
+
+PLANCK_ROW2 = {
+    "h": 0.6736, "omega_b": 0.02237, "omega_cdm": 0.1200,
+    "A_s": 2.0989e-9, "n_s": 0.9649, "tau_reio": 0.0544,
+    "output": "tCl,pCl,lCl,mPk", "lensing": "yes",
+    "l_max_scalars": 2500, "P_k_max_1/Mpc": 10.0, "z_pk": "0.",
+}
+ROW2_EXACT = {
+    "H0": 67.32117, "omega_b": 0.02238280, "N_ur": 2.03066666667,
+    "omega_cdm": 0.1201075, "N_ncdm": 1, "omega_ncdm": 0.0006451439,
+    "YHe": 0.2454006, "tau_reio": 0.05430842,
+    "n_s": 0.9660499, "A_s": 2.100549e-09,
+    "non linear": "halofit",
+    "output": "tCl,pCl,lCl,mPk", "lensing": "yes",
+}
+CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT}

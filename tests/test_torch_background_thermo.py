@@ -7,7 +7,10 @@ integrals in float64; only the tridiagonal algorithm differs); the
 thermodynamics table 1e-6 of each column's scale: RECFAST is a stiff
 20 000-step scalar march and the two implementations round exp/pow
 differently (XLA vs libm), which the stiff system amplifies to ~5e-8 in
-x_e. Derived scalars to 1e-8 relative.
+x_e. Derived scalars to 1e-8 relative. The ncdm momentum data (nodes,
+weights, dln f0/dln q, the Fermi-Dirac integrals) and the ncdm columns of the
+table with one 0.06 eV species: 1e-12 relative (the same closed forms and
+numpy quadrature rules on both sides).
 """
 
 import numpy as np
@@ -82,8 +85,54 @@ def test_tau_reio_shooting():
     assert tht.tau_reio == pytest.approx(float(thj.tau_reio), rel=1e-8)
 
 
+NCDM = dict(m_ncdm=(0.06,), N_ur=2.0328)
+
+
+def test_ncdm_momenta():
+    x = np.concatenate([[0.0], np.geomspace(1e-6, 1e4, 40)])
+    got = tbg.ncdm_momenta(torch.as_tensor(x))
+    ref = jbg.ncdm_momenta(x)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12)
+    # massless limit: I_rho = 3 I_p = 1 up to the 128-node trapezoid rule (3e-6)
+    assert float(got[0][0]) == pytest.approx(1.0, abs=1e-5)
+    assert 3.0 * float(got[1][0]) == pytest.approx(1.0, abs=1e-5)
+
+
+@pytest.mark.parametrize("nq,gauss", [(16, True), (128, False)])
+def test_ncdm_psd_weights(nq, gauss):
+    pt, pj = TParams(**NCDM), JParams(**NCDM)
+    for a, b in zip(tbg.ncdm_psd_weights(pt, nq, gauss=gauss),
+                    jbg.ncdm_psd_weights(pj, nq, gauss=gauss)):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-300)
+
+
+def test_ncdm_q_rule():
+    assert tbg.ncdm_q_rule(TParams(**NCDM), TPrec()) == jbg.ncdm_q_rule(JParams(**NCDM), JPrec())
+    assert tbg.ncdm_q_rule(TParams()) == jbg.ncdm_q_rule(JParams())
+
+
+def test_ncdm_background_columns():
+    bgj, bij = jbg.compute_background(JParams(**NCDM), JPrec(**SMALL))
+    bgt, bit = tbg.compute_background(TParams(**NCDM), TPrec(**SMALL), device="cpu")
+    assert bit.names == bij.names and bit.key == bij.key
+    for name in bit.names:
+        a = np.asarray(bgj.table[:, bij[name]])
+        b = bgt.table[:, bit[name]].numpy()
+        assert np.max(np.abs(a - b)) <= 1e-12 * np.max(np.abs(a)), name
+    assert bgt.Omega0_ncdm_tot == pytest.approx(float(bgj.Omega0_ncdm_tot), rel=1e-12)
+    assert bgt.rho_ncdm0 == pytest.approx(np.asarray(bgj.rho_ncdm0), rel=1e-12)
+    assert bgt.Omega0_m == pytest.approx(float(bgj.Omega0_m), rel=1e-12)
+    assert TParams(**NCDM).N_eff == pytest.approx(JParams(**NCDM).N_eff, rel=1e-14)
+
+
 def test_unported_physics_raises():
     with pytest.raises(NotImplementedError, match="ncdm"):
-        tbg.compute_background(TParams(m_ncdm=(0.06,)), TPrec(**SMALL), device="cpu")
+        tbg.compute_background(TParams(m_ncdm=(0.06,), ksi_ncdm=(0.1,)), TPrec(**SMALL),
+                               device="cpu")
+    with pytest.raises(NotImplementedError, match="decaying ncdm"):
+        tbg.compute_background(TParams(m_ncdm=(0.06,), N_ncdm_decay_dr=1), TPrec(**SMALL),
+                               device="cpu")
     with pytest.raises(NotImplementedError, match="HyRec"):
         tbg.compute_background(TParams(recombination="hyrec"), TPrec(**SMALL), device="cpu")
