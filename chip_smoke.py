@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card.
 
-Runs two configurations through `classpp_public_torch.Class(device="cuda")`,
+Runs three configurations through `classpp_public_torch.Class(device="cuda")`,
 stage by stage, at full width and depth:
 
 - `planck_row2`: flat LambdaCDM with massless neutrinos, lensed TT/TE/EE/phiphi
   to l = 2500 plus P(k) to k = 10/Mpc;
 - `row2_exact`: the base_2018_plikHM_TTTEEE_lowl_lowE_lensing parameter set,
   with one 0.06 eV massive-neutrino species and halofit (P(k) to 20/Mpc);
+- `g3_tensor`: tests/golden/gen/g3_tensor.ini, scalar and tensor modes
+  (r = 0.1, primordial B-modes to l = 500), lensed TT/EE/BB to l = 2500;
 
 and checks:
 
 1. the hand-written CUDA kernels (csrc/*.cu) build with nvcc for sm_90a;
-2. each main path launched each kernel (launch counters, set to 0 just before
-   the path and read just after);
-3. each result against the reference C++ probe tests/golden/bench_probe.json
-   (rel TT/EE/TE <= 3e-3 at l = 220, 1000, 2000, 2500; rel P(0.1) <= 1e-2);
-4. each kernel against its plain PyTorch version on the very tensors each of
-   the two pipelines fed it, with both timed on the card (CUDA events, median
-   of 3; the plain perturbation integrator once, on a stride of the lanes),
-   beside the least time the card could take for the same work (`bound_ms`).
+2. each main path launched each kernel it runs (launch counters, set to 0 just
+   before the path and read just after);
+3. each result against the reference C++ build: the probe
+   tests/golden/bench_probe.json for the first two (rel TT/EE/TE <= 3e-3 at
+   l = 220, 1000, 2000, 2500; rel P(0.1) <= 1e-2), the golden
+   tests/golden/g3_tensor.npz for the third (tensor BB at l = 2-500 and the
+   lensed TT/EE/BB to l = 2000 within 1e-2, the raw total TT within 3e-3);
+4. each kernel against its plain PyTorch version on the very tensors each
+   pipeline fed it, with both timed on the card (CUDA events, median of 3;
+   the plain integrators once, on a stride of the lanes), beside the least
+   time the card could take for the same work (`bound_ms`).
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one card)
 
@@ -36,8 +41,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROBE = os.path.join(ROOT, "tests", "golden", "bench_probe.json")
+GOLDEN_G3 = os.path.join(ROOT, "tests", "golden", "g3_tensor.npz")
 
 CL_TOL, PK_TOL = 3e-3, 1e-2
+# the tensor golden's contract (tests/test_extended.py:58-92)
+G3_BB_TOL, G3_TT_TOL, G3_LENSED_TOL = 1e-2, 3e-3, 1e-2
 # kernel vs plain version: max |kernel - plain| over each output column,
 # relative to that column's max |plain|. Both are float64 and differ only in
 # summation order and in the last bit of sin/cos/exp/lgamma. The LOS scan
@@ -47,7 +55,23 @@ CL_TOL, PK_TOL = 3e-3, 1e-2
 # The lensing passes have no such band: ~1e-12 (BB, a difference of terms).
 # The Gaussian-window sums differ in the order of the sum (strided partials
 # and a tree against a sequential trapezoid) and in exp's last bit: ~1e-15.
-KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-11}
+# The tensor LOS scan runs the same recurrence through the same band: the
+# same limit. The Tb march is 4096 dependent steps of a few operations, FMA
+# contraction its only difference: 1e-10 of each column's scale.
+KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-11,
+              "transfer_tensor_los": 1e-6, "tb_march": 1e-10}
+# recfast_history, per row and column relative to the plain loop: libm's and
+# the card's exp/pow differ in the last bit, which the explicit RK4 through
+# the stiff HeI equation amplifies (measured against the JAX package's XLA
+# arithmetic on the host: 4.9e-8 of x_e in the HeI rows); a phase switch
+# decided by last bits may also move by one interval, which the smoothed
+# phase boundaries keep continuous.
+RECFAST_TOL = 1e-6
+# tensor_rkck against the plain integrator, per lane and source column:
+# |kernel - plain| <= TENSOR_TOL_FACTOR rtol max|plain| (an accept/reject at
+# the threshold may go the other way), step counts within PERTURB_STEPS_TOL.
+TENSOR_TOL_FACTOR = 10.0
+TENSOR_STRIDE = 40    # lanes of the plain comparison: every 40th and the last
 # perturb_ark: the kernel and the plain integrator round differently (FMA
 # contraction, libm), so an accept/reject decided at the threshold can go the
 # other way; the two solutions then differ by the lane's own tolerance. Lanes
@@ -166,11 +190,63 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def run_config(name, params, mods):
+class Kernel:
+    """One hand-written kernel: its module, launch counter, the wrapper the
+    main path calls (spied on to capture its arguments; `size` picks the
+    largest of several calls), its source and the JAX program it replaces."""
+
+    def __init__(self, name, module, counter, fn, source, replaces, size=lambda args: 0):
+        self.name, self.module, self.counter, self.fn = name, module, counter, fn
+        self.source, self.replaces, self.size = source, replaces, size
+
+
+def expected_kernels(out):
+    """The kernels a path with OutputSelection `out` must launch."""
+    names = {"recfast_history", "tb_march", "perturb_ark", "transfer_los", "lensing_wigner"}
+    if out.has_pk:
+        names.add("halofit_sigma")
+    if "t" in out.modes:
+        names |= {"tensor_rkck", "transfer_tensor_los"}
+    return names
+
+
+def g3_check(raw, lensed):
+    """The tensor golden's contract (tests/test_extended.py:58-92): tensor-only
+    BB (table clt) at l = 2-500 within 1e-2, raw total TT (clt + cls) within
+    3e-3, lensed TT/EE/BB to l = 2000 within 1e-2."""
+    import numpy as np
+
+    g = np.load(GOLDEN_G3)
+
+    def col(table, name):
+        cols = [str(c) for c in g[table + "__cols"]]
+        return g[table][:, 0], g[table][:, cols.index(name)]
+
+    rel = {}
+    ell = np.arange(2, 501)
+    fac = ell * (ell + 1) / (2 * np.pi)
+    lt, bb = col("clt", "BB")
+    rel["tensor_bb"] = float(np.max(np.abs(fac * raw["bb"][2:501] / np.interp(ell, lt, bb) - 1)))
+    lt, tt_t = col("clt", "TT")
+    ls, tt_s = col("cls", "TT")
+    ref_tt = np.interp(ell, lt, tt_t) + np.interp(ell, ls, tt_s)
+    rel["raw_tt"] = float(np.max(np.abs(fac * raw["tt"][2:501] / ref_tt - 1)))
+    ell = np.arange(2, 2001)
+    fac = ell * (ell + 1) / (2 * np.pi)
+    for name in ("TT", "EE", "BB"):
+        ll, ref = col("cl_lensed", name)
+        rel[f"lensed_{name.lower()}"] = float(np.max(np.abs(
+            fac * lensed[name.lower()][2:2001] / np.interp(ell, ll, ref) - 1)))
+    ok = rel["tensor_bb"] <= G3_BB_TOL and rel["raw_tt"] <= G3_TT_TOL \
+        and all(rel[f"lensed_{n}"] <= G3_LENSED_TOL for n in ("tt", "ee", "bb"))
+    return ok, rel
+
+
+def run_config(name, params, kernels):
     """One main path: the configuration through Class(device="cuda") stage by
     stage with every launch counter set to 0 just before and read just after;
-    checks shapes, finiteness and the reference probe. Returns (launch counts,
-    captured kernel arguments, stage seconds)."""
+    checks shapes, finiteness and the reference (probe or golden). Returns
+    (launch counts, captured kernel arguments, stage seconds)."""
     import numpy as np
     import torch
 
@@ -180,13 +256,9 @@ def run_config(name, params, mods):
     c.set(dict(params))
     cosmo = c.cosmo
     captured = {}
-    spies = {"perturb_ark": (mods["perturb_ark"], "integrate_sources", lambda a: 0),
-             "halofit_sigma": (mods["halofit_sigma"], "halofit_sums", lambda a: a[2].numel()),
-             "transfer_los": (mods["transfer_los"], "transfer_los", lambda a: 0),
-             "lensing_wigner": (mods["lensing_wigner"], "lensing_wigner", lambda a: 0)}
-    originals = {k: spy(m, fn, captured, size) for k, (m, fn, size) in spies.items()}
-    for m in mods.values():
-        m.launches = 0
+    originals = {k.name: spy(k.module, k.fn, captured, k.size) for k in kernels}
+    for k in kernels:
+        setattr(k.module, k.counter, 0)
     t_all = time.time()
     stage_s = {}
     for st in cosmo.stages("lensing"):
@@ -198,36 +270,54 @@ def run_config(name, params, mods):
     t0 = time.time()
     cl = c.lensed_cl(2500)
     raw = c.raw_cl(2500)
-    pk = c.pk_lin(0.1, 0.0)
-    pk_nl = c.pk(0.1, 0.0)
+    has_pk = cosmo.out.has_pk
+    if has_pk:
+        pk = c.pk_lin(0.1, 0.0)
+        pk_nl = c.pk(0.1, 0.0)
     torch.cuda.synchronize()
     stage_s["accessors"] = time.time() - t0
     phase(f"{name} accessors", t0)
     phase(f"{name} total", t_all)
-    counts = {k: m.launches for k, m in mods.items()}
-    for k, (m, fn, _) in spies.items():
-        setattr(m, fn, originals[k])
+    counts = {k.name: getattr(k.module, k.counter) for k in kernels}
+    for k in kernels:
+        setattr(k.module, k.fn, originals[k.name])
     print(f"[launches] {name} {counts}", flush=True)
-    missing = [k for k, n in counts.items() if n <= 0]
+    missing = sorted(n for n in expected_kernels(cosmo.out) if counts[n] <= 0)
     if missing:
         raise RuntimeError(f"{name}: kernels not launched on the main path: {missing}")
     pt = cosmo.perturbations
     print(f"[shapes] {name} k {tuple(pt.k.shape)} tau {tuple(pt.tau.shape)} sources "
           f"{tuple(pt.sources.shape)} transfer {tuple(cosmo.transfer.delta.shape)} "
           f"steps max {int(pt.stats_steps.max())} mean {float(pt.stats_steps.float().mean()):.1f} "
-          f"k_nl {[round(float(v), 6) for v in cosmo.nonlinear.k_nl]} "
-          f"sigma8 {cosmo.nonlinear.sigma8:.6f} m_ncdm {cosmo.params.m_ncdm}", flush=True)
+          f"m_ncdm {cosmo.params.m_ncdm}", flush=True)
+    if "t" in cosmo.out.modes:
+        tp = cosmo.tensor_perturbations
+        print(f"[shapes] {name} tensor k {tuple(tp.k.shape)} tau {tuple(tp.tau.shape)} sources "
+              f"{tuple(tp.sources.shape)} transfer {tuple(cosmo.tensor_transfer.delta.shape)} "
+              f"steps max {int(tp.stats_steps.max())} "
+              f"mean {float(tp.stats_steps.float().mean()):.1f}", flush=True)
     for tname, tab in (("lensed", cl), ("raw", raw)):
         for spec in ("tt", "ee", "te", "bb", "pp"):
             arr = np.asarray(tab[spec])
             if arr.shape != (2501,) or not np.isfinite(arr).all():
                 raise RuntimeError(f"{name} {tname} C_l[{spec}]: shape {arr.shape} or non-finite")
-    if not (np.isfinite(pk) and pk > 0 and 0.8 * pk <= pk_nl <= 1.5 * pk):
-        raise RuntimeError(f"{name}: P(k=0.1) linear {pk}, nonlinear {pk_nl}")
-    ok, rel = probe_check(name, cl, pk)
-    print(f"[probe] {name} {json.dumps(rel)} (tol C_l {CL_TOL}, P(k) {PK_TOL})", flush=True)
-    if not ok:
-        raise RuntimeError(f"{name} probe out of contract: {rel}")
+    if has_pk:
+        nl = cosmo.nonlinear
+        print(f"[nonlinear] {name} k_nl {[round(float(v), 6) for v in nl.k_nl]} "
+              f"sigma8 {nl.sigma8:.6f}", flush=True)
+        if not (np.isfinite(pk) and pk > 0 and 0.8 * pk <= pk_nl <= 1.5 * pk):
+            raise RuntimeError(f"{name}: P(k=0.1) linear {pk}, nonlinear {pk_nl}")
+    if "t" in cosmo.out.modes:
+        ok, rel = g3_check(raw, cl)
+        print(f"[golden] {name} {json.dumps(rel)} (tol tensor BB {G3_BB_TOL}, raw TT "
+              f"{G3_TT_TOL}, lensed {G3_LENSED_TOL})", flush=True)
+        if not ok:
+            raise RuntimeError(f"{name} out of the tensor golden's contract: {rel}")
+    else:
+        ok, rel = probe_check(name, cl, pk)
+        print(f"[probe] {name} {json.dumps(rel)} (tol C_l {CL_TOL}, P(k) {PK_TOL})", flush=True)
+        if not ok:
+            raise RuntimeError(f"{name} probe out of contract: {rel}")
     print(f"[stages] {name} " + " ".join(f"{k}={v:.3f}s" for k, v in stage_s.items()),
           flush=True)
     return counts, captured, stage_s
@@ -313,26 +403,133 @@ def check_perturb_ark(solve, args, tag):
                 scaled_err=worst)
 
 
-def check_kernels(tag, captured, solve, nonlinear, transfer, lensing):
-    """Every kernel against its plain version on the tensors the main path
-    `tag` fed it; returns {kernel: measurements}. Raises where a kernel is
-    beyond its tolerance."""
-    out = {"perturb_ark": check_perturb_ark(solve, captured["integrate_sources"][0], tag)}
+def host_timed(fn):
+    """Host wall time of one call of fn() in ms (for the plain host loops) and
+    its result; the card is synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def check_recfast(thermo, args, tag):
+    """recfast_history against its plain loop, per row and column; prints the
+    first interval where the two differ by more than 1e-12."""
+    import torch
+
+    rp, H, Nz = args
+    ms, kout = timed(lambda: thermo.recfast_history(rp, H, Nz))
+    plain_ms, pout = host_timed(lambda: thermo.recfast_history_plain(rp, H, Nz))
+    k, p = kout.cpu(), pout.cpu()
+    if k.shape != p.shape or not bool(torch.isfinite(k).all()):
+        raise RuntimeError(f"recfast_history ({tag}): shape {tuple(k.shape)} or non-finite")
+    rel = (k - p).abs() / p.abs().clamp_min(1e-300)
+    worst = {n: float(rel[i].max()) for i, n in enumerate(thermo.RECO_COLUMNS)}
+    over = torch.nonzero(rel.max(dim=0).values > 1e-12).flatten()
+    first = Nz - 1 - int(over.max()) if len(over) else None   # row Nz-1-i is interval i
+    # the derivative evaluations this history needed: one per interval for
+    # dT/dz, sixteen per interval once the HeI Saha phase has ended
+    pv = dict(zip(thermo.RF_PARAMS, rp.tolist()))
+    z_desc, xe_desc = p[0].flip(0).tolist(), p[1].flip(0).tolist()
+    y1, n_int = 1.0, 0
+    for i, (z, xe) in enumerate(zip(z_desc, xe_desc)):
+        if z <= pv["zHe3"] + pv["dzHe3"]:
+            if not y1 > pv["trigHe"]:
+                n_int = Nz - i
+                break
+            y1 = (xe - 1.0) / pv["fHe"]
+    # ~350 operations per derivative evaluation (fourteen exp/pow/log/sqrt)
+    bms, bby = bound(nbytes(rp, H.y, H.y2, kout), 350.0 * (Nz + 16.0 * n_int))
+    print(f"[recfast_history] {tag}: {Nz} intervals, {n_int} integrated; worst relative "
+          f"difference per column {worst} (limit {RECFAST_TOL}); first interval over 1e-12: "
+          f"{first}" + (f" (z = {float(p[0][Nz - 1 - first]):.2f})" if first is not None else ""),
+          flush=True)
+    if not max(worst.values()) <= RECFAST_TOL:
+        raise RuntimeError(f"recfast_history ({tag}) disagrees with its plain loop: {worst}")
+    return dict(max_abs_err=float((k - p).abs().max()), max_rel_err=max(worst.values()),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                scaled_err=max(worst.values()) / RECFAST_TOL, first_interval_over_1e12=first)
+
+
+def check_tensor_rkck(tensors, args, tag):
+    """The tensor integrator kernel against its plain version on every
+    TENSOR_STRIDE-th lane and the last, per lane and source column."""
+    import torch
+
+    lanes, taus, tables, rtol = args
+    nl, n = lanes.k.shape[0], tables.idx.size
+    ms, (S, nsteps) = timed(lambda: tensors.tensor_rkck(lanes, taus, tables, rtol))
+    sel = torch.as_tensor(sorted(set(range(0, nl, TENSOR_STRIDE)) | {nl - 1}), device=taus.device)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    Sp, np_ = tensors.tensor_rkck_plain(lanes.take(sel), taus, tables, rtol)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    if not bool(torch.isfinite(S).all()):
+        raise RuntimeError(f"tensor_rkck ({tag}): kernel output is not finite")
+    Sk = S[sel]
+    scale = Sp.abs().amax(dim=1)                                   # (lanes, 2)
+    err = (Sk - Sp).abs().amax(dim=1)
+    lim = TENSOR_TOL_FACTOR * rtol * scale
+    ratio = torch.where(lim > 0, err / lim, (err > 0).to(err.dtype))
+    dn = (nsteps[sel] - np_).abs()
+    dn_rel = float((dn / np_).max())
+    print(f"[tensor_rkck] {tag}: {len(sel)} of {nl} lanes compared, state {n}; worst "
+          f"{float(ratio.max()):.3e} of the limit {TENSOR_TOL_FACTOR} rtol scale (columns S_T2, "
+          f"S_P: {[round(float(v), 6) for v in ratio.amax(dim=0)]}); max |nsteps_kernel - "
+          f"nsteps_plain| {int(dn.max())} ({dn_rel:.3e} of the plain count, limit "
+          f"{PERTURB_STEPS_TOL}); steps per lane max {int(nsteps.max())} mean "
+          f"{float(nsteps.float().mean()):.1f}; plain {plain_ms:.0f} ms for {len(sel)} lanes, "
+          f"kernel {ms:.2f} ms for {nl}", flush=True)
+    if not float(ratio.max()) <= 1.0:
+        raise RuntimeError(f"tensor_rkck ({tag}) disagrees with its plain version: "
+                           f"{float(ratio.max()):.3e} of the limit")
+    if not dn_rel <= PERTURB_STEPS_TOL:
+        raise RuntimeError(f"tensor_rkck ({tag}): step counts {dn_rel:.3e} apart")
+    # least work per attempted step: six right-hand sides (~12 operations per
+    # component and ~60 for the scalars and table reads), the stage
+    # combinations (~21 per component) and the solution and error (~14)
+    flops = float(nsteps.sum()) * (6 * (12 * n + 60) + 35 * n)
+    bms, bby = bound(nbytes(S, taus, tables.bg.y, tables.bg.y2, tables.th.y, tables.th.y2)
+                     + 4 * 8 * nl, flops)
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, plain_lanes=len(sel),
+                kernel_lanes=nl, nsteps_max=int(nsteps.max()),
+                nsteps_mean=float(nsteps.float().mean()), nsteps_max_diff=int(dn.max()),
+                bound_ms=bms, bound_by=bby, scaled_err=float(ratio.max()))
+
+
+def check_kernels(tag, captured, mods):
+    """Every kernel the main path `tag` launched against its plain version on
+    the tensors the path fed it; returns {kernel: measurements}. Raises where
+    a kernel is beyond its tolerance."""
+    import torch
+
+    out = {}
+    if "integrate_sources" in captured:
+        out["perturb_ark"] = check_perturb_ark(mods["perturb_ark"],
+                                               captured["integrate_sources"][0], tag)
 
     def columns(kname, kern, plain, axis):
         errs = [compare(kname, kern.select(axis, i), plain.select(axis, i))
                 for i in range(kern.shape[axis])]
         return dict(max_abs_err=max(e[0] for e in errs), scaled_err=max(e[1] for e in errs))
 
-    base, k_hf, R = captured["halofit_sums"][0]
-    ms, kout = timed(lambda: nonlinear.halofit_sums(base, k_hf, R))
-    plain_ms, pout = timed(lambda: nonlinear.halofit_sums_plain(base, k_hf, R))
-    # per (z, R, k): one exp and two log (~20 operations each) and ~15 more
-    bms, bby = bound(nbytes(base, k_hf, R, kout), 75.0 * R.numel() * k_hf.numel())
-    print(f"[halofit_sigma] {tag}: base {tuple(base.shape)} R {tuple(R.shape)}", flush=True)
-    out["halofit_sigma"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                                **columns("halofit_sigma", kout, pout, -1))
+    if "halofit_sums" in captured:
+        nonlinear = mods["halofit_sigma"]
+        base, k_hf, R = captured["halofit_sums"][0]
+        ms, kout = timed(lambda: nonlinear.halofit_sums(base, k_hf, R))
+        plain_ms, pout = timed(lambda: nonlinear.halofit_sums_plain(base, k_hf, R))
+        # per (z, R, k): one exp and two log (~20 operations each) and ~15 more
+        bms, bby = bound(nbytes(base, k_hf, R, kout), 75.0 * R.numel() * k_hf.numel())
+        print(f"[halofit_sigma] {tag}: base {tuple(base.shape)} R {tuple(R.shape)}", flush=True)
+        out["halofit_sigma"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                                    **columns("halofit_sigma", kout, pout, -1))
 
+    transfer = mods["transfer_los"]
     args, kw = captured["transfer_los"]
     ms, kout = timed(lambda: transfer.transfer_los(*args, **kw))
     plain_ms, pout = timed(lambda: transfer.transfer_los_plain(*args, **kw))
@@ -344,6 +541,7 @@ def check_kernels(tag, captured, solve, nonlinear, transfer, lensing):
     out["transfer_los"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                                **columns("transfer_los", kout, pout, 1))
 
+    lensing = mods["lensing_wigner"]
     args, kw = captured["lensing_wigner"]
     ms, kout = timed(lambda: lensing.lensing_wigner(*args, **kw))
     plain_ms, pout = timed(lambda: lensing.lensing_wigner_plain(*args, **kw))
@@ -353,29 +551,47 @@ def check_kernels(tag, captured, solve, nonlinear, transfer, lensing):
     # per lensed l of the back-transform
     bms, bby = bound(nbytes(cl_of_l, mu, w8, kout),
                      float(mu.numel()) * (190.0 * (cl_of_l.shape[0] - 1) + 100.0 * int(l_lensed)))
+    print(f"[lensing_wigner] {tag}: unlensed BB max {float(cl_of_l[:, 3].abs().max()):.3e}",
+          flush=True)
     out["lensing_wigner"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                                  **columns("lensing_wigner", kout, pout, 1))
 
+    thermo = mods["recfast_history"]
+    out["recfast_history"] = check_recfast(thermo, captured["recfast_history"][0], tag)
+    args, _ = captured["tb_march"]
+    ms, (Tb, d) = timed(lambda: thermo.tb_march(*args))
+    plain_ms, (Tbp, dp) = host_timed(lambda: thermo.tb_march_plain(*args))
+    kout, pout = torch.stack([Tb, d]).cpu(), torch.stack([Tbp, dp])
+    n = Tb.shape[0]
+    # per node: the march step and dT/dz, ~30 operations each
+    bms, bby = bound(nbytes(*args[:5], Tb, d), 60.0 * n)
+    out["tb_march"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                           **columns("tb_march", kout, pout, 0))
+
+    if "tensor_rkck" in captured:
+        out["tensor_rkck"] = check_tensor_rkck(mods["tensor_rkck"],
+                                               captured["tensor_rkck"][0], tag)
+    if "transfer_tensor_los" in captured:
+        args, kw = captured["transfer_tensor_los"]
+        ms, kout = timed(lambda: transfer.transfer_tensor_los(*args, **kw))
+        plain_ms, pout = timed(lambda: transfer.transfer_tensor_los_plain(*args, **kw))
+        W, taus, _, q, l_emit = args[:5]
+        bms, bby = bound(nbytes(W, taus, q, kout), float(q.numel() * taus.numel())
+                         * (8.0 * int(l_emit[-1]) + 60.0 * len(l_emit)))
+        print(f"[transfer_tensor_los] {tag}: W {tuple(W.shape)} out {tuple(kout.shape)}",
+              flush=True)
+        out["transfer_tensor_los"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                                          **columns("transfer_tensor_los", kout, pout, 1))
+
     scaled = {k: v.pop("scaled_err") for k, v in out.items()}
     print(f"[kernels] {tag} scaled error: {scaled}; tolerance {KERNEL_TOL} of max |plain|, "
-          f"perturb_ark 1.0 of its per-class, per-column limit", flush=True)
+          f"recfast_history {RECFAST_TOL} per row, perturb_ark and tensor_rkck 1.0 of their "
+          f"per-lane, per-column limits", flush=True)
     bad = [n for n, e in scaled.items() if not e <= KERNEL_TOL.get(n, 1.0)]
     if bad:
         raise RuntimeError(f"{tag}: kernels disagree with their plain versions beyond "
                            f"tolerance: {bad}")
     return out
-
-
-KERNELS = (
-    ("perturb_ark", "classpp_public_torch/csrc/perturb_ark.cu",
-     "classpp_public_tpu/models/perturbations/solve.py:151"),
-    ("halofit_sigma", "classpp_public_torch/csrc/halofit_sigma.cu",
-     "classpp_public_tpu/models/nonlinear.py:433"),
-    ("transfer_los", "classpp_public_torch/csrc/transfer_los.cu",
-     "classpp_public_tpu/models/transfer.py:360"),
-    ("lensing_wigner", "classpp_public_torch/csrc/lensing_wigner.cu",
-     "classpp_public_tpu/models/lensing.py:94"),
-)
 
 
 def main():
@@ -386,8 +602,8 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from classpp_public_torch.models import lensing, nonlinear, transfer
-    from classpp_public_torch.models.perturbations import solve
+    from classpp_public_torch.models import lensing, nonlinear, thermodynamics, transfer
+    from classpp_public_torch.models.perturbations import solve, tensors
     from classpp_public_torch.ops import cuda
     from classpp_public_torch.tools.configs import CONFIGS
 
@@ -403,29 +619,54 @@ def main():
     cuda.library()
     phase(f"build kernels ({os.path.relpath(lib_path, ROOT)})", t0)
 
-    # --- the main paths, each with its own launch counts and probe
-    mods = {"perturb_ark": solve, "halofit_sigma": nonlinear, "transfer_los": transfer,
-            "lensing_wigner": lensing}
+    src, tpu = "classpp_public_torch/csrc/", "classpp_public_tpu/models/"
+    kernels = [
+        Kernel("perturb_ark", solve, "launches", "integrate_sources", src + "perturb_ark.cu",
+               tpu + "perturbations/solve.py:151"),
+        Kernel("halofit_sigma", nonlinear, "launches", "halofit_sums", src + "halofit_sigma.cu",
+               tpu + "nonlinear.py:433", size=lambda a: a[2].numel()),
+        Kernel("transfer_los", transfer, "launches", "transfer_los", src + "transfer_los.cu",
+               tpu + "transfer.py:360"),
+        Kernel("lensing_wigner", lensing, "launches", "lensing_wigner",
+               src + "lensing_wigner.cu", tpu + "lensing.py:94"),
+        Kernel("recfast_history", thermodynamics, "recfast_launches", "recfast_history",
+               src + "recfast.cu", tpu + "thermodynamics.py:443"),
+        Kernel("tb_march", thermodynamics, "tb_march_launches", "tb_march", src + "recfast.cu",
+               tpu + "thermodynamics.py:742"),
+        Kernel("tensor_rkck", tensors, "launches", "tensor_rkck", src + "tensor_rkck.cu",
+               tpu + "perturbations/tensors.py:384"),
+        Kernel("transfer_tensor_los", transfer, "tensor_launches", "transfer_tensor_los",
+               src + "transfer_tensor_los.cu", tpu + "transfer.py:854"),
+    ]
+    mods = {k.name: k.module for k in kernels}
+
+    # --- the main paths, each with its own launch counts and reference check
     counts, captured = {}, {}
     for tag, params in CONFIGS.items():
-        counts[tag], captured[tag], _ = run_config(tag, params, mods)
+        counts[tag], captured[tag], _ = run_config(tag, params, kernels)
 
     # --- each kernel against its plain version, on the tensors of each path
     results = {}
     for tag in CONFIGS:
         t0 = time.time()
-        results[tag] = check_kernels(tag, captured[tag], solve, nonlinear, transfer, lensing)
+        results[tag] = check_kernels(tag, captured[tag], mods)
         phase(f"{tag} kernel vs plain comparison", t0)
 
-    # one entry per kernel: the numbers of row2_exact (its launches beside its
-    # times), and those of planck_row2 under that key
-    kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=counts["row2_exact"][name], library_ms=None,
-                    **results["row2_exact"][name],
-                    planck_row2=dict(launches=counts["planck_row2"][name], library_ms=None,
-                                     **results["planck_row2"][name]))
-               for name, source, replaces in KERNELS]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # one entry per kernel: the numbers of the last path in CONFIGS that ran
+    # it (its launches beside its times) head the entry, and those of the
+    # other paths that ran it follow under their names
+    entries = []
+    for k in kernels:
+        main_tag = [tag for tag in CONFIGS if k.name in results[tag]][-1]
+        e = dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+                 launches=counts[main_tag][k.name], library_ms=None, path=main_tag,
+                 **results[main_tag][k.name])
+        for tag in CONFIGS:
+            if tag != main_tag and k.name in results[tag]:
+                e[tag] = dict(launches=counts[tag][k.name], library_ms=None,
+                              **results[tag][k.name])
+        entries.append(e)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """classy-compatible entry point (counterpart of classpp_public_tpu/classy.py:
 `Class.set` :76, `_m_ncdm_from_omega` :863, `compute` :976, `raw_cl` :1007,
 `lensed_cl` :1086, `pk_lin` :1221, `pk` :1257, `pk_cb` :1275, `sigma8` :1319),
-for the inputs of the flat-LambdaCDM slice with Fermi-Dirac massive neutrinos
-and halofit.
+for the inputs of the flat-LambdaCDM slice with Fermi-Dirac massive neutrinos,
+halofit and tensor modes (`modes`, `r`, `n_t`, `alpha_t`, `l_max_tensors`,
+`tensor method`: classy.py:149-163, 565-630).
 
 Every other input key raises with the JAX file and line that implements it.
 """
@@ -38,7 +39,7 @@ def _parse_list(v):
     return [float(v)]
 
 
-_FLOAT_KEYS = ("n_s", "alpha_s", "k_pivot", "T_cmb", "N_ur", "tau_reio", "z_reio",
+_FLOAT_KEYS = ("n_s", "alpha_s", "k_pivot", "T_cmb", "N_ur", "Omega_k", "tau_reio", "z_reio", "r",
                "reionization_width", "reionization_exponent",
                "helium_fullreio_redshift", "helium_fullreio_width")
 _OUTPUT_TOKENS = ("tCl", "pCl", "lCl", "mPk")
@@ -82,9 +83,22 @@ class Class:
         for name in _FLOAT_KEYS:
             if name in p:
                 kw[name] = float(p.pop(name))
+        # gauge and recombination code: the stages raise for what is not ported
+        if "gauge" in p:
+            g = str(p.pop("gauge")).strip().lower()
+            kw["gauge"] = "newtonian" if g in ("new", "newt", "newtonian") else g
+        if "recombination" in p:
+            kw["recombination"] = str(p.pop("recombination")).strip().lower()
         if "YHe" in p:
             v = p.pop("YHe")
             kw["YHe"] = None if isinstance(v, str) and v.strip().upper() == "BBN" else float(v)
+        # tensor tilt and running: "scc" (slow-roll consistency) is filled in
+        # below when tensors are on (classy.py:149-163)
+        for name in ("n_t", "alpha_t"):
+            if name in p:
+                v = p.pop(name)
+                if not (isinstance(v, str) and "scc" in v.strip().lower()):
+                    kw[name] = float(v)
         if "tau_reio" in kw and "z_reio" not in kw:
             kw["z_reio"] = None
 
@@ -145,6 +159,7 @@ class Class:
                 "(classpp_public_tpu/models/nonlinear.py:203, classy.py:546-564)")
         if out.non_linear not in ("", "halofit"):
             raise CosmoSevereError(f"unknown non linear method {out.non_linear!r}")
+        self._parse_modes(p, out, kw)
 
         pr_fields = {f.name: f for f in dataclasses.fields(PrecisionParams)}
         prkw = {}
@@ -165,6 +180,47 @@ class Class:
             # (input_module.cpp:2806-2811)
             out.P_k_max = max(out.P_k_max, pr.nonlinear_min_k_max, pr.halofit_min_k_max)
         return Cosmology(CosmoParams(**kw), pr, out, device=self.device)
+
+    @staticmethod
+    def _parse_modes(p: dict, out: OutputSelection, kw: dict) -> None:
+        """modes, l_max_tensors and tensor method, with the reference's
+        consistency guards (classy.py:565-630, input_module.cpp:1781-1803,
+        2126-2144, 2911-2920)."""
+        out.modes = tuple(m.strip() for m in str(p.pop("modes", "s")).replace(",", " ").split())
+        if "v" in out.modes:
+            raise CosmoSevereError(
+                "vector modes not implemented (the reference aborts on them too: "
+                "'Vectors not coded yet', perturbations_module.cpp:581)")
+        if "l_max_tensors" in p:
+            out.l_tensor_max = int(float(p.pop("l_max_tensors")))
+        if "s" not in out.modes:
+            if out.lCl:
+                raise CosmoSevereError("Inconsistency: you want C_l's for cmb lensing "
+                                       "potential, but no scalar modes")
+            if out.has_pk:
+                raise CosmoSevereError("Inconsistency: you want P(k) of matter, but no "
+                                       "scalar modes")
+        tensors = "t" in out.modes
+        if tensors and not (out.tCl or out.pCl):
+            raise CosmoSevereError(
+                "inconsistent input: you asked for tensors, so you should have at least one "
+                "non-zero tensor source type (temperature or polarization)")
+        if "tensor method" in p:
+            if not tensors:
+                raise CosmoSevereError("Class did not read input parameter(s): tensor method")
+            tm = str(p.pop("tensor method")).strip().lower()
+            for name in ("photons", "massless", "exact"):
+                if name in tm:
+                    kw["tensor_method"] = name
+                    break
+            else:
+                raise CosmoSevereError(f"unknown tensor method {tm!r} (photons/massless/exact)")
+        if tensors:
+            # inflationary self-consistency unless given: n_t = -r/8 (2 - r/8 - n_s),
+            # alpha_t = r/8 (r/8 + n_s - 1)
+            r_val, n_s_val = kw.get("r", 1.0), kw.get("n_s", 0.9619)
+            kw.setdefault("n_t", -r_val / 8.0 * (2.0 - r_val / 8.0 - n_s_val))
+            kw.setdefault("alpha_t", r_val / 8.0 * (r_val / 8.0 + n_s_val - 1.0))
 
     @staticmethod
     def _m_ncdm_from_omega(kw: dict, i: int, omega_target: float, h: float,

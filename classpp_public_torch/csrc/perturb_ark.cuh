@@ -24,6 +24,8 @@
 
 #include <math.h>
 
+#include "team.cuh"
+
 #ifdef __CUDACC__
 #define PK_FN __device__
 #define PK_HOST_FN __host__ __device__
@@ -124,27 +126,11 @@ struct Tables {
 // One lane's vector (contiguous).
 typedef double* Vec;
 
-// The threads that share a lane: thread tid of nt.
-struct Team {
-  int tid, nt;
-};
-
-#ifdef __CUDACC__
-// one warp per lane
-PK_FN void team_sync(const Team&) { __syncwarp(); }
-PK_FN double team_sum(const Team&, double v) {
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
-}
-PK_FN double team_max(const Team&, double v) {
-  for (int m = 16; m > 0; m >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, m));
-  return v;
-}
-#else
-PK_FN void team_sync(const Team&) {}
-PK_FN double team_sum(const Team&, double v) { return v; }
-PK_FN double team_max(const Team&, double v) { return v; }
-#endif
+// The threads that share a lane (team.cuh): one warp per lane on the card.
+using team::Team;
+using team::team_max;
+using team::team_sum;
+using team::team_sync;
 
 struct Frame {
   double tau, a, H, Hp, rho_g, rho_b, rho_cdm, rho_ur, rho_tot, p_tot, p_tot_prime;
@@ -172,33 +158,13 @@ PK_FN Flags flags_at(const Lane& ln, double t) {
   return Flags{t < ln.t_tca, t >= ln.t_rsa, t >= ln.t_ufa, t >= ln.t_ncfa};
 }
 
-// UniformSpline.eval of column c at x (ops/splines.py:170)
-PK_FN double spline_col(const double* y, const double* y2, double x0, double dx, int n,
-                        int ncol, double x, int c) {
-  const double t = (x - x0) / dx;
-  int i = (int)floor(t);
-  i = i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
-  const double b = t - (double)i, a = 1.0 - b;
-  const double ca = a * a * a - a, cb = b * b * b - b, h2 = dx * dx;
-  const double* yl = y + (long)i * ncol;
-  const double* y2l = y2 + (long)i * ncol;
-  return a * yl[c] + b * yl[ncol + c] + (ca * y2l[c] + cb * y2l[ncol + c]) * h2 / 6.0;
-}
-
 constexpr int kFrameCols = kNBgBase + 3 * kMaxSpecies + kNTh;   // room in the frame buffer
 
-// Table values at tau, the same in every thread. The columns (background,
-// then thermodynamics) are spread over the team: one table row read per
-// thread instead of a serial walk over the columns. `buf` (kFrameCols doubles,
-// shared by the team) carries them across.
+// Table values at tau, the same in every thread. `buf` (kFrameCols doubles,
+// shared by the team) carries the table row across (team::table_row).
 PK_FN void frame_at(const Tables& T, const Team& tm, int ns, double tau, double* buf, Frame& f) {
-  const double lntau = log(tau);
   const int nbg = T.bg_ncol;
-  team_sync(tm);   // the previous frame has been read by every thread
-  for (int c = tm.tid; c < nbg + kNTh; c += tm.nt)
-    buf[c] = c < nbg ? spline_col(T.bg_y, T.bg_y2, T.bg_x0, T.bg_dx, T.bg_n, nbg, lntau, c)
-                     : spline_col(T.th_y, T.th_y2, T.th_x0, T.th_dx, T.th_n, kNTh, lntau, c - nbg);
-  team_sync(tm);
+  team::table_row(T, tm, kNTh, log(tau), buf);
   const double* bgv = buf;
   const double* thv = buf + nbg;
   f.tau = tau;

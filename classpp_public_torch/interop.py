@@ -20,6 +20,7 @@ from .models.background import BackgroundResult, BgIdx
 from .models.nonlinear import PkResult
 from .models.perturbations.equations import NcdmCtx
 from .models.perturbations.solve import PerturbResult
+from .models.perturbations.tensors import TensorResult
 from .models.spectra import SpectraResult
 from .models.thermodynamics import ThermoResult
 from .models.transfer import TransferResult
@@ -103,11 +104,20 @@ def transfer(d: dict, device) -> TransferResult:
                           k=None if d.get("k") is None else _t(d["k"], device))
 
 
+def tensor_perturb(d: dict, device) -> TensorResult:
+    """TensorResult from a JAX TensorResult dict (no step counts)."""
+    k_np = np.asarray(d["k"], dtype=np.float64)
+    return TensorResult(k=_t(k_np, device), tau=_t(d["tau"], device),
+                        sources=_t(d["sources"], device), tau0=_f(d["tau0"]), k_np=k_np)
+
+
 def spectra(d: dict, device) -> SpectraResult:
     return SpectraResult(ell=torch.as_tensor(np.array(d["ell"]), device=device),
                          cl=_t(d["cl"], device),
                          l_list=torch.as_tensor(np.array(d["l_list"]), device=device),
-                         cl_list=_t(d["cl_list"], device))
+                         cl_list=_t(d["cl_list"], device),
+                         cl_tensor=None if d.get("cl_tensor") is None
+                         else _t(d["cl_tensor"], device))
 
 
 def ncdm_ctx(d: dict, device) -> NcdmCtx:

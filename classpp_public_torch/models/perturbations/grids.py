@@ -30,10 +30,11 @@ def _tables_on_lntau_grid(bg, th):
 def get_k_list(params: CosmoParams, pr: PrecisionParams, bg, th,
                l_scalar_max: int = 2500, k_max_for_pk: float = 10.0,
                has_cls: bool = True, has_pk: bool = True,
-               k_max_cl_extra: float = 0.0) -> np.ndarray:
-    """Scalar k grid [1/Mpc] (perturb_get_k_list, :1628), flat case.
-    k_max_cl_extra raises the densely sampled CMB region (the lensing
-    potential's l_lss_max requirement, :1726-1733)."""
+               k_max_cl_extra: float = 0.0, m_mode: int = 0) -> np.ndarray:
+    """k grid [1/Mpc] (perturb_get_k_list, :1628), flat case. k_max_cl_extra
+    raises the densely sampled CMB region (the lensing potential's l_lss_max
+    requirement, :1726-1733). m_mode (0 scalars, 2 tensors) moves k_min only
+    in open models (grids.py:41-46), so the flat grid is the same for both."""
     tau0 = float(bg.tau0)
     k_rec = 2.0 * math.pi / float(th.rs_rec)
     ang = float(th.angular_rescaling)

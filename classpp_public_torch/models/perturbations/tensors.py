@@ -1,0 +1,458 @@
+"""Tensor-mode perturbations (gravitational waves), flat universe.
+
+Counterpart of classpp_public_tpu/models/perturbations/tensors.py (`TnIdx`
+:33-100, `rhs_full` :136-278, `tensor_ic` :285, `remap_tca_off` :303,
+`remap_rsa_on` :314, `solve_one_k` :321-381, `get_tensor_solver` :384-400,
+`compute_tensor_perturbations` :411-455). Reference physics:
+perturb_derivs tensor block (perturbations_module.cpp:9045-9228), the
+Einstein equation gw'' = -2 aH gw' - k^2 gw + gw_source (perturb_einstein
+:6036), the sources S_T2 = -gw' e^-kappa + g P and S_P = sqrt(6) g P
+(perturb_sources :7243-7273).
+
+The state is gw, gw', the photon temperature F_l and polarization G_l
+hierarchies and (methods `massless` and, without massive neutrinos, `exact`)
+one massless-neutrino hierarchy driven by rho_ur + 3 p_ncdm. Every lane (k
+mode) takes adaptive Cash-Karp steps clipped to its switch times (tight
+coupling off, radiation streaming on), with the JAX solver's step control,
+and emits (S_T2, S_P) at every tau sample.
+
+`tensor_rkck` integrates all lanes: on CUDA tensors one launch of the
+hand-written kernel csrc/tensor_rkck.cu (one lane per warp; the per-lane
+program is csrc/tensor_rkck.cuh), on CPU tensors `tensor_rkck_plain`, the
+lanes batched along the leading axis of an (nlanes, n) state.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ...config.params import CosmoParams, check_lcdm
+from ...config.precision import PrecisionParams
+from ...ops import cuda
+from ...ops.ode import rkck_step
+from ..thermodynamics import ThIdx
+
+_SQRT6 = math.sqrt(6.0)
+MAX_INTERVAL_STEPS = 100_000   # per sample interval (solve_one_k :338)
+SYNC_EVERY = 32                # plain loop iterations between host reads
+
+# table columns read by the equations (the kernel's Frame order)
+BG_COLS = ("a", "H", "rho_g", "rho_ur")
+TH_COLS = ("dkappa", "g", "exp_m_kappa")
+
+launches = 0  # tensor_rkck kernel launches (tensor_rkck on CUDA tensors)
+
+
+@dataclass(frozen=True)
+class TnIdx:
+    """Tensor state layout: gw, gw', photon temperature F_l (l = 0..l_max_g_ten),
+    photon polarization G_l, and the ur hierarchy (none for method
+    `photons`). n_ncdm counts the massive species whose 3 p_ncdm joins rho_ur
+    as the hierarchy's driving density (method `massless`)."""
+
+    l_max_g_ten: int = 5
+    l_max_pol_g_ten: int = 5
+    l_max_ur: int = 17
+    n_ncdm: int = 0
+    method: str = "massless"     # photons | massless | exact (without ncdm)
+
+    gw = 0
+    gwdot = 1
+    F = 2
+
+    @property
+    def n_F(self):
+        return self.l_max_g_ten + 1
+
+    @property
+    def G(self):
+        return self.F + self.n_F
+
+    @property
+    def n_G(self):
+        return self.l_max_pol_g_ten + 1
+
+    @property
+    def ur(self):
+        return self.G + self.n_G
+
+    @property
+    def n_ur(self):
+        return 0 if self.method == "photons" else self.l_max_ur + 1
+
+    @property
+    def n_rho_ncdm(self):
+        """ncdm species whose 3 p_ncdm drive the massless hierarchy."""
+        return self.n_ncdm if self.method == "massless" else 0
+
+    @property
+    def size(self):
+        return self.ur + self.n_ur
+
+
+class TensorTables(NamedTuple):
+    """The background and thermodynamics runtime splines restricted to the
+    columns the tensor equations read: BG_COLS then p_ncdm of each species
+    in idx.n_rho_ncdm; TH_COLS."""
+
+    bg: object    # UniformSpline over ln(tau)
+    th: object
+    idx: TnIdx
+
+
+def make_tables(bg, bidx, th, idx: TnIdx) -> TensorTables:
+    bi = [bidx[n] for n in BG_COLS] + [bidx[f"p_ncdm{i}"] for i in range(idx.n_rho_ncdm)]
+    ti = [ThIdx.ix[n] for n in TH_COLS]
+    b, t = bg.lntau_spline, th.lntau_spline
+    return TensorTables(
+        bg=b._replace(y=b.y[:, bi].contiguous(), y2=b.y2[:, bi].contiguous()),
+        th=t._replace(y=t.y[:, ti].contiguous(), y2=t.y2[:, ti].contiguous()), idx=idx)
+
+
+class Frame(NamedTuple):
+    """Table values at one time per lane."""
+
+    tau: torch.Tensor
+    a: torch.Tensor
+    H: torch.Tensor
+    rho_g: torch.Tensor
+    rho_ur: torch.Tensor
+    kap: torch.Tensor
+    g: torch.Tensor
+    emk: torch.Tensor
+    p_nc: torch.Tensor = None   # (L, ns)
+
+
+def frame_at(tau: torch.Tensor, tables: TensorTables) -> Frame:
+    lntau = torch.log(tau)
+    bgv = tables.bg.eval(lntau)
+    thv = tables.th.eval(lntau).unbind(-1)
+    nb = len(BG_COLS)
+    return Frame(tau, *bgv[:, :nb].unbind(-1), *thv, p_nc=bgv[:, nb:])
+
+
+class TensorCtx(NamedTuple):
+    """Per-lane data fixed during one step: wavenumber and the approximation
+    flags at the step's start time."""
+
+    k: torch.Tensor
+    tca_on: torch.Tensor   # bool
+    rsa_on: torch.Tensor
+    idx: TnIdx
+
+
+def _hier_deriv(Fv, k, ck, kap=None):
+    """Free-streaming hierarchy derivative of F_l, l = 0..L, flat case
+    (`_hier_deriv` :116-133): k/(2l+1) (l F_{l-1} - (l+1) F_{l+1}), the
+    truncation k (F_{L-1} - (L+1) F_L/(k tau)) at l = L, minus kap F_l. The
+    caller overrides the low moments. Fv (L, nl); k, ck, kap (L,)."""
+    nl = Fv.shape[1]
+    ls = torch.arange(nl, dtype=Fv.dtype, device=Fv.device)
+    zero = torch.zeros_like(Fv[:, :1])
+    Fm1 = torch.cat([zero, Fv[:, :-1]], dim=1)
+    Fp1 = torch.cat([Fv[:, 1:], zero], dim=1)
+    d = k[:, None] / (2.0 * ls + 1.0) * (ls * Fm1 - (ls + 1.0) * Fp1)
+    d[:, -1] = k * (Fv[:, -2] - nl * ck * Fv[:, -1])
+    if kap is not None:
+        d = d - kap[:, None] * Fv
+    return d
+
+
+def rhs_full(fr: Frame, y: torch.Tensor, ctx: TensorCtx):
+    """dy/dtau (L, n) and the sources (S_T2, S_P) of every lane (rhs_full
+    :136-278, flat: the curvature factors s_l are 1 and cot_K = 1/(k tau))."""
+    idx = ctx.idx
+    k = ctx.k
+    k2 = k * k
+    tau = fr.tau
+    a = fr.a
+    aH = a * fr.H
+    a2 = a * a
+    kap = fr.kap
+    tca, rsa = ctx.tca_on, ctx.rsa_on
+    hier_on = (~tca) & (~rsa)
+    ck = 1.0 / (k * tau)
+
+    gw = y[:, idx.gw]
+    gwdot = y[:, idx.gwdot]
+    F = y[:, idx.F: idx.F + idx.n_F]
+    G = y[:, idx.G: idx.G + idx.n_G]
+    delta_g, theta_g, shear_g = F[:, 0], F[:, 1], F[:, 2]
+
+    gw_src_g = torch.where(
+        hier_on,
+        -_SQRT6 * 4.0 * a2 * fr.rho_g * (delta_g / 15.0 + 4.0 / 21.0 * shear_g + F[:, 4] / 35.0),
+        0.0)
+    gw_src_ur = 0.0
+    if idx.n_ur:
+        U = y[:, idx.ur: idx.ur + idx.n_ur]
+        delta_ur, theta_ur, shear_ur = U[:, 0], U[:, 1], U[:, 2]
+        rho_rel = fr.rho_ur
+        for i in range(idx.n_rho_ncdm):
+            rho_rel = rho_rel + 3.0 * fr.p_nc[:, i]
+        gw_src_ur = -_SQRT6 * 4.0 * a2 * rho_rel * (delta_ur / 15.0 + 4.0 / 21.0 * shear_ur
+                                                    + U[:, 4] / 35.0)
+    gw_pp = -2.0 * aH * gwdot - k2 * gw + gw_src_g + gw_src_ur
+
+    P2 = -(1.0 / _SQRT6) * (delta_g / 10.0 + 2.0 / 7.0 * shear_g + 3.0 / 70.0 * F[:, 4]
+                            - 3.0 / 5.0 * G[:, 0] + 6.0 / 7.0 * G[:, 2] - 3.0 / 70.0 * G[:, 4])
+
+    dy = torch.zeros_like(y)
+    dy[:, idx.gw] = gwdot
+    dy[:, idx.gwdot] = gw_pp
+    dF = _hier_deriv(F, k, ck, kap)
+    dF[:, 0] = -4.0 / 3.0 * theta_g - kap * (delta_g + _SQRT6 * P2) + _SQRT6 * gwdot
+    dF[:, 1] = k2 * (delta_g / 4.0 - shear_g) - kap * theta_g
+    dF[:, 2] = 4.0 / 15.0 * theta_g - 3.0 / 10.0 * k * F[:, 3] - kap * shear_g
+    dF[:, 3] = k / 7.0 * (6.0 * shear_g - 4.0 * F[:, 4]) - kap * F[:, 3]
+    dy[:, idx.F: idx.F + idx.n_F] = torch.where(hier_on[:, None], dF, 0.0)
+    dG = _hier_deriv(G, k, ck, kap)
+    dG[:, 0] = -k * G[:, 1] - kap * (G[:, 0] - _SQRT6 * P2)
+    dy[:, idx.G: idx.G + idx.n_G] = torch.where(hier_on[:, None], dG, 0.0)
+    if idx.n_ur:
+        dU = _hier_deriv(U, k, ck)
+        dU[:, 0] = -4.0 / 3.0 * theta_ur + _SQRT6 * gwdot
+        dU[:, 1] = k2 * (delta_ur / 4.0 - shear_ur)
+        dU[:, 2] = 4.0 / 15.0 * theta_ur - 3.0 / 10.0 * k * U[:, 3]
+        dU[:, 3] = k / 7.0 * (6.0 * shear_ur - 4.0 * U[:, 4])
+        dy[:, idx.ur: idx.ur + idx.n_ur] = dU
+
+    P_src = torch.where(rsa, 0.0, torch.where(tca, 2.0 / 5.0 * _SQRT6 * gwdot / kap, P2))
+    s_t2 = -gwdot * fr.emk + fr.g * P_src
+    s_p = _SQRT6 * fr.g * P_src
+    return dy, (s_t2, s_p)
+
+
+def tensor_ic(idx: TnIdx, nlanes: int, dtype=torch.float64, device="cpu") -> torch.Tensor:
+    """Adiabatic tensor initial condition gw = 1/sqrt(6) (:5387); a gw_ini
+    other than 1 scales the sources after the solve."""
+    y = torch.zeros((nlanes, idx.size), dtype=dtype, device=device)
+    y[:, idx.gw] = 1.0 / _SQRT6
+    return y
+
+
+def remap_tca_off(y: torch.Tensor, fr: Frame, idx: TnIdx, on: torch.Tensor) -> torch.Tensor:
+    """perturb_vector_init :4657: seed delta_g and G0 from gw' where `on`."""
+    gwdot = y[:, idx.gwdot]
+    out = y.clone()
+    out[:, idx.F] = torch.where(on, -4.0 / 3.0 * gwdot / fr.kap, y[:, idx.F])
+    out[:, idx.G] = torch.where(on, 1.0 / 3.0 * gwdot / fr.kap, y[:, idx.G])
+    return out
+
+
+def remap_rsa_on(y: torch.Tensor, idx: TnIdx, on: torch.Tensor) -> torch.Tensor:
+    """Zero the photon hierarchies where `on` (:314)."""
+    out = y.clone()
+    sl = slice(idx.F, idx.G + idx.n_G)
+    out[:, sl] = torch.where(on[:, None], 0.0, y[:, sl])
+    return out
+
+
+class TensorLanes(NamedTuple):
+    """Per-lane schedule (tensors on the solve's device)."""
+
+    k: torch.Tensor
+    tau_ini: torch.Tensor
+    t_tca: torch.Tensor
+    t_rsa: torch.Tensor
+
+    def take(self, sel) -> "TensorLanes":
+        return TensorLanes(*(v[sel] for v in self))
+
+
+def _ctx(lanes: TensorLanes, t, idx):
+    return TensorCtx(k=lanes.k, tca_on=t < lanes.t_tca, rsa_on=t >= lanes.t_rsa, idx=idx)
+
+
+def _stalled(nsteps, lanes):
+    return RuntimeError(f"tensor integration stalled: an interval of a lane took "
+                        f"{MAX_INTERVAL_STEPS} steps (k = {float(lanes.k[0]):.6g}/Mpc, "
+                        f"{int(nsteps[0])} steps in all)")
+
+
+def tensor_rkck_plain(lanes: TensorLanes, taus: torch.Tensor, tables: TensorTables,
+                      rtol: float) -> tuple:
+    """Plain PyTorch version of `tensor_rkck`: all lanes step in lockstep,
+    each with its own time, step, sample interval and step count
+    (solve_one_k :321-381). A lane that finishes an interval stores its state
+    for that sample; the sources are evaluated from the stored states after
+    the loop. Returns (S (nl, ntau, 2), nsteps (nl,))."""
+    idx = tables.idx
+    dev, f64 = taus.device, taus.dtype
+    nl, ntau, n = lanes.k.shape[0], taus.shape[0], idx.size
+    sw = torch.stack([lanes.t_tca, lanes.t_rsa], dim=1)
+    Y = torch.zeros((nl, ntau + 1, n), dtype=f64, device=dev)   # + a spare slot
+    Yflat = Y.view(nl * (ntau + 1), n)
+    ids = torch.arange(nl, device=dev)
+    y = tensor_ic(idx, nl, dtype=f64, device=dev)
+    t = lanes.tau_ini.clone()
+    h = 0.1 * lanes.tau_ini
+    j = torch.zeros(nl, dtype=torch.long, device=dev)
+    n_int = torch.zeros(nl, dtype=torch.long, device=dev)
+    nsteps = torch.zeros(nl, dtype=torch.long, device=dev)
+    capped = torch.zeros(nl, dtype=torch.bool, device=dev)
+    # a first sample at or before tau_ini takes no step (its interval is empty)
+    empty = taus[0] <= lanes.tau_ini
+    Y[:, 0] = torch.where(empty[:, None], y, Y[:, 0])
+    t = torch.where(empty, taus[0], t)
+    j = j + empty
+    taus_ext = torch.cat([taus, taus[-1:]])
+    it = 0
+    while True:
+        if it % SYNC_EVERY == 0 and not bool((j < ntau).any()):
+            break
+        it += 1
+        live = j < ntau
+        t_b = taus_ext[j]
+        cand = torch.where(sw > (t * (1.0 + 1e-14))[:, None], sw, torch.inf)
+        t_stop = torch.minimum(cand.min(dim=1).values, t_b)
+        h_eff = torch.minimum(h, t_stop - t)
+        ctx = _ctx(lanes, t, idx)
+        y_new, err, k1 = rkck_step(lambda ti, yy: rhs_full(frame_at(ti, tables), yy, ctx)[0],
+                                   t, y, h_eff)
+        scale = rtol * (y.abs() + (h_eff[:, None] * k1).abs() + 1e-30) + 1e-11
+        ratio = (err.abs() / scale).max(dim=1).values
+        ratio = torch.where(torch.isfinite(ratio), ratio, torch.inf)
+        accept = (ratio <= 1.0) & live
+        fac = torch.clamp(0.9 * torch.where(ratio > 0, ratio ** -0.2, 5.0), 0.2, 5.0)
+        h_next = torch.where(accept & (h_eff < h), torch.maximum(h, h_eff * fac), h_eff * fac)
+        t_new = torch.where(accept, t + h_eff, t)
+        y_out = torch.where(accept[:, None], y_new, y)
+        crossed = accept[:, None] & (t_new[:, None] >= sw) & (t[:, None] < sw)
+        y_out = remap_tca_off(y_out, frame_at(t_new, tables), idx, crossed[:, 0])
+        y_out = remap_rsa_on(y_out, idx, crossed[:, 1])
+        n_int = n_int + live
+        arrived = live & ((t_new >= t_b * (1.0 - 1e-15)) | (n_int >= MAX_INTERVAL_STEPS))
+        capped = capped | (arrived & (n_int >= MAX_INTERVAL_STEPS))
+        Yflat.index_copy_(0, ids * (ntau + 1) + torch.where(arrived, j, ntau), y_out)
+        h = torch.where(live, torch.clamp(h_next, min=1e-300), h)
+        nsteps = nsteps + live
+        t = torch.where(arrived, t_b, t_new)
+        y = y_out
+        j = j + arrived
+        n_int = torch.where(arrived, 0, n_int)
+    if bool(capped.any()):
+        raise _stalled(nsteps[capped], lanes.take(capped))
+    tau_rows = taus.repeat(nl)
+    lane_rows = lanes.take(ids.repeat_interleave(ntau))
+    _, (s_t2, s_p) = rhs_full(frame_at(tau_rows, tables), Y[:, :ntau].reshape(nl * ntau, n),
+                              _ctx(lane_rows, tau_rows, idx))
+    S = torch.stack([s_t2, s_p], dim=1).reshape(nl, ntau, 2)
+    return S, nsteps
+
+
+def _layout_ints(idx: TnIdx) -> list:
+    """TnIdx as the int fields of the kernel's tk::Layout, in its order."""
+    return [idx.size, idx.F, idx.n_F, idx.G, idx.n_G, idx.ur, idx.n_ur, idx.n_rho_ncdm]
+
+
+def work_doubles(idx: TnIdx) -> int:
+    """Scratch doubles per lane of the kernel (tk::work_doubles): y, the
+    stage state, y5, six stage derivatives (9 n) and the frame buffer."""
+    return 9 * idx.size + 16
+
+
+KERNEL_STATUS = {1: "took MAX_INTERVAL_STEPS steps in one interval"}
+
+
+def tensor_rkck(lanes: TensorLanes, taus: torch.Tensor, tables: TensorTables,
+                rtol: float) -> tuple:
+    """Integrate every tensor lane from tau_ini through all samples `taus`.
+    Returns (S (nlanes, ntau, 2): S_T2, S_P; nsteps (nlanes,), counting step
+    attempts as the JAX integrator does). CUDA tensors: one launch of the
+    tensor_rkck kernel (one lane per warp); CPU tensors: the plain version."""
+    global launches
+    dev = taus.device
+    if dev.type == "cpu":
+        return tensor_rkck_plain(lanes, taus, tables, rtol)
+    if dev.type != "cuda":
+        raise ValueError(f"tensor_rkck: unsupported device {dev}")
+    idx = tables.idx
+    nl, ntau = lanes.k.shape[0], taus.shape[0]
+    bg, th = tables.bg, tables.th
+    if bg.y.shape[1] != len(BG_COLS) + idx.n_rho_ncdm or th.y.shape[1] != len(TH_COLS):
+        raise ValueError(f"tensor_rkck: bad table shapes bg{tuple(bg.y.shape)} "
+                         f"th{tuple(th.y.shape)}")
+    if len(BG_COLS) + idx.n_rho_ncdm + len(TH_COLS) > 16:
+        raise ValueError("tensor_rkck: too many table columns for the frame buffer")
+    lane_tab = torch.stack(list(lanes), dim=0).contiguous()   # (4, nl)
+    for t in (lane_tab, taus, bg.y, bg.y2, th.y, th.y2):
+        if t.dtype != torch.float64 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"tensor_rkck: every input must be contiguous float64 on {dev}")
+    lib = cuda.library()
+    S = torch.empty((nl, ntau, 2), dtype=torch.float64, device=dev)
+    nsteps = torch.zeros(nl, dtype=torch.long, device=dev)
+    status = torch.zeros(nl, dtype=torch.int32, device=dev)
+    layout = (ctypes.c_int * 8)(*_layout_ints(idx))
+    err = lib.tensor_rkck_launch(
+        layout, lane_tab.data_ptr(), taus.data_ptr(), bg.y.data_ptr(), bg.y2.data_ptr(),
+        float(bg.x0), float(bg.dx), int(bg.n), th.y.data_ptr(), th.y2.data_ptr(),
+        float(th.x0), float(th.dx), int(th.n), float(rtol), MAX_INTERVAL_STEPS, nl, ntau,
+        S.data_ptr(), nsteps.data_ptr(), status.data_ptr(), cuda.stream_ptr(dev))
+    cuda.check(err, "tensor_rkck")
+    launches += 1
+    st = status.cpu()   # the one host read: waits for the launch
+    if bool(st.any()):
+        i = int(torch.nonzero(st)[0])
+        raise RuntimeError(f"tensor integration failed: lane k = {float(lanes.k[i]):.6g}/Mpc "
+                           f"{KERNEL_STATUS.get(int(st[i]), st[i])} after {int(nsteps[i])} steps "
+                           f"({int((st != 0).sum())} of {nl} lanes failed)")
+    return S, nsteps
+
+
+class TensorResult(NamedTuple):
+    k: torch.Tensor          # (nk,)
+    tau: torch.Tensor        # (ntau,)
+    sources: torch.Tensor    # (nk, ntau, 2): S_T2, S_P
+    tau0: float
+    stats_steps: torch.Tensor = None   # (nk,) step attempts per mode
+    k_np: np.ndarray = None
+
+
+def check_tensor_method(params: CosmoParams) -> None:
+    """Raise for the tensor neutrino treatment that is not ported."""
+    if params.tensor_method == "exact" and params.N_ncdm:
+        raise NotImplementedError(
+            "tensor method = exact with massive neutrinos (the ncdm Psi_l(q) tensor "
+            "hierarchy, classpp_public_tpu/models/perturbations/tensors.py:200-213 and "
+            ":250-271) is not ported; use 'massless' or 'photons'")
+    if params.tensor_method not in ("photons", "massless", "exact"):
+        raise ValueError(f"unknown tensor method {params.tensor_method!r}")
+
+
+def compute_tensor_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th,
+                                 l_tensor_max: int = 500, device=None) -> TensorResult:
+    """The tensor source table on the tensor k grid (compute_tensor_perturbations
+    :411-455, flat)."""
+    from .grids import get_k_list, get_k_schedule, get_tau_sampling
+
+    check_lcdm(params)
+    check_tensor_method(params)
+    device = torch.device(device) if device is not None else bg.loga.device
+    ks = get_k_list(params, pr, bg, th, l_scalar_max=l_tensor_max, k_max_for_pk=0.0,
+                    has_cls=True, has_pk=False, m_mode=2)
+    taus = get_tau_sampling(params, pr, bg, bidx, th, has_cmb=True)
+    sched = get_k_schedule(ks, pr, bg, bidx, th, tau_first_sample=float(taus[0]))
+    idx = TnIdx(pr.l_max_g_ten, pr.l_max_pol_g_ten, pr.l_max_ur, params.N_ncdm,
+                params.tensor_method)
+    tables = make_tables(bg, bidx, th, idx)
+    tables = tables._replace(bg=tables.bg.to(device), th=tables.th.to(device))
+
+    def dt(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=device)
+
+    lanes = TensorLanes(dt(sched.k), dt(sched.tau_ini), dt(sched.tau_tca_off),
+                        dt(sched.tau_rsa_on))
+    taus_t = dt(taus)
+    S, steps = tensor_rkck(lanes, taus_t, tables, pr.tol_perturb_integration)
+    if pr.gw_ini != 1.0:
+        # the system is linear: scaling the sources is scaling the IC (precisions.h:221)
+        S = S * pr.gw_ini
+    return TensorResult(k=dt(ks), tau=taus_t, sources=S, tau0=float(bg.tau0),
+                        stats_steps=steps, k_np=np.asarray(ks))

@@ -1,9 +1,12 @@
 """Harmonic spectra C_l (counterpart of classpp_public_tpu/models/spectra.py
-`cl_quad_weights` :27-62 and `compute_spectra` :95, flat adiabatic case).
+`cl_quad_weights` :27-62 and `compute_spectra` :95, with its tensor branch
+:186-223; flat adiabatic case).
 
 C_l^XY = int dk (4 pi/k) P_R(k) Delta_l^X Delta_l^Y with the reference's
 spline integrator (array_integrate_all_trapzd_or_spline, tools/arrays.c:1382),
-then a cubic spline over the sparse l list to every integer l.
+then a cubic spline over the sparse l list to every integer l. Tensor modes
+add T2 T2, E E, T2 E and B B with the measure 4 pi/q P_h(q), splined to every
+integer l and zero above l_max_tensors.
 """
 
 from __future__ import annotations
@@ -41,9 +44,29 @@ class SpectraResult(NamedTuple):
     cl: torch.Tensor        # (nl_out, nct) raw C_l per CT_TYPES
     l_list: torch.Tensor    # sparse computation multipoles
     cl_list: torch.Tensor   # (nl_list, nct)
+    cl_tensor: torch.Tensor = None   # (nl_out, nct) the tensor modes' part of cl
 
 
-def compute_spectra(tr: TransferResult, pm: PrimordialResult, l_max: int) -> SpectraResult:
+def _tensor_cls(tr_tensor: TransferResult, pm: PrimordialResult,
+                ells: torch.Tensor) -> torch.Tensor:
+    """The tensor C_l at the integer multipoles `ells`, CT_TYPES columns
+    (TT, EE, TE, BB; zero above the tensor l list)."""
+    qt = tr_tensor.k if tr_tensor.k is not None else tr_tensor.q
+    meas_t = 4.0 * math.pi / qt * pm.tensor_pk(qt)
+    d = tr_tensor.delta                                  # (nl_t, 3, nq_t): t2, e, b
+    t2, e, b = d[:, 0], d[:, 1], d[:, 2]
+    prods = torch.stack([t2 * t2, e * e, t2 * e, b * b])
+    tot = torch.einsum("pln,n->pl", prods, cl_quad_weights(qt) * meas_t)
+    zero = torch.zeros_like(tot[0])
+    cl_list = torch.stack([tot[0], tot[1], tot[2], tot[3], zero, zero, zero], dim=1)
+    lt = tr_tensor.l.to(torch.float64)
+    ells_f = ells.to(torch.float64)
+    cl = spline_eval(lt, cl_list, spline_d2(lt, cl_list), torch.minimum(ells_f, lt[-1]))
+    return torch.where((ells <= tr_tensor.l[-1])[:, None], cl, 0.0)
+
+
+def compute_spectra(tr: TransferResult, pm: PrimordialResult, l_max: int,
+                    tr_tensor: TransferResult = None) -> SpectraResult:
     q = tr.k if tr.k is not None else tr.q
     meas = 4.0 * math.pi / q * pm.scalar_pk(q)
     ix = {n: i for i, n in enumerate(TT_TYPES)}
@@ -58,4 +81,8 @@ def compute_spectra(tr: TransferResult, pm: PrimordialResult, l_max: int) -> Spe
     l_f = tr.l.to(torch.float64)
     ells = torch.arange(2, l_max + 1, device=q.device)
     cl_all = spline_eval(l_f, cl_list, spline_d2(l_f, cl_list), ells.to(torch.float64))
-    return SpectraResult(ell=ells, cl=cl_all, l_list=tr.l, cl_list=cl_list)
+    cl_t = None
+    if tr_tensor is not None:
+        cl_t = _tensor_cls(tr_tensor, pm, ells)
+        cl_all = cl_all + cl_t
+    return SpectraResult(ell=ells, cl=cl_all, l_list=tr.l, cl_list=cl_list, cl_tensor=cl_t)

@@ -6,17 +6,21 @@ Counterpart of classpp_public_tpu/models/thermodynamics.py
 `_compute_recombination_impl` :453-590, `_xe_reio_camb` :641,
 `_tb_march_impl` :756, `_compute_thermodynamics_impl` :806).
 
-Placement: this stage runs on the host, always. RECFAST is 20 000 sequential
-intervals of four RK4 sub-steps each and the baryon-temperature march is a
-4096-step scan: scalar recurrences whose every step depends on the last, so
-they run as plain Python float64 loops (a per-step tensor op would cost
-microseconds of dispatch each). The reionization shooting and the runtime
-tables are vectorised float64 tensor code on the CPU. The finished runtime
-table moves to the requested device once.
+Where each part runs. The two serial recurrences are kernels on a CUDA
+device: the RECFAST history (20 000 dependent intervals, four RK4 sub-steps
+each in the integrated phases) is `recfast_history`, the backward-Euler
+baryon-temperature march through reionization (4096 dependent steps) is
+`tb_march`; both are csrc/recfast.cu, launched on the stage's device, with
+their tables read back to the host. On device="cpu" their plain versions run:
+the host Python loops `recfast_history_plain` and `tb_march_plain`. The
+RecfastCtx constants, the tau_reio shooting, the merge and the runtime
+uniform-ln(tau) table are float64 tensor code on the host in both cases; the
+finished runtime table moves to the stage's device once.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 from pathlib import Path
@@ -28,12 +32,16 @@ import torch
 from .. import constants as const
 from ..config.params import CosmoParams, check_lcdm
 from ..config.precision import PrecisionParams
+from ..ops import cuda
 from ..ops.splines import (UniformSpline, interp, spline_d2, spline_integrate,
                            spline_integrate_reverse)
 from .background import HOST, BackgroundResult, BgIdx
 
-# JAX package data directory (read in place, not copied)
-DATA_DIR = Path(__file__).resolve().parents[2] / "classpp_public_tpu" / "data"
+DATA_DIR = Path(__file__).resolve().parents[1] / "data"
+
+# launches of the two kernels of csrc/recfast.cu (counted only where launched)
+recfast_launches = 0
+tb_march_launches = 0
 
 # RECFAST atomic data (reference source/thermodynamics.h:360-420)
 _Lambda_H = 8.2245809
@@ -156,14 +164,51 @@ def make_recfast_ctx(params: CosmoParams, pr: PrecisionParams,
         YHe=YHe)
 
 
-def _hubble_evaluator(ctx: RecfastCtx):
+# order of rf::Params in csrc/recfast.cuh: the RecfastCtx scalars, the
+# precision parameters and the derived constants the history reads
+RF_PARAMS = (
+    "fHe", "Nnow", "Tnow", "fu", "H0_s", "CDB", "CDB_He", "CB1", "CB1_He1", "CB1_He2",
+    "CR", "CK", "CK_He", "CL", "CL_He", "CT", "Bfact", "YHe",
+    "trigH", "trigH2", "trigHe2", "AG1", "AG2", "zG1", "zG2", "wG1", "wG2", "H_frac",
+    "fudge_He", "z_init", "zHe1", "dzHe1", "zHe2", "dzHe2", "zHe3", "dzHe3", "trigHe",
+    "dtrigHe", "dtrigH",
+    "c", "not4", "conv", "dop_fac", "CL_PSt", "E_trip_ion", "E_2St", "wb_fac", "dk_fac",
+    "T_0", "T_1", "a_VF", "a_trip",
+)
+RECO_COLUMNS = ("z", "xe", "Tb", "wb", "cb2", "dkappadtau")
+
+
+def recfast_params(ctx: RecfastCtx, pr: PrecisionParams) -> torch.Tensor:
+    """The RF_PARAMS vector (float64, host) of one cosmology."""
+    c, hP, kB, mH = const.c_SI, const.h_P, const.k_B, const.m_H
+    v = dict(
+        fHe=ctx.fHe, Nnow=ctx.Nnow, Tnow=ctx.Tnow, fu=ctx.fu, H0_s=ctx.H0_s, CDB=ctx.CDB,
+        CDB_He=ctx.CDB_He, CB1=ctx.CB1, CB1_He1=ctx.CB1_He1, CB1_He2=ctx.CB1_He2, CR=ctx.CR,
+        CK=ctx.CK, CK_He=ctx.CK_He, CL=ctx.CL, CL_He=ctx.CL_He, CT=ctx.CT, Bfact=ctx.Bfact,
+        YHe=ctx.YHe,
+        trigH=pr.recfast_x_H0_trigger, trigH2=pr.recfast_x_H0_trigger2,
+        trigHe2=pr.recfast_x_He0_trigger2, AG1=pr.recfast_AGauss1, AG2=pr.recfast_AGauss2,
+        zG1=pr.recfast_zGauss1, zG2=pr.recfast_zGauss2, wG1=pr.recfast_wGauss1,
+        wG2=pr.recfast_wGauss2, H_frac=pr.recfast_H_frac, fudge_He=pr.recfast_fudge_He,
+        z_init=pr.recfast_z_initial, zHe1=pr.recfast_z_He_1, dzHe1=pr.recfast_delta_z_He_1,
+        zHe2=pr.recfast_z_He_2, dzHe2=pr.recfast_delta_z_He_2, zHe3=pr.recfast_z_He_3,
+        dzHe3=pr.recfast_delta_z_He_3, trigHe=pr.recfast_x_He0_trigger,
+        dtrigHe=pr.recfast_x_He0_trigger_delta, dtrigH=pr.recfast_x_H0_trigger_delta,
+        c=c, not4=const.not4, conv=c / const.Mpc_over_m,
+        dop_fac=2.0 * kB / (mH * const.not4 * c**2),
+        CL_PSt=hP * c * (_L_He_2Pt - _L_He_2St) / kB,
+        E_trip_ion=hP * c * _L_He2St_ion / kB, E_2St=hP * c * _L_He_2St / kB,
+        wb_fac=kB / (c**2 * mH), dk_fac=ctx.Nnow * const.sigma_T * const.Mpc_over_m,
+        T_0=_T_0, T_1=_T_1, a_VF=_a_VF, a_trip=_a_trip)
+    return torch.tensor([float(v[n]) for n in RF_PARAMS], dtype=torch.float64)
+
+
+def _hubble_evaluator(spl: UniformSpline, conv: float):
     """Host scalar (H, dH/dz) in 1/s at redshift z, from the (H, H') spline."""
-    spl = ctx.H_of_z
     yH, yHp = spl.y[:, 0].tolist(), spl.y[:, 1].tolist()
     y2H, y2Hp = spl.y2[:, 0].tolist(), spl.y2[:, 1].tolist()
     x0, dx, n = spl.x0, spl.dx, spl.n
     h2 = dx * dx / 6.0
-    conv = const.c_SI / const.Mpc_over_m
 
     def hubble(z):
         t = (-math.log1p(z) - x0) / dx
@@ -178,26 +223,22 @@ def _hubble_evaluator(ctx: RecfastCtx):
     return hubble
 
 
-def make_recfast_derivs(ctx: RecfastCtx, pr: PrecisionParams):
+def make_recfast_derivs(p: dict, H_of_z: UniformSpline):
     """RECFAST 1.5 derivatives d(x_H, x_He, Tmat)/dz as a host scalar
     function (recfast_derivs, classpp_public_tpu thermodynamics.py:295;
-    reference thermodynamics_module.cpp:3727-3960, Heswitch=6, Hswitch on)."""
-    hubble = _hubble_evaluator(ctx)
-    fHe, Nnow, Tnow, fu, H0_s = ctx.fHe, ctx.Nnow, ctx.Tnow, ctx.fu, ctx.H0_s
-    CR, CDB, CDB_He, CK, CK_He = ctx.CR, ctx.CDB, ctx.CDB_He, ctx.CK, ctx.CK_He
-    CL, CL_He, CT, Bfact = ctx.CL, ctx.CL_He, ctx.CT, ctx.Bfact
-    trigH, trigH2 = pr.recfast_x_H0_trigger, pr.recfast_x_H0_trigger2
-    trigHe2 = pr.recfast_x_He0_trigger2
-    AG1, AG2 = pr.recfast_AGauss1, pr.recfast_AGauss2
-    zG1, zG2 = pr.recfast_zGauss1, pr.recfast_zGauss2
-    wG1, wG2 = pr.recfast_wGauss1, pr.recfast_wGauss2
-    H_frac, fudge_He = pr.recfast_H_frac, pr.recfast_fudge_He
-    c, hP, kB, mH = const.c_SI, const.h_P, const.k_B, const.m_H
-    dop_fac = 2.0 * kB / (mH * const.not4 * c**2)
+    reference thermodynamics_module.cpp:3727-3960, Heswitch=6, Hswitch on).
+    p: RF_PARAMS by name."""
+    hubble = _hubble_evaluator(H_of_z, p["conv"])
+    fHe, Nnow, Tnow, fu, H0_s = p["fHe"], p["Nnow"], p["Tnow"], p["fu"], p["H0_s"]
+    CR, CDB, CDB_He, CK, CK_He = p["CR"], p["CDB"], p["CDB_He"], p["CK"], p["CK_He"]
+    CL, CL_He, CT, Bfact = p["CL"], p["CL_He"], p["CT"], p["Bfact"]
+    trigH, trigH2, trigHe2 = p["trigH"], p["trigH2"], p["trigHe2"]
+    AG1, AG2, zG1, zG2, wG1, wG2 = p["AG1"], p["AG2"], p["zG1"], p["zG2"], p["wG1"], p["wG2"]
+    H_frac, fudge_He = p["H_frac"], p["fudge_He"]
+    c, dop_fac = p["c"], p["dop_fac"]
+    CL_PSt, E_trip_ion, E_2St = p["CL_PSt"], p["E_trip_ion"], p["E_2St"]
+    T_0, T_1, a_VF, a_trip = p["T_0"], p["T_1"], p["a_VF"], p["a_trip"]
     sqrt_pi = math.sqrt(math.pi)
-    CL_PSt = hP * c * (_L_He_2Pt - _L_He_2St) / kB
-    E_trip_ion = hP * c * _L_He2St_ion / kB
-    E_2St = hP * c * _L_He_2St / kB
     exp, sqrt, log1p = math.exp, math.sqrt, math.log1p
 
     def derivs(z, y0, y1, y2):
@@ -214,15 +255,15 @@ def make_recfast_derivs(ctx: RecfastCtx, pr: PrecisionParams):
         Rdown = 1e-19 * _a_PPB * (Tmat / 1e4) ** _b_PPB / (1.0 + _c_PPB * (Tmat / 1e4) ** _d_PPB)
         CRT15 = (CR * Tmat) ** 1.5
         Rup = Rdown * CRT15 * exp(-CDB / Tmat)
-        sq_0 = sqrt(Tmat / _T_0)
-        sq_1 = sqrt(Tmat / _T_1)
-        Rdown_He = _a_VF / (sq_0 * (1.0 + sq_0) ** (1.0 - _b_VF) * (1.0 + sq_1) ** (1.0 + _b_VF))
+        sq_0 = sqrt(Tmat / T_0)
+        sq_1 = sqrt(Tmat / T_1)
+        Rdown_He = a_VF / (sq_0 * (1.0 + sq_0) ** (1.0 - _b_VF) * (1.0 + sq_1) ** (1.0 + _b_VF))
         Rup_He = 4.0 * Rdown_He * CRT15 * exp(-CDB_He / Tmat)
         lz = log1p(z)
         K = CK / Hz * (1.0 + AG1 * exp(-(((lz - zG1) / wG1) ** 2))
                        + AG2 * exp(-(((lz - zG2) / wG2) ** 2)))
-        Rdown_trip = _a_trip / (sq_0 * (1.0 + sq_0) ** (1.0 - _b_trip)
-                                * (1.0 + sq_1) ** (1.0 + _b_trip))
+        Rdown_trip = a_trip / (sq_0 * (1.0 + sq_0) ** (1.0 - _b_trip)
+                               * (1.0 + sq_1) ** (1.0 + _b_trip))
         Rup_trip = Rdown_trip * exp(-E_trip_ion / Tmat) * CRT15 * 4.0 / 3.0
 
         he_active = 5e-9 <= x_He <= trigHe2
@@ -305,24 +346,19 @@ class RecoTable(NamedTuple):
     dkappadtau: torch.Tensor
 
 
-def compute_recombination(params: CosmoParams, pr: PrecisionParams,
-                          ctx: RecfastCtx) -> RecoTable:
-    """RECFAST history as a host loop over the fixed z grid (descending),
-    with the staged Saha approximations of
+def recfast_history_plain(rp: torch.Tensor, H_of_z: UniformSpline, Nz: int) -> torch.Tensor:
+    """Plain version of `recfast_history`: a host loop over the Nz intervals
+    of the descending z grid, with the staged Saha approximations of
     thermodynamics_recombination_with_recfast (:3461-3647). In the Saha
     regimes A-D the state is pinned, so the RK4 candidate (unused there) is
-    not integrated."""
-    derivs = make_recfast_derivs(ctx, pr)
-    Nz, z_init = pr.recfast_Nz0, pr.recfast_z_initial
-    fHe, Tnow, Nnow, CR = ctx.fHe, ctx.Tnow, ctx.Nnow, ctx.CR
-    zHe1, dzHe1 = pr.recfast_z_He_1, pr.recfast_delta_z_He_1
-    zHe2, dzHe2 = pr.recfast_z_He_2, pr.recfast_delta_z_He_2
-    zHe3, dzHe3 = pr.recfast_z_He_3, pr.recfast_delta_z_He_3
-    trigHe, dtrigHe = pr.recfast_x_He0_trigger, pr.recfast_x_He0_trigger_delta
-    trigH, dtrigH = pr.recfast_x_H0_trigger, pr.recfast_x_H0_trigger_delta
-    YHe = ctx.YHe
-    wb_fac = const.k_B / (const.c_SI**2 * const.m_H)
-    dk_fac = Nnow * const.sigma_T * const.Mpc_over_m
+    not integrated. Returns (6, Nz) in RECO_COLUMNS order, ascending z."""
+    p = dict(zip(RF_PARAMS, rp.tolist()))
+    derivs = make_recfast_derivs(p, H_of_z)
+    z_init, fHe, Tnow, Nnow, CR = p["z_init"], p["fHe"], p["Tnow"], p["Nnow"], p["CR"]
+    zHe1, dzHe1, zHe2, dzHe2 = p["zHe1"], p["dzHe1"], p["zHe2"], p["dzHe2"]
+    zHe3, dzHe3 = p["zHe3"], p["dzHe3"]
+    trigHe, dtrigHe, trigH, dtrigH = p["trigHe"], p["dtrigHe"], p["trigH"], p["dtrigH"]
+    YHe, not4, wb_fac, dk_fac = p["YHe"], p["not4"], p["wb_fac"], p["dk_fac"]
     exp, log, sqrt = math.exp, math.log, math.sqrt
 
     def saha(z, CB1_x, factor=1.0):
@@ -353,7 +389,7 @@ def compute_recombination(params: CosmoParams, pr: PrecisionParams,
             x0 = 1.0 + 2.0 * fHe
             y_new = (1.0, 1.0, Trad)
         elif z > zHe2 + dzHe2:                       # B: HeIII Saha
-            rhs = saha(z, ctx.CB1_He2)
+            rhs = saha(z, p["CB1_He2"])
             x0_He3 = 0.5 * (sqrt((rhs - 1.0 - fHe) ** 2 + 4.0 * (1.0 + 2.0 * fHe) * rhs)
                             - (rhs - 1.0 - fHe))
             if z > zHe1 - dzHe1:
@@ -364,7 +400,7 @@ def compute_recombination(params: CosmoParams, pr: PrecisionParams,
             y_new = (1.0, 1.0, Trad)
         elif z > zHe3 + dzHe3:                       # C: HeIII done
             if z > zHe2 - dzHe2:
-                rhs = saha(z, ctx.CB1_He2)
+                rhs = saha(z, p["CB1_He2"])
                 x0_He3 = 0.5 * (sqrt((rhs - 1.0 - fHe) ** 2 + 4.0 * (1.0 + 2.0 * fHe) * rhs)
                                 - (rhs - 1.0 - fHe))
                 w = _f1(_clip((zHe2 - z) / dzHe2, -1.0, 1.0))
@@ -373,7 +409,7 @@ def compute_recombination(params: CosmoParams, pr: PrecisionParams,
                 x0 = 1.0 + fHe
             y_new = (1.0, 1.0, Trad)
         else:
-            rhs1 = saha(z, ctx.CB1_He1, 4.0)
+            rhs1 = saha(z, p["CB1_He1"], 4.0)
             x0_He1 = 0.5 * (sqrt((rhs1 - 1.0) ** 2 + 4.0 * (1.0 + fHe) * rhs1) - (rhs1 - 1.0))
             if y[1] > trigHe:                         # D: HeI Saha
                 if z > zHe3 - dzHe3:
@@ -383,7 +419,7 @@ def compute_recombination(params: CosmoParams, pr: PrecisionParams,
                     x0 = x0_He1
                 y_new = (1.0, (x0 - 1.0) / fHe, Trad)
             else:
-                rhsH = saha(z, ctx.CB1)
+                rhsH = saha(z, p["CB1"])
                 x_H0_saha = 0.5 * (sqrt(rhsH**2 + 4.0 * rhsH) - rhsH)
                 y_int = rk4_interval(y, za, zb)
                 if y[0] > trigH:                      # E: He integrated, H Saha
@@ -403,12 +439,49 @@ def compute_recombination(params: CosmoParams, pr: PrecisionParams,
                         x0 = y_int[0] + fHe * y_int[1]
         dTdz = derivs(z, *y_new)[2]
         Tb = y_new[2]
-        wb = wb_fac * (1.0 + (1.0 / const.not4 - 1.0) * YHe + x0 * (1.0 - YHe)) * Tb
+        wb = wb_fac * (1.0 + (1.0 / not4 - 1.0) * YHe + x0 * (1.0 - YHe)) * Tb
         cb2 = wb * (1.0 + (1.0 + z) * dTdz / Tb / 3.0)
         rows.append((z, x0, Tb, wb, cb2, (1.0 + z) ** 2 * dk_fac * x0))
         y = y_new
-    t = torch.tensor(rows[::-1], dtype=torch.float64).T.contiguous()
-    return RecoTable(*t)
+    return torch.tensor(rows[::-1], dtype=torch.float64).T.contiguous()
+
+
+def recfast_history(rp: torch.Tensor, H_of_z: UniformSpline, Nz: int) -> torch.Tensor:
+    """The RECFAST history, (6, Nz) in RECO_COLUMNS order, ascending z: the
+    kernel recfast_history (csrc/recfast.cu) for CUDA tensors, the plain
+    loop for CPU tensors. rp: the RF_PARAMS vector; H_of_z: the (H, H')
+    spline over ln a, on rp's device."""
+    global recfast_launches
+    dev = rp.device
+    if dev.type == "cpu":
+        return recfast_history_plain(rp, H_of_z, Nz)
+    if dev.type != "cuda":
+        raise ValueError(f"recfast_history: unsupported device {dev}")
+    Hy, Hy2 = H_of_z.y, H_of_z.y2
+    if rp.shape != (len(RF_PARAMS),) or Hy.shape != (H_of_z.n, 2) or Hy2.shape != Hy.shape:
+        raise ValueError(f"recfast_history: bad shapes rp{tuple(rp.shape)} H{tuple(Hy.shape)}")
+    for t in (rp, Hy, Hy2):
+        if t.dtype != torch.float64 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"recfast_history: every input must be contiguous float64 on {dev}")
+    lib = cuda.library()
+    out = torch.empty((6, Nz), dtype=torch.float64, device=dev)
+    params = (ctypes.c_double * len(RF_PARAMS))(*rp.tolist())   # a kernel parameter
+    err = lib.recfast_history_launch(params, Hy.data_ptr(), Hy2.data_ptr(),
+                                     float(H_of_z.x0), float(H_of_z.dx), int(H_of_z.n), int(Nz),
+                                     out.data_ptr(), cuda.stream_ptr(dev))
+    cuda.check(err, "recfast_history")
+    recfast_launches += 1
+    return out
+
+
+def compute_recombination(pr: PrecisionParams, ctx: RecfastCtx, device="cpu") -> RecoTable:
+    """The RECFAST table on the host, computed on `device` (the kernel on a
+    CUDA device, the plain loop on the CPU)."""
+    dev = torch.device(device)
+    spl = ctx.H_of_z.to(dev)
+    spl = spl._replace(y=spl.y.contiguous(), y2=spl.y2.contiguous())
+    out = recfast_history(recfast_params(ctx, pr).to(dev), spl, pr.recfast_Nz0)
+    return RecoTable(*out.cpu())
 
 
 class ThIdx:
@@ -462,19 +535,22 @@ def _xe_reio_camb(z, z_reio, z_start, xe_before, xe_after, fHe, params: CosmoPar
     return torch.where(z > z_start, xe_before, xe)
 
 
-def _tb_march(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine, Tb_start, idx_start,
-              kappa_fac, YHe, T_cmb):
-    """Backward-Euler Tb march through reionization on the fine z grid
-    (thermodynamics_reionization_sample :2880-2960), a host scalar loop."""
+def tb_march_plain(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine, consts,
+                   Tb_start: float, idx_start: int):
+    """Plain version of `tb_march`: the backward-Euler Tb march through
+    reionization on the fine z grid (thermodynamics_reionization_sample
+    :2880-2960) as a host scalar loop. consts: (kappa_fac, YHe, T_cmb, m_H,
+    m_e, not4). Returns (Tb, dTb/dz) at every node."""
+    kappa_fac, YHe, T_cmb, m_H, m_e, not4 = (float(v) for v in consts)
     z, xe, H = z_fine.tolist(), xe_fine.tolist(), H_fine.tolist()
     rg, rb = rho_g_fine.tolist(), rho_b_fine.tolist()
     n = len(z)
 
     def dTdz(i, Tb):
         opacity = (1.0 + z[i]) ** 2 * kappa_fac * xe[i]
-        mu = const.m_H / (1.0 + (1.0 / const.not4 - 1.0) * YHe + xe[i] * (1.0 - YHe))
+        mu = m_H / (1.0 + (1.0 / not4 - 1.0) * YHe + xe[i] * (1.0 - YHe))
         return (2.0 / (1.0 + z[i]) * Tb
-                - 2.0 * mu / const.m_e * 4.0 * rg[i] / 3.0 / rb[i] * opacity
+                - 2.0 * mu / m_e * 4.0 * rg[i] / 3.0 / rb[i] * opacity
                 * (T_cmb * (1.0 + z[i]) - Tb) / H[i])
 
     dzf = z[1] - z[0]
@@ -489,24 +565,56 @@ def _tb_march(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine, Tb_start, idx_sta
     return torch.tensor(out, dtype=torch.float64), torch.tensor(d, dtype=torch.float64)
 
 
+def tb_march(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine, consts,
+             Tb_start: float, idx_start: int):
+    """(Tb, dTb/dz) on the fine z grid: the kernel tb_march (csrc/recfast.cu)
+    for CUDA tensors, the plain loop for CPU tensors. The five grid columns
+    are (n,) float64 on one device; consts as in `tb_march_plain`."""
+    global tb_march_launches
+    dev = z_fine.device
+    if dev.type == "cpu":
+        return tb_march_plain(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine, consts,
+                              Tb_start, idx_start)
+    if dev.type != "cuda":
+        raise ValueError(f"tb_march: unsupported device {dev}")
+    cols = (z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine)
+    n = z_fine.shape[0]
+    for t in cols:
+        if t.shape != (n,) or t.dtype != torch.float64 or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(f"tb_march: every column must be ({n},) contiguous float64 on {dev}")
+    if len(consts) != 6:
+        raise ValueError("tb_march: consts are (kappa_fac, YHe, T_cmb, m_H, m_e, not4)")
+    lib = cuda.library()
+    Tb = torch.empty(n, dtype=torch.float64, device=dev)
+    d = torch.empty(n, dtype=torch.float64, device=dev)
+    cbuf = (ctypes.c_double * 6)(*(float(v) for v in consts))
+    err = lib.tb_march_launch(*(t.data_ptr() for t in cols), cbuf, n, float(Tb_start),
+                              int(idx_start), Tb.data_ptr(), d.data_ptr(), cuda.stream_ptr(dev))
+    cuda.check(err, "tb_march")
+    tb_march_launches += 1
+    return Tb, d
+
+
 def compute_thermodynamics(params: CosmoParams, pr: PrecisionParams,
                            bg: BackgroundResult, bidx: BgIdx, device="cuda") -> ThermoResult:
     """RECFAST -> reio_camb (tau_reio shooting) -> Tb/cb2 through
     reionization -> merge -> runtime uniform-ln(tau) table
-    (thermodynamics_init, thermodynamics_module.cpp:293-1297). Computed on
-    the host; the runtime table is returned on `device`."""
+    (thermodynamics_init, thermodynamics_module.cpp:293-1297). The RECFAST
+    history and the Tb march run on `device` (kernels on a CUDA device), the
+    rest on the host; the runtime table is returned on `device`."""
     from ..pipeline import resolve_device
 
     device = resolve_device(device)
     check_lcdm(params)
-    th = _compute_thermodynamics_impl(params, pr, bg.to(HOST), bidx)
+    th = _compute_thermodynamics_impl(params, pr, bg.to(HOST), bidx, device)
     return th._replace(lntau_spline=th.lntau_spline.to(device))
 
 
-def _compute_thermodynamics_impl(params, pr, bg, bidx) -> ThermoResult:
+def _compute_thermodynamics_impl(params, pr, bg, bidx, device) -> ThermoResult:
     f64 = torch.float64
     ctx = make_recfast_ctx(params, pr, bg, bidx)
-    reco = compute_recombination(params, pr, ctx)
+    reco = compute_recombination(pr, ctx, device)
     fHe = ctx.fHe
     xe_after = 1.0 + fHe
 
@@ -556,8 +664,11 @@ def _compute_thermodynamics_impl(params, pr, bg, bidx) -> ThermoResult:
     rho_g_fine = bg.Omega0_g * bg.H0**2 * (1.0 + z_fine) ** 4
     rho_b_fine = bg.Omega0_b * bg.H0**2 * (1.0 + z_fine) ** 3
     idx_start = int(torch.searchsorted(z_fine, z_start_t))
-    Tb_fine, dTdz_fine = _tb_march(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine,
-                                   Tb_start, idx_start, kappa_fac, ctx.YHe, params.T_cmb)
+    consts = (kappa_fac, ctx.YHe, params.T_cmb, const.m_H, const.m_e, const.not4)
+    Tb_fine, dTdz_fine = (v.cpu() for v in tb_march(
+        *(v.to(device).contiguous() for v in (z_fine, xe_fine, H_fine, rho_g_fine,
+                                               rho_b_fine)),
+        consts, Tb_start, idx_start))
     Tb_fine = torch.where(z_fine >= z_start, interp(z_fine, reco.z, reco.Tb), Tb_fine)
     mu_fine = const.m_H / (1.0 + (1.0 / const.not4 - 1.0) * ctx.YHe + xe_fine * (1.0 - ctx.YHe))
     wb_fine = const.k_B / (const.c_SI**2) / mu_fine * Tb_fine

@@ -2,18 +2,23 @@
 
 Counterpart of classpp_public_tpu/models/transfer.py (`get_l_list` :37,
 `get_q_list` :55, `_weighted_sources` :120-168, `compute_transfer` :191,
-`_transfer_scan` :360-463, `_limber_parabola` :466).
+`_transfer_scan` :360-463, `_limber_parabola` :466, and the tensor modes'
+`compute_transfer_tensor` :703-754, `_tensor_scan` :854-911).
 
 The LOS scan runs spherical Bessel functions j_l(x) up the three-term
 recurrence on the whole (q, tau) grid and, at every emitted l, contracts the
 radial functions against the trapezoid-weighted sources. On a CUDA tensor it
 is the hand-written kernel csrc/transfer_los.cu (`transfer_los`); on a CPU
 tensor its plain version `transfer_los_plain` below. The q-neglect masks and
-the Limber rows act on the (n_l, nq) result afterwards.
+the Limber rows act on the (n_l, nq) result afterwards. The tensor scan has
+the same shape: the kernel csrc/transfer_tensor_los.cu (`transfer_tensor_los`)
+or its plain version `transfer_tensor_los_plain`, with the T2/E/B radial
+functions and the q-neglect masks inside the scan.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -28,8 +33,10 @@ from .perturbations.indices import SrcIdx
 
 TT_TYPES = ["t0", "t1", "t2", "e", "lcmb"]
 
-# launches of the CUDA kernel (incremented only where it is launched)
+# launches of the CUDA kernels transfer_los and transfer_tensor_los
+# (incremented only where they are launched)
 launches = 0
+tensor_launches = 0
 
 
 def get_l_list(pr: PrecisionParams, l_max: int, rescaling: float = 1.0) -> np.ndarray:
@@ -261,4 +268,139 @@ def compute_transfer(pert, th, pr: PrecisionParams, l_max: int) -> TransferResul
     acc = transfer_scan(W, Sq, taus, tau0, q, ls, pr.transfer_neglect_late_source * ang,
                         taus <= th.tau_cut, (tau0 - float(th.tau_rec)) * ang, neglect_dk,
                         pr.l_switch_limber)
+    return TransferResult(l=torch.as_tensor(ls, device=dev), q=q, delta=acc, tau0=tau0, k=q)
+
+
+# ---------------------------------------------------------------------------
+# Tensor transfer functions (transfer.py:680-911, flat)
+
+TT_TYPES_TENSOR = ["t2", "e", "b"]
+
+
+def _tensor_emit_tables(l_emit: np.ndarray):
+    """Per emitted l, on the host: the row index table emit_idx[l] (-1 where
+    l is not emitted), the T2 factor sqrt(3/8 (l+2)(l+1) l (l-1)) and the
+    log double factorials of the small-x series, ln((2l+1)!!) and
+    ln((2l+3)!!), from lgamma (:879-880)."""
+    lmax = int(l_emit[-1])
+    emit_idx = np.full(lmax + 1, -1, dtype=np.int32)
+    emit_idx[l_emit] = np.arange(len(l_emit), dtype=np.int32)
+    lf = l_emit.astype(np.float64)
+    t2_fac = np.sqrt(3.0 / 8.0 * (lf + 2.0) * (lf + 1.0) * lf * (lf - 1.0))
+    ln2 = math.log(2.0)
+    lndf = np.array([math.lgamma(2.0 * v + 2.0) - v * ln2 - math.lgamma(v + 1.0) for v in lf])
+    lndf1 = np.array([math.lgamma(2.0 * v + 4.0) - (v + 1.0) * ln2 - math.lgamma(v + 2.0)
+                      for v in lf])
+    return emit_idx, t2_fac, lndf, lndf1
+
+
+def transfer_tensor_los_plain(W: torch.Tensor, taus: torch.Tensor, tau0: float,
+                              q: torch.Tensor, l_emit: np.ndarray, ra_rec: float,
+                              neglect_dk: tuple) -> torch.Tensor:
+    """Plain version of the tensor LOS scan (_tensor_scan :854-911): a Python
+    loop over l = 2..l_max on (nq, ntau) tensors, the T2/E/B radial functions
+    at the emitted l and the q-neglect masks. W: (2, nq, ntau) weighted
+    S_T2, S_P. Returns (n_l, 3, nq)."""
+    f64 = W.dtype
+    emit_idx, t2_fac, lndf_l, lndf1_l = _tensor_emit_tables(np.asarray(l_emit))
+    chi = tau0 - taus
+    x = torch.clamp(q[:, None] * chi[None, :], min=1e-12)
+    inv_x = 1.0 / x
+    x2 = x * x
+    small = x < 0.3
+    j0 = torch.where(small, 1.0 - x2 / 6.0 * (1.0 - x2 / 20.0 * (1.0 - x2 / 42.0)),
+                     torch.sin(x) * inv_x)
+    j1 = torch.where(small, x / 3.0 * (1.0 - x2 / 10.0 * (1.0 - x2 / 28.0)),
+                     (torch.sin(x) * inv_x - torch.cos(x)) * inv_x)
+    thr = x + 6.0 * torch.pow(x, 1.0 / 3.0) + 2.0
+    lnx = torch.log(x)
+    series = x < 1.0
+    acc = torch.zeros((len(l_emit), 3, q.shape[0]), dtype=f64, device=W.device)
+    jm1, jm2 = j1, j0
+    for li in range(2, int(l_emit[-1]) + 1):
+        l = float(li)
+        jl = (2.0 * l - 1.0) * inv_x * jm1 - jm2
+        jl = torch.where(l <= thr, jl, 0.0)
+        ei = int(emit_idx[li])
+        if ei >= 0:
+            c1 = 2.0 * l + 3.0
+            corr = 1.0 - x2 / (2.0 * c1) * (1.0 - x2 / (4.0 * (c1 + 2.0))
+                                            * (1.0 - x2 / (6.0 * (c1 + 4.0))))
+            c1b = 2.0 * l + 5.0
+            corr1 = 1.0 - x2 / (2.0 * c1b) * (1.0 - x2 / (4.0 * (c1b + 2.0))
+                                              * (1.0 - x2 / (6.0 * (c1b + 4.0))))
+            js = torch.exp(l * lnx - float(lndf_l[ei])) * corr
+            js1 = torch.exp((l + 1.0) * lnx - float(lndf1_l[ei])) * corr1
+            jl_e = torch.where(series, js, jl)
+            jp_e = torch.where(series, l * inv_x * js - js1, jm1 - (l + 1.0) * inv_x * jl)
+            jpp = -2.0 * inv_x * jp_e - (1.0 - l * (l + 1.0) * inv_x * inv_x) * jl_e
+            rad_t2 = float(t2_fac[ei]) * jl_e * inv_x * inv_x
+            rad_e = 0.25 * (jpp + 4.0 * inv_x * jp_e - (1.0 - 2.0 * inv_x * inv_x) * jl_e)
+            rad_b = 0.5 * (jp_e + 2.0 * inv_x * jl_e)
+            rows = ((W[0] * rad_t2).sum(-1), (W[1] * rad_e).sum(-1), (W[1] * rad_b).sum(-1))
+            for c, (row, dk) in enumerate(zip(rows, neglect_dk)):
+                acc[ei, c] = torch.where(l >= (q - dk) * ra_rec, row, 0.0)
+        jm2, jm1 = jm1, jl
+    return acc
+
+
+def transfer_tensor_los(W: torch.Tensor, taus: torch.Tensor, tau0: float, q: torch.Tensor,
+                        l_emit: np.ndarray, ra_rec: float, neglect_dk: tuple) -> torch.Tensor:
+    """The tensor LOS Bessel scan: the CUDA kernel transfer_tensor_los for
+    CUDA tensors, the plain version for CPU tensors. W: (2, nq, ntau) float64
+    contiguous; taus (ntau,); q (nq,); l_emit: increasing emitted multipoles
+    (numpy); neglect_dk: the (t2, e, b) q-neglect offsets. Returns
+    (n_l, 3, nq)."""
+    global tensor_launches
+    if W.device.type == "cpu":
+        return transfer_tensor_los_plain(W, taus, tau0, q, l_emit, ra_rec, neglect_dk)
+    if W.device.type != "cuda":
+        raise ValueError(f"transfer_tensor_los: unsupported device {W.device}")
+    ntt, nq, ntau = W.shape
+    if ntt != 2 or taus.shape != (ntau,) or q.shape != (nq,) or len(neglect_dk) != 3:
+        raise ValueError(f"transfer_tensor_los: bad shapes W{tuple(W.shape)} "
+                         f"taus{tuple(taus.shape)} q{tuple(q.shape)}")
+    for name, t in (("W", W), ("taus", taus), ("q", q)):
+        if t.dtype != torch.float64 or not t.is_contiguous() or t.device != W.device:
+            raise ValueError(f"transfer_tensor_los: {name} must be contiguous float64 on "
+                             f"{W.device}")
+    if ntau > 1024:
+        raise ValueError(f"transfer_tensor_los: ntau = {ntau} > 1024 per q block")
+    lib = cuda.library()
+    emit_idx, t2_fac, lndf, lndf1 = _tensor_emit_tables(np.asarray(l_emit))
+    emit = torch.as_tensor(emit_idx, device=W.device)
+    per_l = torch.as_tensor(np.stack([t2_fac, lndf, lndf1]), dtype=torch.float64,
+                            device=W.device)
+    dk = (ctypes.c_double * 3)(*(float(v) for v in neglect_dk))
+    out = torch.empty((len(l_emit), 3, nq), dtype=torch.float64, device=W.device)
+    err = lib.transfer_tensor_los_launch(
+        W.data_ptr(), taus.data_ptr(), float(tau0), q.data_ptr(), emit.data_ptr(),
+        per_l.data_ptr(), float(ra_rec), dk, nq, ntau, int(l_emit[-1]), len(l_emit),
+        out.data_ptr(), cuda.stream_ptr(W.device))
+    cuda.check(err, "transfer_tensor_los")
+    tensor_launches += 1
+    return out
+
+
+def compute_transfer_tensor(tpert, th, pr: PrecisionParams, l_max: int) -> TransferResult:
+    """Tensor Delta_l^{T2,E,B}(q), flat geometry (compute_transfer_tensor
+    :703-754): the sources splined k -> q with the trapezoid tau weights,
+    then the tensor LOS scan (`transfer_tensor_los`)."""
+    tau0 = float(tpert.tau0)
+    dev = tpert.sources.device
+    ls = get_l_list(pr, l_max)
+    k = tpert.k_np
+    q_np = get_q_list(pr, float(k[0]), float(k[-1]), tau0, float(th.tau_rec))
+    q = torch.as_tensor(q_np, dtype=torch.float64, device=dev)
+    taus = tpert.tau
+    S = tpert.sources                                      # (nk, ntau, 2)
+    lnk = torch.log(tpert.k)
+    y = S.reshape(S.shape[0], -1)
+    yq = spline_eval(lnk, y, spline_d2(lnk, y), torch.log(q))
+    Sq = yq.reshape(len(q_np), S.shape[1], 2).permute(2, 0, 1)
+    W = (Sq * trapz_weights(taus)[None, None, :]).contiguous()
+    neglect_dk = (pr.transfer_neglect_delta_k_T_t2, pr.transfer_neglect_delta_k_T_e,
+                  pr.transfer_neglect_delta_k_T_b)
+    ra_rec = (tau0 - float(th.tau_rec)) * float(th.angular_rescaling)
+    acc = transfer_tensor_los(W, taus, tau0, q, ls, ra_rec, neglect_dk)
     return TransferResult(l=torch.as_tensor(ls, device=dev), q=q, delta=acc, tau0=tau0, k=q)

@@ -5,6 +5,8 @@
   own t and h. The explicit table advances the non-stiff physics; the
   L-stable ESDIRK table absorbs the stiff part through a closed-form solve.
   The stages are a Python loop over the six tableau rows.
+- `rkck_step`: one embedded Cash-Karp RK4(5) step, batched over lanes (the
+  plain tensor-mode integrator).
 - `rk4_fixed`: classic RK4 over a fixed grid, for host-side scans on numpy
   values (the background growth factor).
 """
@@ -105,6 +107,36 @@ def ark43_step(rhs, stiff_apply, stiff_solve, t, y, h, args, prepare=None):
     """ARK4(3)6L[2]SA additive step (6 stages, order 4(3))."""
     return ark_step(ARK4_TABLEAU, rhs, stiff_apply, stiff_solve, t, y, h, args,
                     prepare=prepare)
+
+
+# --- Cash-Karp tableau (classpp_public_tpu/ops/ode.py:27-38) ---------------
+CK_C = (0.0, 1.0 / 5.0, 3.0 / 10.0, 3.0 / 5.0, 1.0, 7.0 / 8.0)
+CK_A = (
+    (),
+    (1.0 / 5.0,),
+    (3.0 / 40.0, 9.0 / 40.0),
+    (3.0 / 10.0, -9.0 / 10.0, 6.0 / 5.0),
+    (-11.0 / 54.0, 5.0 / 2.0, -70.0 / 27.0, 35.0 / 27.0),
+    (1631.0 / 55296.0, 175.0 / 512.0, 575.0 / 13824.0, 44275.0 / 110592.0, 253.0 / 4096.0),
+)
+CK_B5 = (37.0 / 378.0, 0.0, 250.0 / 621.0, 125.0 / 594.0, 0.0, 512.0 / 1771.0)
+CK_B4 = (2825.0 / 27648.0, 0.0, 18575.0 / 48384.0, 13525.0 / 55296.0, 277.0 / 14336.0,
+         1.0 / 4.0)
+
+
+def rkck_step(rhs: Callable, t: torch.Tensor, y: torch.Tensor, h: torch.Tensor):
+    """One embedded Cash-Karp step of y' = rhs(t, y) for every lane
+    (classpp_public_tpu/ops/ode.py:44 `rkck_step`). y: (L, n); t, h: (L,).
+    Each stage sum runs over the earlier stages in order, skipping zero
+    coefficients. Returns (y5, y5 - y4, rhs(t, y))."""
+    hc = h[:, None]
+    K = []
+    for i in range(6):
+        Y = y if i == 0 else y + hc * _combine(CK_A[i], K)
+        K.append(rhs(t + CK_C[i] * h, Y))
+    y5 = y + hc * _combine(CK_B5, K)
+    y4 = y + hc * _combine(CK_B4, K)
+    return y5, y5 - y4, K[0]
 
 
 def rk4_fixed(rhs: Callable, y0: np.ndarray, ts: np.ndarray, args, substeps: int = 1):

@@ -1,14 +1,16 @@
 """Pipeline orchestrator: the staged, lazily cached computation chain.
 
 Counterpart of classpp_public_tpu/pipeline.py (`OutputSelection`, the
-`Cosmology` stages :141-467). Each stage is computed once per parameter set;
-downstream stages pull upstream ones on demand. Stage order: background,
-thermodynamics, perturbations, primordial, nonlinear, transfer, spectra,
-lensing.
+`Cosmology` stages :141-467, the tensor stages :295-313). Each stage is
+computed once per parameter set; downstream stages pull upstream ones on
+demand. Stage order: background, thermodynamics, perturbations, primordial,
+nonlinear, transfer, tensor_perturbations, tensor_transfer (with tensor
+modes), spectra, lensing.
 
-Every stage takes an explicit torch.device. Background and thermodynamics
-are computed on the host by design (see their module docstrings) and hand
-their tables over on that device; the later stages run there.
+Every stage takes an explicit torch.device. The background is computed on
+the host and thermodynamics mostly so (its two serial recurrences are kernels
+on a CUDA device; see the module docstrings); both hand their tables over on
+that device, and the later stages run there.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from .config.params import CosmoParams, check_lcdm
 from .config.precision import PrecisionParams
 
 LEVELS = ["background", "thermodynamics", "perturbations", "primordial",
-          "nonlinear", "transfer", "spectra", "lensing"]
+          "nonlinear", "transfer", "tensor_perturbations", "tensor_transfer",
+          "spectra", "lensing"]
 # first selection bin and l_max of the large-scale-structure spectra (the
 # reference defaults selection_mean = 1.0, l_max_lss = 300): with lCl they set
 # the lensing potential's k reach (perturbations_module.cpp:1726-1733)
@@ -45,6 +48,8 @@ class OutputSelection:
     z_pk: tuple = (0.0,)
     z_max_pk: float = 0.0
     non_linear: str = ""   # "" or "halofit"
+    modes: tuple = ("s",)  # "s" scalars, "t" tensors
+    l_tensor_max: int = 500
 
     @property
     def has_cls(self) -> bool:
@@ -73,14 +78,19 @@ class Cosmology:
         self.params = params
         self.pr = precision or PrecisionParams()
         self.out = output or OutputSelection()
+        if "t" in self.out.modes:
+            from .models.perturbations.tensors import check_tensor_method
+
+            check_tensor_method(params)
         self.device = resolve_device(device)
         self._cache = {}
 
     def set_stage(self, name: str, result):
         """Seed a stage with a result computed elsewhere, e.g. the JAX
         package's, moved across with classpp_public_torch.interop. name:
-        "background" ((BackgroundResult, BgIdx)) or "thermodynamics"."""
-        keys = {"background": "bg", "thermodynamics": "th"}
+        "background" ((BackgroundResult, BgIdx)), "thermodynamics" or
+        "tensor_perturbations"."""
+        keys = {"background": "bg", "thermodynamics": "th", "tensor_perturbations": "tpt"}
         if name not in keys:
             raise ValueError(f"set_stage: {name!r} is not one of {sorted(keys)}")
         self._cache[keys[name]] = result
@@ -209,12 +219,34 @@ class Cosmology:
         return self._cache["tr"]
 
     @property
+    def tensor_perturbations(self):
+        if "tpt" not in self._cache:
+            from .models.perturbations.tensors import compute_tensor_perturbations
+
+            bg, bidx = self.background
+            self._cache["tpt"] = compute_tensor_perturbations(
+                self.params, self.pr, bg, bidx, self.thermodynamics,
+                l_tensor_max=self.out.l_tensor_max, device=self.device)
+        return self._cache["tpt"]
+
+    @property
+    def tensor_transfer(self):
+        if "ttr" not in self._cache:
+            from .models.transfer import compute_transfer_tensor
+
+            self._cache["ttr"] = compute_transfer_tensor(
+                self.tensor_perturbations, self.thermodynamics, self.pr,
+                l_max=self.out.l_tensor_max)
+        return self._cache["ttr"]
+
+    @property
     def spectra(self):
         if "sp" not in self._cache:
             from .models.spectra import compute_spectra
 
+            tr_tensor = self.tensor_transfer if "t" in self.out.modes else None
             self._cache["sp"] = compute_spectra(self.transfer, self.primordial,
-                                                l_max=self.l_max_internal)
+                                                l_max=self.l_max_internal, tr_tensor=tr_tensor)
         return self._cache["sp"]
 
     @property
@@ -234,6 +266,9 @@ class Cosmology:
             if lv == "nonlinear" and not self.out.has_pk:
                 continue
             if lv in ("transfer", "spectra") and not self.out.has_cls:
+                continue
+            if lv in ("tensor_perturbations", "tensor_transfer") \
+                    and not (self.out.has_cls and "t" in self.out.modes):
                 continue
             if lv == "lensing" and not (self.out.lensing and self.out.has_cls):
                 continue

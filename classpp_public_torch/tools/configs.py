@@ -1,9 +1,12 @@
-"""The two parameter sets the port is driven with at full size.
+"""The three parameter sets the port is driven with at full size.
 
 `planck_row2`: flat LambdaCDM with massless neutrinos, lensed TT/TE/EE/phiphi
 to l = 2500 and P(k) to k = 10/Mpc. `row2_exact`: the
 base_2018_plikHM_TTTEEE_lowl_lowE_lensing parameter set, with one 0.06 eV
-massive-neutrino species and halofit (P(k) to 20/Mpc).
+massive-neutrino species and halofit (P(k) to 20/Mpc). `g3_tensor`: the
+tensor-mode golden configuration tests/golden/gen/g3_tensor.ini, uncut:
+flat LambdaCDM with primordial gravitational waves (r = 0.1, n_t from the
+slow-roll consistency relation), scalar and tensor C_l, lensed TT/EE/BB.
 """
 
 PLANCK_ROW2 = {
@@ -20,4 +23,11 @@ ROW2_EXACT = {
     "non linear": "halofit",
     "output": "tCl,pCl,lCl,mPk", "lensing": "yes",
 }
-CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT}
+G3_TENSOR = {
+    "h": 0.67810, "T_cmb": 2.7255, "omega_b": 0.02238280, "omega_cdm": 0.1201075,
+    "N_ur": 3.046, "Omega_k": 0.0, "A_s": 2.100549e-09, "n_s": 0.9660499, "r": 0.1,
+    "n_t": "scc", "tau_reio": 0.05430842, "YHe": "BBN", "recombination": "RECFAST",
+    "output": "tCl,pCl,lCl", "lensing": "yes", "modes": "s,t", "gauge": "synchronous",
+    "l_max_scalars": 2500, "l_max_tensors": 500,
+}
+CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR}

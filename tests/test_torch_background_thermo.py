@@ -11,7 +11,21 @@ x_e. Derived scalars to 1e-8 relative. The ncdm momentum data (nodes,
 weights, dln f0/dln q, the Fermi-Dirac integrals) and the ncdm columns of the
 table with one 0.06 eV species: 1e-12 relative (the same closed forms and
 numpy quadrature rules on both sides).
+
+The RECFAST history and the Tb march, the two loops that run as the kernels
+of csrc/recfast.cu on a card, are held column by column: the plain loops
+against the JAX `compute_recombination` and `_tb_march_impl` (1e-10
+relative; in the HeI recombination rows, 1 < x_e < 1 + fHe, where H is in
+Saha equilibrium and the stiff He equation is integrated, the explicit RK4
+takes XLA's and libm's last bits to 4.9e-8 of x_e, so those rows are held to
+1e-7), and the host build of the kernels' code (csrc/recfast.cuh) against
+the plain loops (1e-12 relative; measured 6e-15).
 """
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +39,7 @@ from classpp_public_tpu import CosmoParams as JParams
 from classpp_public_tpu import PrecisionParams as JPrec
 from classpp_public_tpu.models import background as jbg
 from classpp_public_tpu.models import thermodynamics as jth
+from classpp_public_torch.ops import cuda
 from test_torch_common import one_torch_thread  # noqa: F401
 
 SMALL = dict(background_Nloga=1024, recfast_Nz0=4000)
@@ -136,3 +151,114 @@ def test_unported_physics_raises():
                                device="cpu")
     with pytest.raises(NotImplementedError, match="HyRec"):
         tbg.compute_background(TParams(recombination="hyrec"), TPrec(**SMALL), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def recfast_host(tmp_path_factory):
+    """csrc/recfast_host.cpp built with g++ (None without g++)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    so = tmp_path_factory.mktemp("recfast") / "librecfast_host.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(so),
+                    str(Path(cuda.CSRC_DIR) / "recfast_host.cpp")], check=True)
+    lib = ctypes.CDLL(str(so))
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.recfast_history_host.argtypes = [P, P, P, D, D, I, I, P]
+    lib.tb_march_host.argtypes = [P, P, P, P, P, P, I, D, I, P, P]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def recfast_tables(stages):
+    """The RECFAST history of the JAX package and the port's plain loop, with
+    the port's inputs (RF_PARAMS vector and H spline)."""
+    (bgj, bij, _), (bgt, bit, _) = stages
+    ctxj = jth.make_recfast_ctx(JParams(), JPrec(**SMALL), bgj, bij)
+    ref = jth.compute_recombination(JParams(), JPrec(**SMALL), ctxj)
+    ctxt = tth.make_recfast_ctx(TParams(), TPrec(**SMALL), bgt, bit)
+    rp = tth.recfast_params(ctxt, TPrec(**SMALL))
+    got = tth.recfast_history(rp, ctxt.H_of_z, SMALL["recfast_Nz0"])
+    ref = np.stack([np.asarray(getattr(ref, n)) for n in tth.RECO_COLUMNS])
+    return ref, got.numpy(), rp, ctxt
+
+
+def test_recfast_history_plain_matches_jax(recfast_tables):
+    ref, got, _, ctx = recfast_tables
+    assert got.shape == ref.shape == (6, SMALL["recfast_Nz0"])
+    xe = ref[1]
+    he_rows = (xe > 1.0) & (xe < 1.0 + ctx.fHe)
+    assert 0 < he_rows.sum() < 0.5 * len(xe)
+    for i, name in enumerate(tth.RECO_COLUMNS):
+        rel = np.abs(got[i] - ref[i]) / np.abs(ref[i]).clip(1e-300)
+        assert rel[~he_rows].max() <= 1e-10, name
+        assert rel[he_rows].max() <= 1e-7, name
+
+
+def test_recfast_kernel_code_on_host(recfast_tables, recfast_host):
+    """csrc/recfast.cuh built for the host against the plain loop."""
+    if recfast_host is None:
+        pytest.skip("no g++ to build the host version of the RECFAST kernel's code")
+    _, got, rp, ctx = recfast_tables
+    assert recfast_host.recfast_n_params() == len(tth.RF_PARAMS)
+    H = ctx.H_of_z
+    Hy, Hy2 = H.y.contiguous(), H.y2.contiguous()
+    Nz = SMALL["recfast_Nz0"]
+    out = torch.empty((6, Nz), dtype=torch.float64)
+    assert recfast_host.recfast_history_host(rp.data_ptr(), Hy.data_ptr(), Hy2.data_ptr(),
+                                             H.x0, H.dx, H.n, Nz, out.data_ptr()) == 0
+    for i, name in enumerate(tth.RECO_COLUMNS):
+        rel = np.abs(out[i].numpy() - got[i]) / np.abs(got[i]).clip(1e-300)
+        assert rel.max() <= 1e-12, name
+
+
+def test_tb_march_matches_jax(stages, recfast_host):
+    """The backward-Euler Tb march on seeded reionization inputs: the plain
+    loop against the JAX `_tb_march_impl` and the host build of the kernel's
+    code (1e-12 relative, dTb/dz 1e-12 of its scale)."""
+    import jax.numpy as jnp
+
+    (_, _, _), (bgt, bit, _) = stages
+    rng = np.random.default_rng(4)
+    n = 4096
+    z = np.linspace(0.0, 50.0, n)
+    xe = 1.08 / (1.0 + np.exp((z - 8.0) / 0.7)) + 2e-4 + 1e-5 * rng.uniform(size=n)
+    H = 2.2e-4 * np.sqrt(0.31 * (1.0 + z) ** 3 + 0.69)
+    rho_g = 1.2e-12 * (1.0 + z) ** 4
+    rho_b = 1.1e-9 * (1.0 + z) ** 3
+    consts = (2.3e-7, 0.2454, 2.7255, tth.const.m_H, tth.const.m_e, tth.const.not4)
+    Tb_start, idx_start = 2.7255 * 51.0 * 0.4, 3500
+    ref = jth._tb_march_impl(*(jnp.asarray(a) for a in (z, xe, H, rho_g, rho_b)), Tb_start,
+                             idx_start, *consts[:3])
+    cols = [torch.as_tensor(a) for a in (z, xe, H, rho_g, rho_b)]
+    got = tth.tb_march(*cols, consts, Tb_start, idx_start)
+    assert tth.const.m_H == jth.const.m_H and tth.const.not4 == jth.const.not4
+    for a, b in zip(got, ref):   # dTb/dz is a difference of two terms: held to its scale
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12,
+                                   atol=1e-12 * np.abs(np.asarray(b)).max())
+    if recfast_host is not None:
+        Tb, d = torch.empty(n, dtype=torch.float64), torch.empty(n, dtype=torch.float64)
+        cbuf = (ctypes.c_double * 6)(*consts)
+        assert recfast_host.tb_march_host(*(c.data_ptr() for c in cols), cbuf, n, Tb_start,
+                                          idx_start, Tb.data_ptr(), d.data_ptr()) == 0
+        for a, b in zip((Tb, d), got):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                       atol=1e-12 * b.abs().max().item())
+
+
+def test_recfast_wrappers_take_the_plain_version_only_on_the_cpu(recfast_tables):
+    _, _, rp, ctx = recfast_tables
+    before = tth.recfast_launches, tth.tb_march_launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        tth.recfast_history(rp.to("meta"), ctx.H_of_z, 10)
+    z = torch.zeros(8, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tth.tb_march(z, z, z, z, z, (1.0,) * 6, 1.0, 4)
+    assert (tth.recfast_launches, tth.tb_march_launches) == before
+
+
+def test_bbn_table_is_the_ports_own_copy():
+    assert tth.DATA_DIR == Path(tth.__file__).resolve().parents[1] / "data"
+    assert (tth.DATA_DIR / TPrec().sBBN_file).is_file()
+    assert tth.helium_from_bbn(0.0224, 3.046) == pytest.approx(
+        jth.helium_from_bbn_np(0.0224, 3.046), rel=1e-14)

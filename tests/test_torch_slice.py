@@ -1,6 +1,8 @@
 """The port's whole slice (perturbations -> transfer -> spectra -> lensing ->
 P(k)) against the JAX `Cosmology` as __graft_entry__.dryrun_multichip builds
-it: small precision, l_scalar_max = 100, lensing on, plus mPk (CPU).
+it: small precision, l_scalar_max = 100, lensing on, plus mPk, with tensor
+modes (r = 0.1, n_t and alpha_t from the slow-roll consistency relations,
+l_max_tensors = 60) beside the scalars (CPU).
 
 Both pipelines start from the same background and thermodynamics (the JAX
 stages moved across with classpp_public_torch.interop): the source sampling
@@ -10,7 +12,9 @@ computed tables give another (equally valid) sampling. The stage modules are
 compared one by one in the other test_torch_* files.
 
 Tolerance 1e-3 relative (TE against sqrt(TT EE)), ten times tighter than the
-reference CI contract; the two agree to ~1e-8.
+reference CI contract; the two agree to ~1e-8. The tensor part (raw TT, EE,
+BB and the lensed BB, to which the unlensed tensor BB contributes) is held to
+1e-6 relative.
 
 A reduced `row2_exact` goes the same way: one 0.06 eV neutrino species and
 halofit, l_scalar_max = 60, P(k) to 0.35/Mpc, rtol 1e-3, coarse k steps. There
@@ -34,8 +38,11 @@ from test_torch_common import asdict, one_torch_thread  # noqa: F401
 SMALL = dict(background_Nloga=1024, recfast_Nz0=4000, perturb_sampling_stepsize=2.0,
              tol_perturb_integration=1e-4)
 OUT = dict(tCl=True, pCl=True, lCl=True, mPk=True, lensing=True, l_scalar_max=100,
-           P_k_max=0.2)
+           P_k_max=0.2, modes=("s", "t"), l_tensor_max=60)
 TOL = 1e-3
+# r = 0.1 with n_t, alpha_t from the consistency relations (classy.py:620-627)
+R, N_S = 0.1, 0.9619
+TENSOR = dict(r=R, n_t=-R / 8.0 * (2.0 - R / 8.0 - N_S), alpha_t=R / 8.0 * (R / 8.0 + N_S - 1.0))
 
 
 def _pk_at(pert_k, pk, k):
@@ -46,7 +53,7 @@ def _pk_at(pert_k, pk, k):
 def pipelines():
     import dataclasses
 
-    params = J.CosmoParams()
+    params = J.CosmoParams(**TENSOR)
     prj = J.PrecisionParams(k_chunk_size=8, **SMALL)
     cj = J.Cosmology(params, precision=prj, output=J.OutputSelection(**OUT))
     cj.lensing
@@ -69,10 +76,11 @@ def _check_cls(a, b, n, tol=TOL):
             den = np.sqrt(np.abs(b[:, 0] * b[:, 1]))
         else:
             den = np.abs(b[:, i])
-        if name == "bb" and not np.any(den):
-            assert np.all(a[:, i] == 0.0)
+        zero = den == 0.0   # BB above l_max_tensors before lensing
+        assert np.all(a[zero, i] == 0.0), name
+        if zero.all():
             continue
-        rel = np.max(np.abs(a[:, i] - b[:, i]) / den)
+        rel = np.max(np.abs(a[~zero, i] - b[~zero, i]) / den[~zero])
         assert rel <= tol, (name, rel)
 
 
@@ -104,6 +112,33 @@ def test_pk_lin_matches_jax(pipelines):
     assert np.max(np.abs(pt - pj) / pj) <= TOL
     k = cj.perturbations.k_np
     assert _pk_at(k, pt, 0.1) == pytest.approx(_pk_at(k, pj, 0.1), rel=TOL)
+
+
+def test_tensor_cls_match_jax(pipelines):
+    """The tensor modes through both pipelines from shared tables: the tensor
+    part of the raw TT, EE, BB to l_max_tensors, the total raw TT, EE, BB, and
+    the lensed BB, to 1e-6 relative."""
+    cj, ct = pipelines
+    assert ct.stages("lensing") == ["background", "thermodynamics", "perturbations",
+                                    "primordial", "nonlinear", "transfer",
+                                    "tensor_perturbations", "tensor_transfer", "spectra",
+                                    "lensing"]
+    np.testing.assert_allclose(ct.tensor_perturbations.k_np, cj.tensor_perturbations.k_np,
+                               rtol=1e-13)
+    ix = {n: CT_TYPES.index(n) for n in ("tt", "ee", "bb")}
+    got_t, ref_t = ct.spectra.cl_tensor.numpy(), np.asarray(cj.spectra.cl_tensor)
+    n_t = OUT["l_tensor_max"] - 1
+    for name, i in ix.items():
+        rel = np.abs(got_t[:n_t, i] - ref_t[:n_t, i]) / np.abs(ref_t[:n_t, i])
+        assert rel.max() <= 1e-6, name
+    assert not got_t[n_t:].any()
+    raw, raw_j = ct.spectra.cl.numpy(), np.asarray(cj.spectra.cl)
+    for name in ("tt", "ee", "bb"):   # scalar + tensor
+        n = n_t if name == "bb" else 99
+        assert np.max(np.abs(raw[:n, ix[name]] / raw_j[:n, ix[name]] - 1.0)) <= 1e-6, name
+    got, ref = ct.lensing.cl.numpy()[:99, ix["bb"]], np.asarray(cj.lensing.cl)[:99, ix["bb"]]
+    assert (ref > 0).all()
+    assert np.max(np.abs(got - ref) / ref) <= 1e-6
 
 
 @pytest.mark.parametrize("stage", ["transfer", "lensing"])
@@ -192,20 +227,28 @@ def test_row2_exact_sources_feed_transfer(row2_pipelines):
 
 
 def test_class_api_on_cpu():
-    """The classy entry point runs the slice on its own tables."""
+    """The classy entry point runs the slice on its own tables (coarse k
+    steps: this test checks the entry point, not the numbers)."""
     c = T.Class(device="cpu")
     c.set({"output": "tCl,pCl,lCl,mPk", "lensing": "yes", "l_max_scalars": 60,
-           "P_k_max_1/Mpc": 0.2, "delta_l_max": 100, **SMALL})
+           "P_k_max_1/Mpc": 0.2, "delta_l_max": 100, "modes": "s,t", "r": 0.1, "n_t": "scc",
+           "l_max_tensors": 40, **dict(SMALL, tol_perturb_integration=1e-3, k_step_sub=0.3,
+                                       k_step_super=0.02)})
     c.compute(["lensing"])
     cl, raw = c.lensed_cl(), c.raw_cl()
     for tab in (cl, raw):
         assert tab["tt"].shape == (61,)
-        assert np.isfinite(tab["tt"]).all() and (tab["tt"][2:] > 0).all()
+        for name in ("tt", "ee", "bb"):
+            assert np.isfinite(tab[name]).all() and (tab[name][2:41] > 0).all(), name
+    assert (cl["bb"][2:] > 0).all() and not raw["bb"][41:].any()
     assert np.isfinite(c.pk_lin(0.1, 0.0)) and c.pk_lin(0.1, 0.0) > 0
     assert c.cosmo.device == torch.device("cpu")
-    from classpp_public_torch.models import lensing, transfer
+    from classpp_public_torch.models import lensing, thermodynamics, transfer
+    from classpp_public_torch.models.perturbations import tensors
 
     assert transfer.launches == 0 and lensing.launches == 0
+    assert transfer.tensor_launches == tensors.launches == 0
+    assert thermodynamics.recfast_launches == thermodynamics.tb_march_launches == 0
 
 
 def test_no_card_no_fallback(monkeypatch):
@@ -247,3 +290,43 @@ def test_row2_exact_inputs_parse():
     ot, oj = ct.cosmo.out, cj.cosmo.out
     assert ot.non_linear == oj.non_linear == "halofit"
     assert ot.P_k_max == oj.P_k_max == 20.0 and ot.l_scalar_max == oj.l_scalar_max == 2500
+
+
+@pytest.mark.parametrize("extra", [{}, {"alpha_t": "scc", "tensor method": "photons"},
+                                   {"n_t": -0.02, "alpha_t": 0.001}])
+def test_tensor_inputs_parse(extra):
+    """The g3_tensor keys (tests/golden/gen/g3_tensor.ini) and variants parse
+    as the JAX classy parses them: r, n_t and alpha_t (slow-roll consistency
+    where 'scc' or absent), the tensor method, modes and l_max_tensors."""
+    from classpp_public_torch.tools.configs import G3_TENSOR
+
+    keys = dict(G3_TENSOR, **extra)
+    ct, cj = T.Class(device="cpu"), J.Class()
+    ct.set(dict(keys))
+    cj.set(dict(keys))
+    pt, pj = ct.cosmo.params, cj.cosmo.params
+    for f in ("r", "n_t", "alpha_t", "tensor_method", "n_s", "A_s", "h", "YHe", "z_reio",
+              "Omega_k", "gauge", "recombination"):
+        assert getattr(pt, f) == getattr(pj, f), f
+    ot, oj = ct.cosmo.out, cj.cosmo.out
+    assert ot.modes == oj.modes == ("s", "t")
+    assert ot.l_tensor_max == oj.l_tensor_max == 500
+    assert ot.l_scalar_max == oj.l_scalar_max == 2500
+
+
+@pytest.mark.parametrize("keys,err,match", [
+    ({"output": "tCl", "modes": "s,v"}, "severe", "vector"),
+    ({"output": "mPk", "modes": "s,t"}, "severe", "tensor source"),
+    ({"output": "tCl", "tensor method": "photons"}, "severe", "tensor method"),
+    ({"output": "tCl,lCl", "modes": "t"}, "severe", "lensing potential"),
+    ({"output": "tCl,pCl", "modes": "s,t", "tensor method": "exact", "N_ncdm": 1},
+     "not_implemented", "tensors.py:200-213"),
+])
+def test_tensor_input_guards(keys, err, match):
+    """The reference's consistency guards, and the tensor method that is not
+    ported (exact, with massive neutrinos)."""
+    exc = T.CosmoSevereError if err == "severe" else NotImplementedError
+    c = T.Class(device="cpu")
+    c.set(keys)
+    with pytest.raises(exc, match=match):
+        c.cosmo
