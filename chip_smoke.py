@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card.
 
-Runs three configurations through `classpp_public_torch.Class(device="cuda")`,
+Runs five configurations through `classpp_public_torch.Class(device="cuda")`,
 stage by stage, at full width and depth:
 
 - `planck_row2`: flat LambdaCDM with massless neutrinos, lensed TT/TE/EE/phiphi
@@ -10,20 +10,28 @@ stage by stage, at full width and depth:
   with one 0.06 eV massive-neutrino species and halofit (P(k) to 20/Mpc);
 - `g3_tensor`: tests/golden/gen/g3_tensor.ini, scalar and tensor modes
   (r = 0.1, primordial B-modes to l = 500), lensed TT/EE/BB to l = 2500;
+- `g8_curved` and `g18_closed`: tests/golden/gen/g8_curved.ini (open,
+  Omega_k = 0.01) and g18_closed.ini (closed, Omega_k = -0.01), scalars and
+  tensors, lensed C_l to l = 2500, P(k) to 1/Mpc;
 
 and checks:
 
 1. the hand-written CUDA kernels (csrc/*.cu) build with nvcc for sm_90a;
-2. each main path launched each kernel it runs (launch counters, set to 0 just
-   before the path and read just after);
+2. each path launched each kernel it runs, and a curved path none of the flat
+   scans (and a flat one none of the curved scans): launch counters, set to 0
+   just before the path and read just after;
 3. each result against the reference C++ build: the probe
    tests/golden/bench_probe.json for the first two (rel TT/EE/TE <= 3e-3 at
-   l = 220, 1000, 2000, 2500; rel P(0.1) <= 1e-2), the golden
-   tests/golden/g3_tensor.npz for the third (tensor BB at l = 2-500 and the
-   lensed TT/EE/BB to l = 2000 within 1e-2, the raw total TT within 3e-3);
-4. each kernel against its plain PyTorch version on the very tensors each
-   pipeline fed it, with both timed on the card (CUDA events, median of 3;
-   the plain integrators once, on a stride of the lanes), beside the least
+   l = 220, 1000, 2000, 2500; rel P(0.1) <= 1e-2), the goldens
+   tests/golden/*.npz for the others under the contracts of the JAX tests
+   (classpp_public_torch/tools/golden_check.py; g3_tensor:
+   tests/test_extended.py:58-92; g8_curved: tests/test_curved.py:176-196;
+   g18_closed: tests/test_curved.py:112-157);
+4. each kernel against its plain PyTorch version on the very tensors each of
+   the five pipelines fed it, with both timed on the card (CUDA events: the
+   kernels the median of 3 after a warm-up; the plain versions one call, the
+   integrators on a stride of the lanes, or on 8 scalar and 4 tensor lanes
+   of a curved path, the lowest and highest k among them), beside the least
    time the card could take for the same work (`bound_ms`).
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one card)
@@ -41,11 +49,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROBE = os.path.join(ROOT, "tests", "golden", "bench_probe.json")
-GOLDEN_G3 = os.path.join(ROOT, "tests", "golden", "g3_tensor.npz")
 
 CL_TOL, PK_TOL = 3e-3, 1e-2
-# the tensor golden's contract (tests/test_extended.py:58-92)
-G3_BB_TOL, G3_TT_TOL, G3_LENSED_TOL = 1e-2, 3e-3, 1e-2
 # kernel vs plain version: max |kernel - plain| over each output column,
 # relative to that column's max |plain|. Both are float64 and differ only in
 # summation order and in the last bit of sin/cos/exp/lgamma. The LOS scan
@@ -58,8 +63,12 @@ G3_BB_TOL, G3_TT_TOL, G3_LENSED_TOL = 1e-2, 3e-3, 1e-2
 # The tensor LOS scan runs the same recurrence through the same band: the
 # same limit. The Tb march is 4096 dependent steps of a few operations, FMA
 # contraction its only difference: 1e-10 of each column's scale.
+# The curved scans run the hyperspherical recurrence through the same kind of
+# band (beta sin_K < l < beta sin_K + 6 (beta sin_K)^(1/3) + 2): the same
+# limit.
 KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-11,
-              "transfer_tensor_los": 1e-6, "tb_march": 1e-10}
+              "transfer_tensor_los": 1e-6, "tb_march": 1e-10, "transfer_los_curved": 1e-6,
+              "transfer_tensor_los_curved": 1e-6}
 # recfast_history, per row and column relative to the plain loop: libm's and
 # the card's exp/pow differ in the last bit, which the explicit RK4 through
 # the stiff HeI equation amplifies (measured against the JAX package's XLA
@@ -72,6 +81,9 @@ RECFAST_TOL = 1e-6
 # the threshold may go the other way), step counts within PERTURB_STEPS_TOL.
 TENSOR_TOL_FACTOR = 10.0
 TENSOR_STRIDE = 40    # lanes of the plain comparison: every 40th and the last
+# a curved path compares this many lanes, spread evenly in index from the
+# lowest k (nu = 3 when closed) to the highest
+CURVED_LANES = {"perturb_ark": 8, "tensor_rkck": 4}
 # perturb_ark: the kernel and the plain integrator round differently (FMA
 # contraction, libm), so an accept/reject decided at the threshold can go the
 # other way; the two solutions then differ by the lane's own tolerance. Lanes
@@ -107,6 +119,11 @@ PERTURB_RADIATION_COLS = ("delta_g", "theta_g", "delta_ur", "theta_ur")
 PERTURB_DERIVED_COLS = ("t0", "t1", "t2", "p", "phi_prime", "H_T_Nb_prime", "theta_tot")
 PERTURB_NCDM_COLS = ("delta_ncdm", "theta_ncdm")
 PERTURB_STRIDE = 24   # lanes of the plain comparison: every 24th and the last
+# The plain integrator steps all its lanes in lockstep (~6 ms a step on the
+# card with the ncdm block), so a lane of more steps than this is left out of
+# the comparison: the k = 22.6/Mpc tail lane of row2_exact (~31 000 steps, the
+# ncdm fluid oscillating) alone would take ~200 s.
+PLAIN_MAX_STEPS = 10_000
 # card peaks for `bound_ms`: HBM3 rate, and the float64 rate outside the tensor
 # cores taken as half the published 67 TFLOP/s float32 rate
 PEAK_BYTES_S, PEAK_F64_FLOPS = 3.35e12, 33.5e12
@@ -134,11 +151,15 @@ def probe_check(config, cl, pk):
     return ok, worst
 
 
-def timed(fn, reps=3):
-    """Median wall time of fn() on the card in ms (CUDA events) and its result."""
+def timed(fn, reps=3, warmup=True):
+    """Median wall time of fn() on the card in ms (CUDA events) and its result.
+    The plain versions are timed once, without a warm-up (reps=1,
+    warmup=False): they build nothing, and the plain lensing alone takes ~7 s
+    a call."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times, out = [], None
     for _ in range(reps):
@@ -200,53 +221,28 @@ class Kernel:
         self.source, self.replaces, self.size = source, replaces, size
 
 
-def expected_kernels(out):
-    """The kernels a path with OutputSelection `out` must launch."""
-    names = {"recfast_history", "tb_march", "perturb_ark", "transfer_los", "lensing_wigner"}
+def expected_kernels(out, sgnK):
+    """(the kernels a path with OutputSelection `out` and curvature sign sgnK
+    must launch, those it must not launch): a curved path runs the
+    hyperspherical scans and not the flat ones, a flat path the reverse."""
+    names = {"recfast_history", "tb_march", "perturb_ark", "lensing_wigner"}
+    scans = {"transfer_los"} | ({"transfer_tensor_los"} if "t" in out.modes else set())
     if out.has_pk:
         names.add("halofit_sigma")
     if "t" in out.modes:
-        names |= {"tensor_rkck", "transfer_tensor_los"}
-    return names
-
-
-def g3_check(raw, lensed):
-    """The tensor golden's contract (tests/test_extended.py:58-92): tensor-only
-    BB (table clt) at l = 2-500 within 1e-2, raw total TT (clt + cls) within
-    3e-3, lensed TT/EE/BB to l = 2000 within 1e-2."""
-    import numpy as np
-
-    g = np.load(GOLDEN_G3)
-
-    def col(table, name):
-        cols = [str(c) for c in g[table + "__cols"]]
-        return g[table][:, 0], g[table][:, cols.index(name)]
-
-    rel = {}
-    ell = np.arange(2, 501)
-    fac = ell * (ell + 1) / (2 * np.pi)
-    lt, bb = col("clt", "BB")
-    rel["tensor_bb"] = float(np.max(np.abs(fac * raw["bb"][2:501] / np.interp(ell, lt, bb) - 1)))
-    lt, tt_t = col("clt", "TT")
-    ls, tt_s = col("cls", "TT")
-    ref_tt = np.interp(ell, lt, tt_t) + np.interp(ell, ls, tt_s)
-    rel["raw_tt"] = float(np.max(np.abs(fac * raw["tt"][2:501] / ref_tt - 1)))
-    ell = np.arange(2, 2001)
-    fac = ell * (ell + 1) / (2 * np.pi)
-    for name in ("TT", "EE", "BB"):
-        ll, ref = col("cl_lensed", name)
-        rel[f"lensed_{name.lower()}"] = float(np.max(np.abs(
-            fac * lensed[name.lower()][2:2001] / np.interp(ell, ll, ref) - 1)))
-    ok = rel["tensor_bb"] <= G3_BB_TOL and rel["raw_tt"] <= G3_TT_TOL \
-        and all(rel[f"lensed_{n}"] <= G3_LENSED_TOL for n in ("tt", "ee", "bb"))
-    return ok, rel
+        names.add("tensor_rkck")
+    curved = {f"{n}_curved" for n in scans}
+    if sgnK:
+        return names | curved, {"transfer_los", "transfer_tensor_los"}
+    return names | scans, {"transfer_los_curved", "transfer_tensor_los_curved"}
 
 
 def run_config(name, params, kernels):
-    """One main path: the configuration through Class(device="cuda") stage by
+    """One path: the configuration through Class(device="cuda") stage by
     stage with every launch counter set to 0 just before and read just after;
-    checks shapes, finiteness and the reference (probe or golden). Returns
-    (launch counts, captured kernel arguments, stage seconds)."""
+    checks the kernels launched, shapes, finiteness and the reference (probe
+    or golden). Returns (launch counts, captured kernel arguments, stage
+    seconds)."""
     import numpy as np
     import torch
 
@@ -282,9 +278,14 @@ def run_config(name, params, kernels):
     for k in kernels:
         setattr(k.module, k.fn, originals[k.name])
     print(f"[launches] {name} {counts}", flush=True)
-    missing = sorted(n for n in expected_kernels(cosmo.out) if counts[n] <= 0)
+    must, must_not = expected_kernels(cosmo.out, cosmo.sgnK)
+    missing = sorted(n for n in must if counts[n] <= 0)
     if missing:
         raise RuntimeError(f"{name}: kernels not launched on the main path: {missing}")
+    stray = sorted(n for n in must_not if counts[n] != 0)
+    if stray:
+        raise RuntimeError(f"{name} (sgnK = {cosmo.sgnK}): kernels of the other geometry "
+                           f"launched: {stray}")
     pt = cosmo.perturbations
     print(f"[shapes] {name} k {tuple(pt.k.shape)} tau {tuple(pt.tau.shape)} sources "
           f"{tuple(pt.sources.shape)} transfer {tuple(cosmo.transfer.delta.shape)} "
@@ -307,12 +308,15 @@ def run_config(name, params, kernels):
               f"sigma8 {nl.sigma8:.6f}", flush=True)
         if not (np.isfinite(pk) and pk > 0 and 0.8 * pk <= pk_nl <= 1.5 * pk):
             raise RuntimeError(f"{name}: P(k=0.1) linear {pk}, nonlinear {pk_nl}")
-    if "t" in cosmo.out.modes:
-        ok, rel = g3_check(raw, cl)
-        print(f"[golden] {name} {json.dumps(rel)} (tol tensor BB {G3_BB_TOL}, raw TT "
-              f"{G3_TT_TOL}, lensed {G3_LENSED_TOL})", flush=True)
-        if not ok:
-            raise RuntimeError(f"{name} out of the tensor golden's contract: {rel}")
+    if name not in ("planck_row2", "row2_exact"):
+        from classpp_public_torch.tools.golden_check import golden_check
+
+        rel = golden_check(name, raw, cl, c.pk_lin, cosmo.params.h)
+        print(f"[golden] {name} " + json.dumps({k: {"rel": v, "tol": t, "at": at}
+                                                for k, (v, t, at) in rel.items()}), flush=True)
+        bad = {k: v for k, (v, t, _) in rel.items() if not v <= t}
+        if bad:
+            raise RuntimeError(f"{name} out of its golden's contract: {bad}")
     else:
         ok, rel = probe_check(name, cl, pk)
         print(f"[probe] {name} {json.dumps(rel)} (tol C_l {CL_TOL}, P(k) {PK_TOL})", flush=True)
@@ -323,9 +327,27 @@ def run_config(name, params, kernels):
     return counts, captured, stage_s
 
 
-def check_perturb_ark(solve, args, tag):
+def compared_lanes(nl, stride, curved, name):
+    """The lanes of a plain comparison: every stride-th and the last, or on a
+    curved path CURVED_LANES[name] spread evenly from the first to the last."""
+    import numpy as np
+
+    if curved:
+        return sorted(set(np.linspace(0, nl - 1, CURVED_LANES[name]).round().astype(int).tolist()))
+    return sorted(set(range(0, nl, stride)) | {nl - 1})
+
+
+def print_lane_steps(name, tag, k, steps_kernel, steps_plain):
+    print(f"[{name}] {tag} steps per compared lane (k/Mpc: kernel, plain): "
+          + ", ".join(f"{float(kk):.5g}: {int(a)}, {int(b)}"
+                      for kk, a, b in zip(k, steps_kernel, steps_plain)), flush=True)
+
+
+def check_perturb_ark(solve, args, tag, curved=False):
     """The integrator kernel against its plain version on every
-    PERTURB_STRIDE-th lane and the last (highest k) of the captured call."""
+    PERTURB_STRIDE-th lane and the last (highest k) of the captured call, or
+    on a curved path on CURVED_LANES lanes from the lowest k to the highest;
+    lanes of more than PLAIN_MAX_STEPS steps are left out."""
     import torch
 
     from classpp_public_torch.models.perturbations.indices import SrcIdx
@@ -334,7 +356,14 @@ def check_perturb_ark(solve, args, tag):
     idx = tables.idx
     nl = lanes.k.shape[0]
     ms, (S, nsteps) = timed(lambda: solve.integrate_sources(lanes, taus, tables, (rtol, atol)))
-    sel = torch.as_tensor(sorted(set(range(0, nl, PERTURB_STRIDE)) | {nl - 1}), device=taus.device)
+    picked = compared_lanes(nl, PERTURB_STRIDE, curved, "perturb_ark")
+    long_lanes = [i for i in picked if int(nsteps[i]) > PLAIN_MAX_STEPS]
+    if long_lanes:
+        print(f"[perturb_ark] {tag}: lanes of more than {PLAIN_MAX_STEPS} steps left out of "
+              f"the plain comparison: " + ", ".join(
+                  f"k = {float(lanes.k[i]):.4g}/Mpc ({int(nsteps[i])} steps)" for i in long_lanes),
+              flush=True)
+    sel = torch.as_tensor([i for i in picked if i not in long_lanes], device=taus.device)
     rt_sel, at_sel = rtol[sel].contiguous(), atol[sel].contiguous()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
@@ -382,6 +411,8 @@ def check_perturb_ark(solve, args, tag):
                            + "\n".join(bad))
     dn = (nsteps[sel] - np_).abs()
     dn_rel = float((dn / np_).max())
+    if curved:
+        print_lane_steps("perturb_ark", tag, lanes.k[sel], nsteps[sel], np_)
     print(f"[perturb_ark] {tag}: {len(sel)} of {nl} lanes compared, state {idx.size}; worst error "
           f"{worst:.3e} of its limit; max |nsteps_kernel - nsteps_plain| {int(dn.max())} "
           f"({dn_rel:.3e} of the plain count, limit {PERTURB_STEPS_TOL}); plain {plain_ms:.0f} ms "
@@ -454,15 +485,17 @@ def check_recfast(thermo, args, tag):
                 scaled_err=max(worst.values()) / RECFAST_TOL, first_interval_over_1e12=first)
 
 
-def check_tensor_rkck(tensors, args, tag):
+def check_tensor_rkck(tensors, args, tag, curved=False):
     """The tensor integrator kernel against its plain version on every
-    TENSOR_STRIDE-th lane and the last, per lane and source column."""
+    TENSOR_STRIDE-th lane and the last, or on a curved path on CURVED_LANES
+    lanes from the lowest k to the highest, per lane and source column."""
     import torch
 
     lanes, taus, tables, rtol = args
     nl, n = lanes.k.shape[0], tables.idx.size
     ms, (S, nsteps) = timed(lambda: tensors.tensor_rkck(lanes, taus, tables, rtol))
-    sel = torch.as_tensor(sorted(set(range(0, nl, TENSOR_STRIDE)) | {nl - 1}), device=taus.device)
+    sel = torch.as_tensor(compared_lanes(nl, TENSOR_STRIDE, curved, "tensor_rkck"),
+                          device=taus.device)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     Sp, np_ = tensors.tensor_rkck_plain(lanes.take(sel), taus, tables, rtol)
@@ -478,6 +511,8 @@ def check_tensor_rkck(tensors, args, tag):
     ratio = torch.where(lim > 0, err / lim, (err > 0).to(err.dtype))
     dn = (nsteps[sel] - np_).abs()
     dn_rel = float((dn / np_).max())
+    if curved:
+        print_lane_steps("tensor_rkck", tag, lanes.k[sel], nsteps[sel], np_)
     print(f"[tensor_rkck] {tag}: {len(sel)} of {nl} lanes compared, state {n}; worst "
           f"{float(ratio.max()):.3e} of the limit {TENSOR_TOL_FACTOR} rtol scale (columns S_T2, "
           f"S_P: {[round(float(v), 6) for v in ratio.amax(dim=0)]}); max |nsteps_kernel - "
@@ -502,7 +537,19 @@ def check_tensor_rkck(tensors, args, tag):
                 bound_ms=bms, bound_by=bby, scaled_err=float(ratio.max()))
 
 
-def check_kernels(tag, captured, mods):
+def scan_work(q, taus, tau0, l_emit, curved):
+    """Float64 operations of a LOS scan on its (q, tau) grid: per point ~8 per
+    l of the recurrence (~12 curved, with its division) and ~60 per emitted l
+    (~90 curved: d2Phi, csc^2 and the radial functions), plus ~40 for the
+    series at the points where it applies (x < 1; curved beta x = q chi < 1)."""
+    n_pts = float(q.numel() * taus.numel())
+    n_series = float(((q[:, None] * (tau0 - taus)[None, :]) < 1.0).sum())
+    per_l, per_emit = (12.0, 90.0) if curved else (8.0, 60.0)
+    return n_pts * (per_l * int(l_emit[-1]) + per_emit * len(l_emit)) \
+        + 40.0 * n_series * len(l_emit)
+
+
+def check_kernels(tag, captured, mods, curved):
     """Every kernel the main path `tag` launched against its plain version on
     the tensors the path fed it; returns {kernel: measurements}. Raises where
     a kernel is beyond its tolerance."""
@@ -511,7 +558,7 @@ def check_kernels(tag, captured, mods):
     out = {}
     if "integrate_sources" in captured:
         out["perturb_ark"] = check_perturb_ark(mods["perturb_ark"],
-                                               captured["integrate_sources"][0], tag)
+                                               captured["integrate_sources"][0], tag, curved)
 
     def columns(kname, kern, plain, axis):
         errs = [compare(kname, kern.select(axis, i), plain.select(axis, i))
@@ -530,21 +577,24 @@ def check_kernels(tag, captured, mods):
                                     **columns("halofit_sigma", kout, pout, -1))
 
     transfer = mods["transfer_los"]
-    args, kw = captured["transfer_los"]
-    ms, kout = timed(lambda: transfer.transfer_los(*args, **kw))
-    plain_ms, pout = timed(lambda: transfer.transfer_los_plain(*args, **kw))
-    W, taus, _, q, l_emit = args[:5]
-    # per (q, tau): 8 operations per l of the recurrence, ~60 per emitted l
-    bms, bby = bound(nbytes(W, taus, q, kout),
-                     float(q.numel() * taus.numel()) * (8.0 * int(l_emit[-1]) + 60.0 * len(l_emit)))
-    print(f"[transfer_los] {tag}: W {tuple(W.shape)} out {tuple(kout.shape)}", flush=True)
-    out["transfer_los"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                               **columns("transfer_los", kout, pout, 1))
+    for name in ("transfer_los", "transfer_los_curved"):
+        if name not in captured:
+            continue
+        args, kw = captured[name]
+        ms, kout = timed(lambda: getattr(transfer, name)(*args, **kw))
+        plain_ms, pout = timed(lambda: getattr(transfer, name + "_plain")(*args, **kw), 1, False)
+        W, taus, tau0, q = args[:4]
+        l_emit = args[5 if name.endswith("curved") else 4]
+        bms, bby = bound(nbytes(W, taus, q, kout),
+                         scan_work(q, taus, tau0, l_emit, name.endswith("curved")))
+        print(f"[{name}] {tag}: W {tuple(W.shape)} out {tuple(kout.shape)}", flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                         **columns(name, kout, pout, 1))
 
     lensing = mods["lensing_wigner"]
     args, kw = captured["lensing_wigner"]
     ms, kout = timed(lambda: lensing.lensing_wigner(*args, **kw))
-    plain_ms, pout = timed(lambda: lensing.lensing_wigner_plain(*args, **kw))
+    plain_ms, pout = timed(lambda: lensing.lensing_wigner_plain(*args, **kw), 1, False)
     cl_of_l, mu, w8, l_lensed = args[:4]
     # per mu: ~190 operations per unlensed l (the two d of the deflection
     # variances, then the twelve Wigner recurrences and their sums) and ~100
@@ -570,18 +620,20 @@ def check_kernels(tag, captured, mods):
 
     if "tensor_rkck" in captured:
         out["tensor_rkck"] = check_tensor_rkck(mods["tensor_rkck"],
-                                               captured["tensor_rkck"][0], tag)
-    if "transfer_tensor_los" in captured:
-        args, kw = captured["transfer_tensor_los"]
-        ms, kout = timed(lambda: transfer.transfer_tensor_los(*args, **kw))
-        plain_ms, pout = timed(lambda: transfer.transfer_tensor_los_plain(*args, **kw))
-        W, taus, _, q, l_emit = args[:5]
-        bms, bby = bound(nbytes(W, taus, q, kout), float(q.numel() * taus.numel())
-                         * (8.0 * int(l_emit[-1]) + 60.0 * len(l_emit)))
-        print(f"[transfer_tensor_los] {tag}: W {tuple(W.shape)} out {tuple(kout.shape)}",
-              flush=True)
-        out["transfer_tensor_los"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                                          **columns("transfer_tensor_los", kout, pout, 1))
+                                               captured["tensor_rkck"][0], tag, curved)
+    for name in ("transfer_tensor_los", "transfer_tensor_los_curved"):
+        if name not in captured:
+            continue
+        args, kw = captured[name]
+        ms, kout = timed(lambda: getattr(transfer, name)(*args, **kw))
+        plain_ms, pout = timed(lambda: getattr(transfer, name + "_plain")(*args, **kw), 1, False)
+        W, taus, tau0, q = args[:4]
+        l_emit = args[5 if name.endswith("curved") else 4]
+        bms, bby = bound(nbytes(W, taus, q, kout),
+                         scan_work(q, taus, tau0, l_emit, name.endswith("curved")))
+        print(f"[{name}] {tag}: W {tuple(W.shape)} out {tuple(kout.shape)}", flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                         **columns(name, kout, pout, 1))
 
     scaled = {k: v.pop("scaled_err") for k, v in out.items()}
     print(f"[kernels] {tag} scaled error: {scaled}; tolerance {KERNEL_TOL} of max |plain|, "
@@ -637,6 +689,11 @@ def main():
                tpu + "perturbations/tensors.py:384"),
         Kernel("transfer_tensor_los", transfer, "tensor_launches", "transfer_tensor_los",
                src + "transfer_tensor_los.cu", tpu + "transfer.py:854"),
+        Kernel("transfer_los_curved", transfer, "curved_launches", "transfer_los_curved",
+               src + "transfer_los_curved.cu", tpu + "transfer.py:534"),
+        Kernel("transfer_tensor_los_curved", transfer, "tensor_curved_launches",
+               "transfer_tensor_los_curved", src + "transfer_tensor_los_curved.cu",
+               tpu + "transfer.py:757"),
     ]
     mods = {k.name: k.module for k in kernels}
 
@@ -647,9 +704,9 @@ def main():
 
     # --- each kernel against its plain version, on the tensors of each path
     results = {}
-    for tag in CONFIGS:
+    for tag, params in CONFIGS.items():
         t0 = time.time()
-        results[tag] = check_kernels(tag, captured[tag], mods)
+        results[tag] = check_kernels(tag, captured[tag], mods, params.get("Omega_k", 0.0) != 0.0)
         phase(f"{tag} kernel vs plain comparison", t0)
 
     # one entry per kernel: the numbers of the last path in CONFIGS that ran

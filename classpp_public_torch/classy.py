@@ -83,6 +83,9 @@ class Class:
         for name in _FLOAT_KEYS:
             if name in p:
                 kw[name] = float(p.pop(name))
+        if not -0.95 < kw.get("Omega_k", 0.0) < 0.95:
+            raise CosmoSevereError(f"Omega_k = {kw['Omega_k']} outside (-0.95, 0.95) "
+                                   "(classpp_public_tpu/classy.py:928)")
         # gauge and recombination code: the stages raise for what is not ported
         if "gauge" in p:
             g = str(p.pop("gauge")).strip().lower()
@@ -376,6 +379,10 @@ class Class:
         if self.cosmo.out.non_linear:
             return self._pk_nl(k, z, self.cosmo.nonlinear.pk_cb_nl)
         return self.pk_cb_lin(k, z)
+
+    def Omega0_k(self):
+        """The curvature density today (classy.pyx Omega0_k :1771)."""
+        return float(self.cosmo.params.Omega_k)
 
     def sigma8(self):
         """sigma8 of the linear total-matter spectrum at z = 0."""

@@ -23,8 +23,9 @@ class CosmoParams:
 
     Defaults replicate the reference's built-in `input_default_params`
     (input_module.cpp:3150-3400). Fields of features outside the ported
-    flat-LambdaCDM + massive-neutrino slice are kept so that a parameter set carries over from
-    the JAX package unchanged; the stages raise when one is switched on."""
+    LambdaCDM + massive-neutrino slice (open, flat or closed) are kept so that
+    a parameter set carries over from the JAX package unchanged; the stages
+    raise when one is switched on."""
 
     # background
     h: float = 0.67556
@@ -171,7 +172,8 @@ class CosmoParams:
 
 def check_lcdm(params: CosmoParams) -> None:
     """Raise for every parameter that switches on physics outside the
-    flat-LambdaCDM + massive-neutrino slice, naming the JAX code that implements it."""
+    LambdaCDM + massive-neutrino slice (open, flat or closed; synchronous
+    gauge), naming the JAX code that implements it."""
     bad = []
     if any(params.ksi_ncdm) or any(params.ncdm_psd_files):
         bad.append("ncdm chemical potentials and tabulated phase-space distributions "
@@ -180,8 +182,6 @@ def check_lcdm(params: CosmoParams) -> None:
         bad.append("ncdm 'Quadrature strategy' (classpp_public_tpu/models/background.py:163)")
     if params.N_ncdm_decay_dr:
         bad.append("decaying ncdm (classpp_public_tpu/models/background.py:469)")
-    if params.Omega_k != 0.0:
-        bad.append("spatial curvature (classpp_public_tpu/models/transfer.py:534)")
     if params.use_fld:
         bad.append("dark-energy fluid (classpp_public_tpu/models/background.py:693)")
     if params.Omega_ini_dcdm > 0.0 or params.Omega_dcdmdr > 0.0:

@@ -56,8 +56,8 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
                    const double* __restrict__ taus,   // (ntau,)
                    const double* __restrict__ rtol,   // (nl, n)
                    const double* __restrict__ atol,   // (nl, n)
-                   double k_eta_split, long max_steps, int nlanes, int ntau,
-                   double* __restrict__ S,            // (nl, ntau, 27)
+                   double k_eta_split, double K, int sgnK, long max_steps, int nlanes,
+                   int ntau, double* __restrict__ S,  // (nl, ntau, 27)
                    long long* __restrict__ nsteps,    // (nl,)
                    int* __restrict__ status) {        // (nl,)
   extern __shared__ double work[];                    // work_doubles(L)
@@ -71,6 +71,9 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
   ln.t_rsa = lanes[4 * nlanes + lane];
   ln.t_ncfa = lanes[5 * nlanes + lane];
   ln.eta_off = ln.k < k_eta_split ? 1.0 : 0.0;
+  ln.K = K;
+  ln.sgnK = sgnK;
+  ln.sl = nullptr;
   long long steps = 0;
   const int st = pk::integrate_lane(
       L, T, tm, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n, atol + (long)lane * L.n,
@@ -86,15 +89,17 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
 
 // layout: kLayoutInts host ints in pk::Layout order. Every other pointer is a
 // device pointer. ncdm: q (nq), w (ns, nq), dlnf0 (ns, nq), x_fac (ns),
-// pref (ns) packed in this order (unused when ns = 0). The lane's scratch is
-// dynamic shared memory: a state too wide for one block's 227 KB is refused.
+// pref (ns) packed in this order (unused when ns = 0). K: the spatial
+// curvature in 1/Mpc^2, sgnK its sign. The lane's scratch is dynamic shared
+// memory: a state too wide for one block's 227 KB is refused.
 extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const double* taus,
                                   const double* bg_y, const double* bg_y2, double bg_x0,
                                   double bg_dx, int bg_n, const double* th_y,
                                   const double* th_y2, double th_x0, double th_dx, int th_n,
                                   const double* ncdm, const double* rtol, const double* atol,
-                                  double k_eta_split, long long max_steps, int nlanes, int ntau,
-                                  double* S, long long* nsteps, int* status, void* stream) {
+                                  double k_eta_split, double K, int sgnK, long long max_steps,
+                                  int nlanes, int ntau, double* S, long long* nsteps, int* status,
+                                  void* stream) {
   pk::Layout L;
   int* li = reinterpret_cast<int*>(&L);
   for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
@@ -113,7 +118,7 @@ extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const 
   T.q = ncdm; T.w = ncdm + L.nq; T.dlnf0 = T.w + nsq; T.x_fac = T.dlnf0 + nsq;
   T.pref = T.x_fac + L.ns;
   perturb_ark_kernel<<<nlanes, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      L, T, lanes, taus, rtol, atol, k_eta_split, (long)max_steps, nlanes, ntau, S, nsteps,
-      status);
+      L, T, lanes, taus, rtol, atol, k_eta_split, K, sgnK, (long)max_steps, nlanes, ntau, S,
+      nsteps, status);
   return (int)cudaGetLastError();
 }

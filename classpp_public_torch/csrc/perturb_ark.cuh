@@ -15,10 +15,18 @@
 //
 // Counterparts, line by line: classpp_public_torch/models/perturbations/
 // equations.py (rhs_full, stiff_apply, stiff_solve, adiabatic_ic, the remaps,
-// compute_sources), ops/ode.py (ark_step) and solve.py (_step). Flat
-// universe, synchronous gauge, adiabatic mode; photons, polarization,
-// baryons, cdm, massless neutrinos, n_s massive-neutrino species on a shared
-// momentum grid, and the metric.
+// compute_sources), ops/ode.py (ark_step) and solve.py (_step). Open, flat
+// or closed universe, synchronous gauge, adiabatic mode; photons,
+// polarization, baryons, cdm, massless neutrinos, n_s massive-neutrino species
+// on a shared momentum grid, and the metric.
+//
+// Curvature K (sign sgnK) enters through s_l = sqrt(max(1 - K (l^2 - 1)/k^2,
+// 0)), s2 = 1 - 3 K/k^2 and cotKgen = sqrt|K| cot_K(sqrt|K| tau)/k. The s_l
+// of a lane are computed once, into its table `sl` in shared memory, so a step
+// pays no sqrt per hierarchy row; cotKgen costs one tan/tanh per right-hand
+// side, and only when sgnK != 0. With sgnK == 0 every s_l is exactly 1 and
+// cotKgen = 1/(k tau): the flat arithmetic is unchanged, since a product with
+// an exact 1 rounds to the same double.
 
 #pragma once
 
@@ -144,7 +152,27 @@ struct Flags {
 
 struct Lane {
   double k, eta_off, t_tca, t_ufa, t_rsa, t_ncfa;
+  double K;                     // spatial curvature [Mpc^-2]
+  int sgnK;                     // its sign: 0 flat, -1 open, +1 closed
+  const double* sl;             // s_l, l = 0..sl_count - 1 (set by integrate_lane)
 };
+
+// Entries of a lane's s_l table: every l a hierarchy couples, s_{l+1} of its
+// last moment included (solve.py sl_count).
+PK_HOST_FN int sl_count(const Layout& L) {
+  int c = L.n_F_g + 4;
+  if (L.n_G_g + 1 > c) c = L.n_G_g + 1;
+  if (L.n_F_ur + 4 > c) c = L.n_F_ur + 4;
+  if (L.nl + 1 > c) c = L.nl + 1;
+  return c;
+}
+
+// cotKgen at tau: 1/(k tau) when flat.
+PK_FN double cot_kgen(const Lane& ln, double tau) {
+  if (ln.sgnK == 0) return 1.0 / (ln.k * tau);
+  const double sab = sqrt(fabs(ln.K));
+  return sab / (ln.k * (ln.sgnK > 0 ? tan(sab * tau) : tanh(sab * tau)));
+}
 
 struct Locals {
   double aH, aH_prime, h_prime, eta_prime, alpha, alpha_prime, P;
@@ -220,7 +248,9 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   const double app_a = Hp * a + 2.0 * aH * aH;
   const double aH_prime = Hp * a + aH * aH;
   const double R = 4.0 / 3.0 * rho_g / rho_b;
-  const double cotKgen = 1.0 / (k * tau);
+  const double cotKgen = cot_kgen(ln, tau);
+  const double* sl = ln.sl;
+  const double K = ln.K, s2 = 1.0 - 3.0 * K / k2, s_l2 = sl[2], s_l3 = sl[3];
   const bool tca = fl.tca, rsa = fl.rsa, ufa = fl.ufa, ncfa = fl.ncfa;
 
   const double delta_g = y[L.delta_g], theta_g = y[L.theta_g], shear_g = y[L.shear_g];
@@ -277,7 +307,7 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   }
 
   // Einstein 00 and the radiation-streaming values
-  const double h_prime = (k2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH);
+  const double h_prime = (k2 * s2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH);
   const double rsa_delta_g = 4.0 / k2 * (aH * h_prime - k2 * eta)
                              - 4.0 / k2 * kap * (theta_b + 0.5 * h_prime);
   const double rsa_theta_g = -0.5 * h_prime + 3.0 / k2 * (
@@ -291,7 +321,7 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   }
 
   // Einstein 0i, trace, shear
-  const double eta_prime = 1.5 * a2 * rho_plus_p_theta / k2;
+  const double eta_prime = (1.5 * a2 * rho_plus_p_theta + 0.5 * K * h_prime) / (k2 * s2);
   const double alpha = (h_prime + 6.0 * eta_prime) / (2.0 * k2);
   const double tca_shear_g_1 = 16.0 / 45.0 / kap * (theta_g + k2 * alpha);
   if (tca) rho_plus_p_shear += 4.0 / 3.0 * rho_g * tca_shear_g_1;
@@ -317,16 +347,17 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   const double shear_g_prime1 = 16.0 / 45.0 * (tau_c * (theta_prime0 + metric_shear_prime)
                                                 + dtau_c * (t_g + metric_shear));
   const double tca_slip = (1.0 - 2.0 * aH * F) * slip_1 + F * k2 * (
-      2.0 * aH * shear_g_tca1 + shear_g_prime1
+      2.0 * aH * s2 * shear_g_tca1 + s2 * shear_g_prime1
       - (1.0 / 3.0 - cb2) * (F * theta_prime0 + 2.0 * F_prime * theta_b));
   const double tca_shear_g = (1.0 - 11.0 / 6.0 * dtau_c) * shear_g_tca1
       - 11.0 / 6.0 * tau_c * 16.0 / 45.0 * tau_c * (theta_prime0 + metric_shear_prime);
 
   const double theta_b_prime_notca = -aH * theta_b + k2 * cb2 * delta_b + R * kap * (t_g - theta_b);
-  const double theta_b_prime_tca = (-aH * theta_b + k2 * (cb2 * delta_b + R * (d_g / 4.0 - tca_shear_g))
-                                    + R * tca_slip) / (1.0 + R);
+  const double theta_b_prime_tca =
+      (-aH * theta_b + k2 * (cb2 * delta_b + R * (d_g / 4.0 - s2 * tca_shear_g))
+       + R * tca_slip) / (1.0 + R);
   const double theta_b_prime = tca ? theta_b_prime_tca : theta_b_prime_notca;
-  const double P0 = (G0 + G2 + 2.0 * shear_g) / 8.0;
+  const double P0 = (G0 + G2 + 2.0 * s_l2 * shear_g) / 8.0;
 
   if (want_dy) {
     const bool hier_on = !(tca || rsa);
@@ -336,34 +367,37 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
       dy[L.delta_g] = rsa ? 0.0 : -4.0 / 3.0 * (t_g + metric_continuity);
       dy[L.delta_b] = -(theta_b + metric_continuity);
       dy[L.theta_b] = theta_b_prime;
-      const double theta_g_prime_full = k2 * (d_g / 4.0 - shear_g) + kap * (theta_b - t_g);
+      const double theta_g_prime_full = k2 * (d_g / 4.0 - s2 * shear_g) + kap * (theta_b - t_g);
       const double theta_g_prime_tca = -(theta_b_prime + aH * theta_b - k2 * cb2 * delta_b) / R
-                                       + k2 * (0.25 * d_g - tca_shear_g);
+                                       + k2 * (0.25 * d_g - s2 * tca_shear_g);
       dy[L.theta_g] = rsa ? 0.0 : (tca ? theta_g_prime_tca : theta_g_prime_full);
       dy[L.shear_g] = hier_on ? 0.5 * (8.0 / 15.0 * (theta_g + metric_shear)
-                                       - 3.0 / 5.0 * k * y[L.F_g]
-                                       - kap * (2.0 * shear_g - 4.0 / 5.0 * P0))
+                                       - 3.0 / 5.0 * k * s_l3 / s_l2 * y[L.F_g]
+                                       - kap * (2.0 * shear_g - 4.0 / 5.0 / s_l2 * P0))
                               : 0.0;
       dy[L.delta_cdm] = -metric_continuity;
       dy[L.delta_ur] = ur_on ? -4.0 / 3.0 * (theta_ur + metric_continuity) : 0.0;
-      dy[L.theta_ur] = ur_on ? k2 * (delta_ur / 4.0 - shear_ur) : 0.0;
+      dy[L.theta_ur] = ur_on ? k2 * (delta_ur / 4.0 - s2 * shear_ur) : 0.0;
       const double d_shear_ur_full = 0.5 * (8.0 / 15.0 * (theta_ur + metric_shear)
-                                            - 3.0 / 5.0 * k * y[L.F_ur]);
+                                            - 3.0 / 5.0 * k * s_l3 / s_l2 * y[L.F_ur]);
       const double d_shear_ur_ufa = -3.0 / tau * shear_ur
                                     + 2.0 / 3.0 * (theta_ur + metric_continuity);
       dy[L.shear_ur] = ur_on ? (ufa ? d_shear_ur_ufa : d_shear_ur_full) : 0.0;
       dy[L.eta] = eta_prime;
     }
 
-    // photon moments l = 3..l_max_g
+    // photon moments l = 3..l_max_g: the couplings carry s_l, and F_2
+    // enters the l = 3 equation as 2 s_2 shear_g
     const int nF = L.n_F_g;
     for (int j = tid; j < nF; j += nt) {
       double d = 0.0;
       if (hier_on) {
         const double l = 3.0 + j, cur = y[L.F_g + j];
-        const double lm1 = j == 0 ? 2.0 * shear_g : y[L.F_g + j - 1];
-        d = j < nF - 1 ? k / (2.0 * l + 1.0) * (l * lm1 - (l + 1.0) * y[L.F_g + j + 1]) - kap * cur
-                       : k * (lm1 - (nF + 2 + 1.0) * cotKgen * cur) - kap * cur;
+        const double lm1 = j == 0 ? 2.0 * s_l2 * shear_g : y[L.F_g + j - 1];
+        d = j < nF - 1 ? k / (2.0 * l + 1.0) * (l * sl[j + 3] * lm1
+                                                - (l + 1.0) * sl[j + 4] * y[L.F_g + j + 1])
+                             - kap * cur
+                       : k * (sl[j + 3] * lm1 - (nF + 2 + 1.0) * cotKgen * cur) - kap * cur;
       }
       dy[L.F_g + j] = d;
     }
@@ -375,12 +409,13 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
         const double l = (double)j, cur = y[L.G_g + j];
         const double lm1 = j == 0 ? 0.0 : y[L.G_g + j - 1];
         if (j == nG - 1) {
-          d = k * (lm1 - (nG - 1 + 1.0) * cotKgen * cur) - kap * cur;
+          d = k * (sl[j] * lm1 - (nG - 1 + 1.0) * cotKgen * cur) - kap * cur;
         } else {
           const double nxt = y[L.G_g + j + 1];
-          d = k / (2.0 * l + 1.0) * (l * lm1 - (l + 1.0) * nxt) - kap * cur;
+          d = k / (2.0 * l + 1.0) * (l * sl[j] * lm1 - (l + 1.0) * sl[j + 1] * nxt) - kap * cur;
           if (j == 0) d = -k * nxt - kap * (cur - 4.0 * P0);
-          if (j == 2) d = k / 5.0 * (2.0 * lm1 - 3.0 * nxt) - kap * (cur - 4.0 / 5.0 * P0);
+          if (j == 2) d = k / 5.0 * (2.0 * s_l2 * lm1 - 3.0 * s_l3 * nxt)
+                          - kap * (cur - 4.0 / 5.0 * P0);
         }
       }
       dy[L.G_g + j] = d;
@@ -392,9 +427,10 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
       double d = 0.0;
       if (ur_hier) {
         const double l = 3.0 + j, cur = y[L.F_ur + j];
-        const double lm1 = j == 0 ? 2.0 * shear_ur : y[L.F_ur + j - 1];
-        d = j < nU - 1 ? k / (2.0 * l + 1.0) * (l * lm1 - (l + 1.0) * y[L.F_ur + j + 1])
-                       : k * (lm1 - (nU + 2 + 1.0) * cotKgen * cur);
+        const double lm1 = j == 0 ? 2.0 * s_l2 * shear_ur : y[L.F_ur + j - 1];
+        d = j < nU - 1 ? k / (2.0 * l + 1.0) * (l * sl[j + 3] * lm1
+                                                - (l + 1.0) * sl[j + 4] * y[L.F_ur + j + 1])
+                       : k * (sl[j + 3] * lm1 - (nU + 2 + 1.0) * cotKgen * cur);
       }
       dy[L.F_ur + j] = d;
     }
@@ -415,7 +451,7 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
           dy[base + 1] = -aH * (1.0 - 3.0 * ca2) * t_fl + ceff2 / (1.0 + w_s) * k2 * d_fl
                          - k2 * s_fl;
           dy[base + 2] = -3.0 * (aH * (2.0 / 3.0 - ca2 - pp_s / p_s / 3.0) + 1.0 / tau) * s_fl
-                         + 8.0 / 3.0 * cvis2 / (1.0 + w_s) * (t_fl + metric_continuity);
+                         + 8.0 / 3.0 * cvis2 / (1.0 + w_s) * s_l2 * (t_fl + metric_continuity);
         }
       } else {
         const double ax = a * T.x_fac[s];
@@ -433,10 +469,10 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
           } else {
             const double nxt = y[o + l + 1];
             if (l == 0) d = -qk_eps * nxt + metric_continuity * dl0 / 3.0;
-            else if (l == 1) d = qk_eps / 3.0 * (lm1 - 2.0 * nxt);
-            else if (l == 2) d = qk_eps / 5.0 * (2.0 * lm1 - 3.0 * nxt)
-                                 - metric_shear * 2.0 / 15.0 * dl0;
-            else d = qk_eps / (2.0 * l + 1.0) * (l * lm1 - (l + 1.0) * nxt);
+            else if (l == 1) d = qk_eps / 3.0 * (lm1 - 2.0 * s_l2 * nxt);
+            else if (l == 2) d = qk_eps / 5.0 * (2.0 * s_l2 * lm1 - 3.0 * s_l3 * nxt)
+                                 - s_l2 * metric_shear * 2.0 / 15.0 * dl0;
+            else d = qk_eps / (2.0 * l + 1.0) * (l * sl[l] * lm1 - (l + 1.0) * sl[l + 1] * nxt);
           }
           dy[o + l] = d;
         }
@@ -467,7 +503,7 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   }
   loc.delta_cb = delta_cb;
   loc.theta_cb = theta_cb;
-  loc.P = rsa ? 0.0 : (tca ? 5.0 * tca_shear_g / 8.0 : P0);
+  loc.P = rsa ? 0.0 : (tca ? 5.0 * s_l2 * tca_shear_g / 8.0 : P0);
   const double rpp_tot = fr.rho_tot + fr.p_tot;
   loc.aH = aH; loc.aH_prime = aH_prime; loc.h_prime = h_prime; loc.eta_prime = eta_prime;
   loc.alpha = alpha; loc.alpha_prime = alpha_prime; loc.theta_b_prime = theta_b_prime;
@@ -485,20 +521,20 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
       -delta_p + fr.p_tot_prime * rho_plus_p_theta / (rpp_tot * k2) + rho_plus_p_shear);
 }
 
-// --- stiff (Thomson) split: J_s y over the stiff range [0, theta_b].
-// Ends with team_sync().
+// --- stiff (Thomson) split: J_s y over the stiff range [0, theta_b]; sl2 is
+// the lane's s_2. Ends with team_sync().
 PK_FN void stiff_apply(const Layout& L, const Team& tm, const Frame& fr, const Flags& fl,
-                       const Vec y, const Vec out) {
+                       double sl2, const Vec y, const Vec out) {
   const double kap = (fl.tca || fl.rsa) ? 0.0 : fr.kap;
   const double R = 4.0 / 3.0 * fr.rho_g / fr.rho_b;
   const double theta_g = y[L.theta_g], theta_b = y[L.theta_b], shear_g = y[L.shear_g];
-  const double P0 = (y[L.G_g] + y[L.G_g + 2] + 2.0 * shear_g) / 8.0;
+  const double P0 = (y[L.G_g] + y[L.G_g + 2] + 2.0 * sl2 * shear_g) / 8.0;
   if (tm.tid == 0) {
     out[L.delta_g] = 0.0;
     out[L.delta_b] = 0.0;
     out[L.theta_g] = kap * (theta_b - theta_g);
     out[L.theta_b] = R * kap * (theta_g - theta_b);
-    out[L.shear_g] = kap * (0.4 * P0 - shear_g);
+    out[L.shear_g] = kap * (0.4 / sl2 * P0 - shear_g);
   }
   for (int i = L.F_g + tm.tid; i < L.G_g + L.n_G_g; i += tm.nt) {
     double v = -kap * y[i];
@@ -509,16 +545,18 @@ PK_FN void stiff_apply(const Layout& L, const Team& tm, const Frame& fr, const F
   team_sync(tm);
 }
 
-// x = (I - gh J_s)^-1 r in closed form, in place on r. Ends with team_sync().
+// x = (I - gh J_s)^-1 r in closed form, in place on r: the Sherman-Morrison
+// 3x3 block has u = (0.05/s_2, 0.5, 0.1), v = (2 s_2, 1, 1). Ends with
+// team_sync().
 PK_FN void stiff_solve(const Layout& L, const Team& tm, const Frame& fr, const Flags& fl,
-                       double gh, const Vec r) {
+                       double sl2, double gh, const Vec r) {
   const double kap = (fl.tca || fl.rsa) ? 0.0 : fr.kap;
   const double R = 4.0 / 3.0 * fr.rho_g / fr.rho_b;
   const double a = gh * kap;
   const double r_sh = r[L.shear_g], r_G0 = r[L.G_g], r_G2 = r[L.G_g + 2];
   const double r_g = r[L.theta_g], r_b = r[L.theta_b];
   team_sync(tm);   // every thread has read before any writes
-  const double vr = 2.0 * r_sh + r_G0 + r_G2;
+  const double vr = 2.0 * sl2 * r_sh + r_G0 + r_G2;
   const double den = (1.0 + a) * (1.0 + (1.0 - 0.7) * a);
   for (int i = L.F_g + tm.tid; i < L.G_g + L.n_G_g; i += tm.nt) {
     double v = r[i] / (1.0 + a);
@@ -527,7 +565,7 @@ PK_FN void stiff_solve(const Layout& L, const Team& tm, const Frame& fr, const F
     r[i] = v;
   }
   if (tm.tid == 0) {
-    r[L.shear_g] = r_sh / (1.0 + a) + a * 0.05 * vr / den;
+    r[L.shear_g] = r_sh / (1.0 + a) + a * (0.05 / sl2) * vr / den;
     const double det = 1.0 + a * (1.0 + R);
     r[L.theta_g] = ((1.0 + a * R) * r_g + a * r_b) / det;
     r[L.theta_b] = (a * R * r_g + (1.0 + a) * r_b) / det;
@@ -539,23 +577,23 @@ PK_FN void stiff_solve(const Layout& L, const Team& tm, const Frame& fr, const F
 // team_sync().
 PK_FN void adiabatic_ic(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
                         const Lane& ln, const Vec y) {
-  const double k = ln.k, tau = fr.tau, ci = 1.0;
+  const double k = ln.k, tau = fr.tau, ci = 1.0, s2 = 1.0 - 3.0 * ln.K / (k * k);
   const double rho_r = fr.rho_g + fr.rho_ur, rho_m = fr.rho_b + fr.rho_cdm;
   const double fracnu = fr.rho_ur / rho_r, fracb = fr.rho_b / rho_m;
   const double om = fr.a * rho_m / sqrt(rho_r);
   const double kt = k * tau, ktau2 = kt * kt, ktau3 = kt * kt * kt;
-  const double delta_g = -ktau2 / 3.0 * (1.0 - om * tau / 5.0) * ci;
+  const double delta_g = -ktau2 / 3.0 * (1.0 - om * tau / 5.0) * ci * s2;
   const double theta_g = -k * ktau3 / 36.0 * (1.0 - 3.0 * (1.0 + 5.0 * fracb - fracnu)
-                                              / 20.0 / (1.0 - fracnu) * om * tau) * ci;
+                                              / 20.0 / (1.0 - fracnu) * om * tau) * ci * s2;
   const double theta_ur = -k * ktau3 / 36.0 / (4.0 * fracnu + 15.0) * (
-      4.0 * fracnu + 11.0 + 12.0
+      4.0 * fracnu + 11.0 + 12.0 * s2
       - 3.0 * (8.0 * fracnu * fracnu + 50.0 * fracnu + 275.0) / 20.0
-      / (2.0 * fracnu + 15.0) * tau * om) * ci;
-  const double shear_ur = ktau2 / (45.0 + 12.0 * fracnu) * 2.0 * (
+      / (2.0 * fracnu + 15.0) * tau * om) * ci * s2;
+  const double shear_ur = ktau2 / (45.0 + 12.0 * fracnu) * (3.0 * s2 - 1.0) * (
       1.0 + (4.0 * fracnu - 5.0) / 4.0 / (2.0 * fracnu + 15.0) * tau * om) * ci;
   const double l3_ur = ktau3 * 2.0 / 7.0 / (12.0 * fracnu + 45.0) * ci;
   double eta_hat = -ci * ktau2 / 12.0 / (15.0 + 4.0 * fracnu) * (
-      5.0 + 4.0 * fracnu
+      5.0 + 4.0 * s2 * fracnu
       - (16.0 * fracnu * fracnu + 280.0 * fracnu + 325.0) / 10.0 / (2.0 * fracnu + 15.0) * tau * om);
   eta_hat = eta_hat + (ci - ln.eta_off);
   for (int i = tm.tid; i < L.n; i += tm.nt) y[i] = 0.0;
@@ -597,14 +635,14 @@ PK_FN void remap_tca_off(const Layout& L, const Tables& T, const Team& tm, const
   rhs_full(L, T, tm, fr, ln, fl, y, y, false, loc);
   team_sync(tm);   // every thread has read y
   if (tm.tid == 0) {
-    const double kk = ln.k / fr.kap;
-    const double shear_g = 8.0 / 5.0 * loc.P;
+    const double kk = ln.k / fr.kap, s_l2 = ln.sl[2], s_l3 = ln.sl[3];
+    const double shear_g = 8.0 / 5.0 * loc.P / s_l2;   // P = 5 s_2 shear_g / 8 under TCA
     y[L.shear_g] = shear_g;
-    y[L.F_g] = 6.0 / 7.0 * kk * shear_g;
+    y[L.F_g] = 6.0 / 7.0 * kk * s_l3 * shear_g;
     y[L.G_g] = 2.5 * shear_g;
-    y[L.G_g + 1] = kk * (5.0 - 2.0) / 6.0 * shear_g;
+    y[L.G_g + 1] = kk * (5.0 - 2.0 * s_l2) / 6.0 * shear_g;
     y[L.G_g + 2] = 0.5 * shear_g;
-    y[L.G_g + 3] = kk * 3.0 / 14.0 * shear_g;
+    y[L.G_g + 3] = kk * 3.0 * s_l3 / 14.0 * shear_g;
   }
   team_sync(tm);
 }
@@ -673,17 +711,18 @@ PK_FN void compute_sources(const Layout& L, const Tables& T, const Team& tm, con
 }
 
 // Scratch of one lane, in doubles: y, Y, ynew (n each), FE (6 n), FI (6 nst),
-// E (nst), with nst = theta_b + 1 the stiff range, and the frame buffer.
+// E (nst), with nst = theta_b + 1 the stiff range, the frame buffer and the
+// s_l table.
 PK_HOST_FN long work_doubles(const Layout& L) {
-  return 9L * L.n + 7L * (L.theta_b + 1) + kFrameCols;
+  return 9L * L.n + 7L * (L.theta_b + 1) + kFrameCols + sl_count(L);
 }
 
 // Integrate one lane from tau_ini through every sample (solve.py `_step`
 // until the lane's last sample), writing its source rows to S (ntau, 27).
 // rtol/atol: this lane's per-component tolerances; work: the lane's scratch,
-// shared by the team. Every thread returns the same status word and step
-// count.
-PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, const Lane& ln,
+// shared by the team (ln.sl is set to its s_l table). Every thread returns the
+// same status word and step count.
+PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane ln,
                          double tau_ini, const double* taus, int ntau, const double* rtol,
                          const double* atol, long max_steps, const Vec work, double* S,
                          long long* nsteps_out, long long* prof_out = nullptr) {
@@ -691,9 +730,19 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, const
   const int n = L.n, nst = L.theta_b + 1, ns = L.ns;
   const Vec y = work, Y = work + n, ynew = work + 2L * n, FE = work + 3L * n;
   const Vec FI = work + 9L * n, E = work + 9L * n + 6L * nst, fbuf = E + nst;
+  const Vec sl = fbuf + kFrameCols;
   const double sw[4] = {ln.t_tca, ln.t_ufa, ln.t_rsa, ln.t_ncfa};
   const int nsw = ns ? 4 : 3;
   const double inf = INFINITY;
+
+  // s_l of this lane, once: the max(., 0) clamp keeps the closed k_min lanes
+  // (where 1 - K (l^2 - 1)/k^2 < 0 for large l) real
+  const double k2 = ln.k * ln.k;
+  for (int l = tid; l < sl_count(L); l += nt)
+    sl[l] = ln.sgnK == 0 ? 1.0 : sqrt(fmax(1.0 - ln.K * ((double)l * l - 1.0) / k2, 0.0));
+  team_sync(tm);
+  ln.sl = sl;
+  const double sl2 = sl[2];
 
   Frame fr;
   double t = tau_ini, h = 0.1 * tau_ini;
@@ -735,12 +784,12 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, const
         }
         team_sync(tm);
         PK_PROF(1)
-        stiff_solve(L, tm, fr, fl, gh, Y);
+        stiff_solve(L, tm, fr, fl, sl2, gh, Y);
         PK_PROF(2)
       }
       const Vec Ys = i == 0 ? y : Y;
       Locals unused;
-      stiff_apply(L, tm, fr, fl, Ys, fi);
+      stiff_apply(L, tm, fr, fl, sl2, Ys, fi);
       PK_PROF(3)
       rhs_full(L, T, tm, fr, ln, fl, Ys, fe, true, unused);
       PK_PROF(4)
@@ -780,7 +829,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, const
       }
       if (pass == 0) {
         team_sync(tm);
-        stiff_solve(L, tm, fr, fl, gh, E);
+        stiff_solve(L, tm, fr, fl, sl2, gh, E);
       }
     }
     ratio = team_max(tm, ratio);

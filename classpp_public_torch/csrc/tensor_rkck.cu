@@ -36,7 +36,8 @@ __global__ void __launch_bounds__(kWarp)
 tensor_rkck_kernel(tk::Layout L, tk::Tables T,
                    const double* __restrict__ lanes,   // (4, nl): k, tau_ini, t_tca, t_rsa
                    const double* __restrict__ taus,    // (ntau,)
-                   double rtol, long max_interval_steps, int nlanes, int ntau,
+                   double rtol, double K, int sgnK, long max_interval_steps, int nlanes,
+                   int ntau,
                    double* __restrict__ S,             // (nl, ntau, 2)
                    long long* __restrict__ nsteps,     // (nl,)
                    int* __restrict__ status) {         // (nl,)
@@ -48,6 +49,9 @@ tensor_rkck_kernel(tk::Layout L, tk::Tables T,
   const double tau_ini = lanes[nlanes + lane];
   ln.t_tca = lanes[2 * nlanes + lane];
   ln.t_rsa = lanes[3 * nlanes + lane];
+  ln.K = K;
+  ln.sgnK = sgnK;
+  ln.sl = nullptr;
   long long steps = 0;
   const int st = tk::integrate_lane(L, T, tm, ln, tau_ini, taus, ntau, rtol,
                                     max_interval_steps, work, S + 2L * lane * ntau, &steps);
@@ -59,15 +63,16 @@ tensor_rkck_kernel(tk::Layout L, tk::Tables T,
 
 }  // namespace
 
-// layout: kLayoutInts host ints in tk::Layout order. Every other pointer is a
-// device pointer.
+// layout: kLayoutInts host ints in tk::Layout order. K: the spatial
+// curvature in 1/Mpc^2, sgnK its sign. Every other pointer is a device
+// pointer.
 extern "C" int tensor_rkck_launch(const int* layout, const double* lanes, const double* taus,
                                   const double* bg_y, const double* bg_y2, double bg_x0,
                                   double bg_dx, int bg_n, const double* th_y,
                                   const double* th_y2, double th_x0, double th_dx, int th_n,
-                                  double rtol, long long max_interval_steps, int nlanes,
-                                  int ntau, double* S, long long* nsteps, int* status,
-                                  void* stream) {
+                                  double rtol, double K, int sgnK, long long max_interval_steps,
+                                  int nlanes, int ntau, double* S, long long* nsteps,
+                                  int* status, void* stream) {
   tk::Layout L;
   int* li = reinterpret_cast<int*>(&L);
   for (int i = 0; i < tk::kLayoutInts; ++i) li[i] = layout[i];
@@ -80,6 +85,7 @@ extern "C" int tensor_rkck_launch(const int* layout, const double* lanes, const 
   T.bg_ncol = tk::kNBg + L.ns;
   T.th_y = th_y; T.th_y2 = th_y2; T.th_x0 = th_x0; T.th_dx = th_dx; T.th_n = th_n;
   tensor_rkck_kernel<<<nlanes, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      L, T, lanes, taus, rtol, (long)max_interval_steps, nlanes, ntau, S, nsteps, status);
+      L, T, lanes, taus, rtol, K, sgnK, (long)max_interval_steps, nlanes, ntau, S, nsteps,
+      status);
   return (int)cudaGetLastError();
 }

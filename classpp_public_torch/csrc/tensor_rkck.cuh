@@ -15,9 +15,16 @@
 //
 // Counterparts, line by line: classpp_public_torch/models/perturbations/
 // tensors.py (rhs_full, tensor_ic, remap_tca_off, remap_rsa_on,
-// tensor_rkck_plain) and ops/ode.py (rkck_step). Flat universe; photons,
-// polarization and (unless the method is `photons`) one massless-neutrino
-// hierarchy driven by rho_ur + 3 sum p_ncdm.
+// tensor_rkck_plain) and ops/ode.py (rkck_step). Open, flat or closed
+// universe; photons, polarization and (unless the method is `photons`) one
+// massless-neutrino hierarchy driven by rho_ur + 3 sum p_ncdm.
+//
+// Curvature K (sign sgnK) enters through s_l = sqrt(max(1 - K (l^2 - 1)/k^2,
+// 0)), computed once per lane into its table `sl` in shared memory (the clamp
+// keeps the closed k_min lanes, k^2 = (6 - 1e-4) K, real), cotKgen (one
+// tan/tanh per right-hand side, only when sgnK != 0), the k^2 + 2K of the gw
+// equation and the curved initial amplitude. With sgnK == 0 every s_l is
+// exactly 1 and cotKgen = 1/(k tau): the flat arithmetic is unchanged.
 
 #pragma once
 
@@ -95,7 +102,19 @@ struct Frame {
 
 struct Lane {
   double k, t_tca, t_rsa;
+  double K;              // spatial curvature [Mpc^-2]
+  int sgnK;              // its sign: 0 flat, -1 open, +1 closed
+  const double* sl;      // s_l, l = 0..sl_count - 1 (set by integrate_lane)
 };
+
+// Entries of a lane's s_l table: s_{l+1} of the last moment of every
+// hierarchy included (tensors.py sl_count).
+TK_HOST_FN int sl_count(const Layout& L) {
+  int c = L.nF;
+  if (L.nG > c) c = L.nG;
+  if (L.nU > c) c = L.nU;
+  return c + 1;
+}
 
 // Table values at tau, the same in every thread; the table row meets in
 // `buf` (kFrameCols doubles, shared by the team; team::table_row).
@@ -113,11 +132,28 @@ TK_FN void frame_at(const Tables& T, const Team& tm, double tau, double* buf, Fr
 // The free-streaming hierarchy derivative of block B (length nl) at moment
 // l >= 1 away from the explicit low moments (tensors.py `_hier_deriv`):
 // generic coupling, or the truncation at l = nl - 1, minus kap B_l.
-TK_FN double hier(const double* B, int l, int nl, double k, double ck, double kap) {
+TK_FN double hier(const double* B, int l, int nl, double k, double ck, const double* sl,
+                  double kap) {
   const double d = l == nl - 1
-                       ? k * (B[l - 1] - (double)nl * ck * B[l])
-                       : k / (2.0 * l + 1.0) * ((double)l * B[l - 1] - (l + 1.0) * B[l + 1]);
+                       ? k * (sl[l] * B[l - 1] - (double)nl * ck * B[l])
+                       : k / (2.0 * l + 1.0) * ((double)l * sl[l] * B[l - 1]
+                                                - (l + 1.0) * sl[l + 1] * B[l + 1]);
   return d - kap * B[l];
+}
+
+// gw at the initial time (tensors.py tensor_amplitude): 1/sqrt(6), times the
+// curved eigentensor factor and, open, the bubble-nucleation factor.
+TK_FN double gw_initial(const Lane& ln) {
+  double amp = 1.0 / kSqrt6;
+  if (ln.sgnK == 0) return amp;
+  const double k2 = ln.k * ln.k, K = ln.K;
+  amp = amp * sqrt(k2 * (k2 - K) / ((k2 + 3.0 * K) * (k2 + 2.0 * K)));
+  if (ln.sgnK < 0) {
+    const double q2 = fmax(k2 + 3.0 * K, 0.0);
+    amp = amp * sqrt(tanh(3.141592653589793 / 2.0 * sqrt(q2) / sqrt(-K)));
+    if (!(k2 + 3.0 * K >= 0.0)) amp = 0.0;
+  }
+  return amp;
 }
 
 TK_FN double P2_of(const Layout& L, const Vec y) {
@@ -130,10 +166,18 @@ TK_FN double P2_of(const Layout& L, const Vec y) {
 // dy/dtau into dy (tensors.py rhs_full); ends with team_sync().
 TK_FN void rhs(const Layout& L, const Team& tm, const Frame& fr, const Lane& ln, bool tca,
                bool rsa, const Vec y, Vec dy) {
-  const double k = ln.k, k2 = k * k;
+  const double k = ln.k, k2 = k * k, K = ln.K;
   const double a = fr.a, aH = a * fr.H, a2 = a * a, kap = fr.kap;
   const bool hier_on = !tca && !rsa;
-  const double ck = 1.0 / (k * fr.tau);
+  const double* sl = ln.sl;
+  const double s_l2 = sl[2], s_l3 = sl[3], s_l4 = sl[4], s2 = s_l2 * s_l2;
+  double ck;
+  if (ln.sgnK == 0) {
+    ck = 1.0 / (k * fr.tau);
+  } else {
+    const double sab = sqrt(fabs(K));
+    ck = sab / (k * (ln.sgnK > 0 ? tan(sab * fr.tau) : tanh(sab * fr.tau)));
+  }
   const double* F = y + L.F;
   const double* G = y + L.G;
   const double* U = y + L.U;
@@ -150,27 +194,27 @@ TK_FN void rhs(const Layout& L, const Team& tm, const Frame& fr, const Lane& ln,
     if (c == 0) {
       d = gwdot;
     } else if (c == 1) {
-      d = -2.0 * aH * gwdot - k2 * y[0] + gw_src_g + gw_src_ur;
+      d = -2.0 * aH * gwdot - (k2 + 2.0 * K) * y[0] + gw_src_g + gw_src_ur;
     } else if (c < L.G) {                     // photon temperature
       const int l = c - L.F;
       if (!hier_on) d = 0.0;
       else if (l == 0) d = -4.0 / 3.0 * F[1] - kap * (F[0] + kSqrt6 * P2) + kSqrt6 * gwdot;
-      else if (l == 1) d = k2 * (F[0] / 4.0 - F[2]) - kap * F[1];
-      else if (l == 2) d = 4.0 / 15.0 * F[1] - 3.0 / 10.0 * k * F[3] - kap * F[2];
-      else if (l == 3) d = k / 7.0 * (6.0 * F[2] - 4.0 * F[4]) - kap * F[3];
-      else d = hier(F, l, L.nF, k, ck, kap);
+      else if (l == 1) d = k2 * (F[0] / 4.0 - s_l2 * F[2]) - kap * F[1];
+      else if (l == 2) d = 4.0 / 15.0 * s_l2 * F[1] - 3.0 / 10.0 * k * s_l3 * F[3] - kap * F[2];
+      else if (l == 3) d = k / 7.0 * (6.0 * s_l3 * F[2] - 4.0 * s_l4 * F[4]) - kap * F[3];
+      else d = hier(F, l, L.nF, k, ck, sl, kap);
     } else if (c < L.U) {                     // photon polarization
       const int l = c - L.G;
       if (!hier_on) d = 0.0;
       else if (l == 0) d = -k * G[1] - kap * (G[0] - kSqrt6 * P2);
-      else d = hier(G, l, L.nG, k, ck, kap);
+      else d = hier(G, l, L.nG, k, ck, sl, kap);
     } else {                                  // massless neutrinos
       const int l = c - L.U;
       if (l == 0) d = -4.0 / 3.0 * U[1] + kSqrt6 * gwdot;
-      else if (l == 1) d = k2 * (U[0] / 4.0 - U[2]);
-      else if (l == 2) d = 4.0 / 15.0 * U[1] - 3.0 / 10.0 * k * U[3];
-      else if (l == 3) d = k / 7.0 * (6.0 * U[2] - 4.0 * U[4]);
-      else d = hier(U, l, L.nU, k, ck, 0.0);
+      else if (l == 1) d = k2 * (U[0] / 4.0 - s2 * U[2]);
+      else if (l == 2) d = 4.0 / 15.0 * U[1] - 3.0 / 10.0 * k * s_l3 / s_l2 * U[3];
+      else if (l == 3) d = k / 7.0 * (6.0 * s_l3 * s_l2 * U[2] - 4.0 * s_l4 * U[4]);
+      else d = hier(U, l, L.nU, k, ck, sl, 0.0);
     }
     dy[c] = d;
   }
@@ -187,23 +231,29 @@ TK_FN void sources(const Layout& L, const Frame& fr, bool tca, bool rsa, const V
 }
 
 // Scratch of one lane, in doubles: y, Y, y5 (n each), the six stage
-// derivatives (6 n) and the frame buffer.
-TK_HOST_FN long work_doubles(const Layout& L) { return 9L * L.n + kFrameCols; }
+// derivatives (6 n), the frame buffer and the s_l table.
+TK_HOST_FN long work_doubles(const Layout& L) { return 9L * L.n + kFrameCols + sl_count(L); }
 
 // Integrate one lane from tau_ini through every sample (tensors.py
 // tensor_rkck_plain / solve_one_k), writing its (S_T2, S_P) rows to S
-// (ntau, 2). Every thread returns the same status word and step count.
-TK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, const Lane& ln,
+// (ntau, 2). ln.sl is set to the lane's s_l table in `work`. Every thread
+// returns the same status word and step count.
+TK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane ln,
                          double tau_ini, const double* taus, int ntau, double rtol,
                          long max_interval_steps, const Vec work, double* S,
                          long long* nsteps_out) {
   const int tid = tm.tid, nt = tm.nt, n = L.n;
   const Vec y = work, Y = work + n, y5 = work + 2L * n, K = work + 3L * n;
-  const Vec fbuf = work + 9L * n;
+  const Vec fbuf = work + 9L * n, sl = fbuf + kFrameCols;
   const double sw[2] = {ln.t_tca, ln.t_rsa};
   const double inf = INFINITY;
 
-  for (int c = tid; c < n; c += nt) y[c] = c == 0 ? 1.0 / kSqrt6 : 0.0;
+  const double k2 = ln.k * ln.k;
+  for (int l = tid; l < sl_count(L); l += nt)
+    sl[l] = ln.sgnK == 0 ? 1.0 : sqrt(fmax(1.0 - ln.K * ((double)l * l - 1.0) / k2, 0.0));
+  ln.sl = sl;
+  const double gw0 = gw_initial(ln);
+  for (int c = tid; c < n; c += nt) y[c] = c == 0 ? gw0 : 0.0;
   team_sync(tm);
   Frame fr;
   double t = tau_ini, h = 0.1 * tau_ini;

@@ -6,19 +6,22 @@
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libtensor_rkck_host.so tensor_rkck_host.cpp
 //
-// The arguments are those of tensor_rkck_launch (tensor_rkck.cu) with host
-// pointers and a scratch of work_doubles, without the stream. The package
-// never loads this library; tests/test_torch_tensors.py does.
+// The arguments of tensor_rkck_host_curved are those of tensor_rkck_launch
+// (tensor_rkck.cu) with host pointers and a scratch of work_doubles, without
+// the stream; tensor_rkck_host is the flat case (K = 0). The package never
+// loads this library; tests/test_torch_tensors.py and tests/test_torch_curved.py
+// do.
 
 #include "tensor_rkck.cuh"
 
-extern "C" int tensor_rkck_host(const int* layout, const double* lanes, const double* taus,
-                                const double* bg_y, const double* bg_y2, double bg_x0,
-                                double bg_dx, int bg_n, const double* th_y,
-                                const double* th_y2, double th_x0, double th_dx, int th_n,
-                                double rtol, long long max_interval_steps, int nlanes,
-                                int ntau, double* work, double* S, long long* nsteps,
-                                int* status) {
+extern "C" int tensor_rkck_host_curved(const int* layout, const double* lanes,
+                                       const double* taus, const double* bg_y,
+                                       const double* bg_y2, double bg_x0, double bg_dx, int bg_n,
+                                       const double* th_y, const double* th_y2, double th_x0,
+                                       double th_dx, int th_n, double rtol, double K, int sgnK,
+                                       long long max_interval_steps, int nlanes, int ntau,
+                                       double* work, double* S, long long* nsteps,
+                                       int* status) {
   tk::Layout L;
   int* li = reinterpret_cast<int*>(&L);
   for (int i = 0; i < tk::kLayoutInts; ++i) li[i] = layout[i];
@@ -33,9 +36,24 @@ extern "C" int tensor_rkck_host(const int* layout, const double* lanes, const do
     const double tau_ini = lanes[nlanes + lane];
     ln.t_tca = lanes[2 * nlanes + lane];
     ln.t_rsa = lanes[3 * nlanes + lane];
+    ln.K = K;
+    ln.sgnK = sgnK;
+    ln.sl = nullptr;
     status[lane] = tk::integrate_lane(L, T, tk::Team{0, 1}, ln, tau_ini, taus, ntau, rtol,
                                       (long)max_interval_steps, work, S + 2L * lane * ntau,
                                       &nsteps[lane]);
   }
   return 0;
+}
+
+extern "C" int tensor_rkck_host(const int* layout, const double* lanes, const double* taus,
+                                const double* bg_y, const double* bg_y2, double bg_x0,
+                                double bg_dx, int bg_n, const double* th_y,
+                                const double* th_y2, double th_x0, double th_dx, int th_n,
+                                double rtol, long long max_interval_steps, int nlanes,
+                                int ntau, double* work, double* S, long long* nsteps,
+                                int* status) {
+  return tensor_rkck_host_curved(layout, lanes, taus, bg_y, bg_y2, bg_x0, bg_dx, bg_n, th_y,
+                                 th_y2, th_x0, th_dx, th_n, rtol, 0.0, 0, max_interval_steps,
+                                 nlanes, ntau, work, S, nsteps, status);
 }

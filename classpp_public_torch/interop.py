@@ -4,7 +4,10 @@ test can feed a torch stage exactly the input the JAX stage had.
 
 Nothing here imports JAX: the caller turns the JAX objects into dicts
 (NamedTuple._asdict(), dataclasses.asdict(), numpy.asarray) first. A
-UniformSpline is a dict with keys x0, dx, y, y2.
+UniformSpline is a dict with keys x0, dx, y, y2. The curvature travels with
+the parameters (Omega_k) and the background (H0): K = -Omega_k H0^2 and its
+sign follow from them (`solve.curvature_of`, `Cosmology.curvature_K`), and a
+transfer result keeps its k(q).
 """
 
 from __future__ import annotations

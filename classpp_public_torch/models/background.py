@@ -1,4 +1,5 @@
-"""Background cosmology: flat LambdaCDM with massless and massive neutrinos.
+"""Background cosmology: LambdaCDM, open, flat or closed, with massless and
+massive neutrinos.
 
 Counterpart of classpp_public_tpu/models/background.py
 (`_compute_background_impl` :364, the ncdm momentum integrals :113-262,
@@ -231,10 +232,11 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
     for i in range(n_ncdm):
         rho_tot = rho_tot + rho_ncdm[i]
         p_tot = p_tot + p_ncdm[i]
-    rho_crit = rho_tot
+    # the curvature term Omega_k H0^2 / a^2 (background.py:759-764)
+    rho_crit = rho_tot + params.Omega_k * H0**2 / a**2
     H = torch.sqrt(rho_crit)
     aH = a * H
-    H_prime = -1.5 * a * (rho_tot + p_tot)
+    H_prime = -1.5 * a * (rho_tot + p_tot) - params.Omega_k * H0**2 / a
     p_tot_prime = -(4.0 / 3.0) * aH * (rho_g + rho_ur)
     for i in range(n_ncdm):
         # dp_ncdm/dtau = aH (pseudo_p - 5 p)  (tools/non_cold_dark_matter.cpp)
@@ -252,9 +254,18 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
     integrand_rs = cs * inv_aH
     rs = float(cs[0]) * tau_ini + spline_integrate(loga, integrand_rs,
                                                    spline_d2(loga, integrand_rs))
+    # comoving angular distance r(chi): sinh in open, sin in closed models
+    # (background.py:806-815)
     chi = tau0 - tau
-    ang_distance = chi * a
-    lum_distance = chi / a
+    sqrt_K = math.sqrt(abs(params.Omega_k)) * H0
+    if params.Omega_k > 1e-10:
+        r = torch.sinh(sqrt_K * chi) / sqrt_K
+    elif params.Omega_k < -1e-10:
+        r = torch.sin(sqrt_K * chi) / sqrt_K
+    else:
+        r = chi
+    ang_distance = r * a
+    lum_distance = r / a
 
     # --- growth factor (background_module.cpp:1975-1983): host RK4 march
     rho_m = rho_b + rho_cdm

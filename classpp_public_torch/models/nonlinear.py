@@ -10,7 +10,11 @@ window sums, R_nl comes from a monotone inversion and two Newton steps. The
 sums are the hand-written CUDA kernel csrc/halofit_sigma.cu on CUDA tensors
 (`halofit_sums`) and `halofit_sums_plain` on CPU tensors; the crossing
 search, the Newton steps and the closed-form fit are tensor code on (z,) and
-(z, k). hmcode and the Pk_equal method are not ported.
+(z, k). hmcode and the Pk_equal method are not ported. In a curved
+universe halofit feels Omega_k through Omega_m(z) and Omega_v(z) = 1 -
+Omega_m - Omega_r, read from the background columns whose rho_crit carries
+the curvature term (nonlinear.py:459-462; the Omega_k terms of
+nonlinear.py:390-399 and :505-515 belong to hmcode and Pk_equal).
 """
 
 from __future__ import annotations

@@ -6,11 +6,14 @@ Counterpart of classpp_public_tpu/models/perturbations/equations.py
 (`PertCtx` :134, `rhs_full` :225, `stiff_apply` :1017, `stiff_solve` :1057,
 `adiabatic_ic` :1109, `remap_tca_off` :1421, `remap_ufa_on` :1448,
 `remap_ncdmfa_on` :1456, `remap_rsa_on` :1482, `compute_sources` :1501),
-restricted to the flat synchronous-gauge branches: photons, polarization,
+restricted to the synchronous-gauge branches: photons, polarization,
 baryons, cdm, massless neutrinos, massive neutrinos (ncdm: the Psi_l(q)
 hierarchy on a shared momentum grid, or its fluid approximation) and the
-metric. In a flat universe the curvature factors s_l are exactly 1 and are
-left out; in synchronous gauge metric_euler is 0.
+metric, in open, flat and closed universes. The curvature enters through the
+free-streaming factors s_l = sqrt(1 - K (l^2 - 1)/k^2), s2 = 1 - 3 K/k^2 and
+cotKgen = sqrt|K| cot_K(sqrt|K| tau)/k (`curvature`); in a flat universe
+s_l = s2 = 1 exactly and cotKgen = 1/(k tau). In synchronous gauge
+metric_euler is 0.
 
 Every function takes the state as (L, n): one row per lane (k mode), each
 with its own time, wavenumber and approximation flags. The tables are read
@@ -58,6 +61,7 @@ class PertTables(NamedTuple):
     th: object    # UniformSpline over ln(tau)
     idx: PtIdx
     ncdm: NcdmCtx = None   # when idx.n_ncdm > 0
+    K: float = 0.0         # spatial curvature [Mpc^-2] = -Omega_k H0^2; sign idx.sgnK
 
 
 class Frame(NamedTuple):
@@ -85,7 +89,7 @@ class Frame(NamedTuple):
     pp_nc: torch.Tensor = None
 
 
-def make_tables(bg, bidx, th, idx: PtIdx, ncdm: NcdmCtx = None) -> PertTables:
+def make_tables(bg, bidx, th, idx: PtIdx, ncdm: NcdmCtx = None, K: float = 0.0) -> PertTables:
     """Restrict the runtime splines to BG_COLS (+ ncdm columns) / TH_COLS."""
     bi = [bidx[n] for n in BG_COLS]
     for i in range(idx.n_ncdm):
@@ -95,7 +99,7 @@ def make_tables(bg, bidx, th, idx: PtIdx, ncdm: NcdmCtx = None) -> PertTables:
     return PertTables(
         bg=b._replace(y=b.y[:, bi].contiguous(), y2=b.y2[:, bi].contiguous()),
         th=t._replace(y=t.y[:, ti].contiguous(), y2=t.y2[:, ti].contiguous()),
-        idx=idx, ncdm=ncdm)
+        idx=idx, ncdm=ncdm, K=K)
 
 
 def frame_at(tau: torch.Tensor, tables: PertTables) -> Frame:
@@ -144,6 +148,35 @@ def _w(cond, a, b):
     return torch.where(cond, a, b)
 
 
+class Curvature(NamedTuple):
+    """The curvature factors of the equations at (k, tau) per lane
+    (equations.py:257-272; perturb_workspace :2532 s_l, :7966 cotKgen, :5856
+    s2_squared)."""
+
+    s2: torch.Tensor        # s_l[2]^2 = 1 - 3 K/k^2
+    s_of_l: object          # l -> s_l = sqrt(max(1 - K (l^2 - 1)/k^2, 0)), (L, nl)
+    s_l2: torch.Tensor
+    s_l3: torch.Tensor
+    cotKgen: torch.Tensor
+
+
+def curvature(k: torch.Tensor, tau: torch.Tensor, K: float, sgnK: int) -> Curvature:
+    k2 = k * k
+
+    def s_of_l(lv):
+        return torch.sqrt(torch.clamp(1.0 - K * (lv * lv - 1.0) / k2[:, None], min=0.0))
+
+    s2 = 1.0 - 3.0 * K / k2
+    if sgnK == 0:
+        cotKgen = 1.0 / (k * tau)
+    else:
+        sab = math.sqrt(abs(K))
+        tanK = torch.tan(sab * tau) if sgnK > 0 else torch.tanh(sab * tau)
+        cotKgen = sab / (k * tanK)
+    return Curvature(s2, s_of_l, torch.sqrt(torch.clamp(s2, min=0.0)),
+                     torch.sqrt(torch.clamp(1.0 - K * 8.0 / k2, min=0.0)), cotKgen)
+
+
 def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     """dy/dtau (L, n) plus the local quantities the sources need."""
     idx = ctx.tables.idx
@@ -158,7 +191,9 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     app_a = Hp * a + 2.0 * aH * aH
     aH_prime = Hp * a + aH * aH
     R = 4.0 / 3.0 * rho_g / rho_b
-    cotKgen = 1.0 / (k * tau)
+    K = ctx.tables.K
+    cv = curvature(k, tau, K, idx.sgnK)
+    s2, s_l2, s_l3, cotKgen = cv.s2, cv.s_l2, cv.s_l3, cv.cotKgen
     tca, rsa, ufa = ctx.tca_on, ctx.rsa_on, ctx.ufa_on
     zero = torch.zeros_like(k)
 
@@ -211,7 +246,7 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
 
     # Einstein 00 (perturb_einstein :5911) and the radiation-streaming
     # values (perturb_rsa_delta_and_theta :9581-9615, rsa_MD_with_reio)
-    h_prime = (k2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH)
+    h_prime = (k2 * s2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH)
     rsa_delta_g = 4.0 / k2 * (aH * h_prime - k2 * eta) \
         - 4.0 / k2 * kap * (theta_b + 0.5 * h_prime)
     rsa_theta_g = -0.5 * h_prime + 3.0 / k2 * (
@@ -224,7 +259,7 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         rsa, 4.0 / 3.0 * rho_g * rsa_theta_g + 4.0 / 3.0 * rho_ur * rsa_theta_ur, zero)
 
     # Einstein 0i, trace, shear (:5941-5976)
-    eta_prime = 1.5 * a2 * rho_plus_p_theta / k2
+    eta_prime = (1.5 * a2 * rho_plus_p_theta + 0.5 * K * h_prime) / (k2 * s2)
     alpha = (h_prime + 6.0 * eta_prime) / (2.0 * k2)
     tca_shear_g_1 = 16.0 / 45.0 / kap * (theta_g + k2 * alpha)
     rho_plus_p_shear = rho_plus_p_shear + _w(tca, 4.0 / 3.0 * rho_g * tca_shear_g_1, zero)
@@ -254,7 +289,7 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     shear_g_prime1 = 16.0 / 45.0 * (tau_c * (theta_prime0 + metric_shear_prime)
                                     + dtau_c * (t_g + metric_shear))
     tca_slip = (1.0 - 2.0 * aH * F) * slip_1 + F * k2 * (
-        2.0 * aH * shear_g_tca1 + shear_g_prime1
+        2.0 * aH * s2 * shear_g_tca1 + s2 * shear_g_prime1
         - (1.0 / 3.0 - cb2) * (F * theta_prime0 + 2.0 * F_prime * theta_b))
     tca_shear_g = (1.0 - 11.0 / 6.0 * dtau_c) * shear_g_tca1 \
         - 11.0 / 6.0 * tau_c * 16.0 / 45.0 * tau_c * (theta_prime0 + metric_shear_prime)
@@ -263,42 +298,50 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     dy[:, idx.delta_g] = _w(rsa, zero, -4.0 / 3.0 * (t_g + metric_continuity))
     dy[:, idx.delta_b] = -(theta_b + metric_continuity)
     theta_b_prime_notca = -aH * theta_b + k2 * cb2 * delta_b + R * kap * (t_g - theta_b)
-    theta_b_prime_tca = (-aH * theta_b + k2 * (cb2 * delta_b + R * (d_g / 4.0 - tca_shear_g))
+    theta_b_prime_tca = (-aH * theta_b
+                         + k2 * (cb2 * delta_b + R * (d_g / 4.0 - s2 * tca_shear_g))
                          + R * tca_slip) / (1.0 + R)
     theta_b_prime = _w(tca, theta_b_prime_tca, theta_b_prime_notca)
     dy[:, idx.theta_b] = theta_b_prime
 
-    P0 = (G[:, 0] + G[:, 2] + 2.0 * shear_g) / 8.0
-    theta_g_prime_full = k2 * (d_g / 4.0 - shear_g) + kap * (theta_b - t_g)
+    P0 = (G[:, 0] + G[:, 2] + 2.0 * s_l2 * shear_g) / 8.0
+    theta_g_prime_full = k2 * (d_g / 4.0 - s2 * shear_g) + kap * (theta_b - t_g)
     theta_g_prime_tca = (-(theta_b_prime + aH * theta_b - k2 * cb2 * delta_b) / R
-                         + k2 * (0.25 * d_g - tca_shear_g))
+                         + k2 * (0.25 * d_g - s2 * tca_shear_g))
     dy[:, idx.theta_g] = _w(rsa, zero, _w(tca, theta_g_prime_tca, theta_g_prime_full))
 
     hier_on = (~(tca | rsa))[:, None]
     kc = k[:, None]
     kapc = kap[:, None]
-    d_shear_g = 0.5 * (8.0 / 15.0 * (theta_g + metric_shear) - 3.0 / 5.0 * k * F_g[:, 0]
-                       - kap * (2.0 * shear_g - 4.0 / 5.0 * P0))
+    d_shear_g = 0.5 * (8.0 / 15.0 * (theta_g + metric_shear)
+                       - 3.0 / 5.0 * k * s_l3 / s_l2 * F_g[:, 0]
+                       - kap * (2.0 * shear_g - 4.0 / 5.0 / s_l2 * P0))
     dy[:, idx.shear_g] = _w(hier_on[:, 0], d_shear_g, zero)
 
-    # photon moments l = 3..l_max_g (perturb_derivs :8152-8215)
+    # photon moments l = 3..l_max_g (perturb_derivs :8152-8215): the l
+    # couplings carry s_l, and F_2 enters the l = 3 equation as 2 s_2 shear_g
     lmax_g = idx.l_max_g
     ls = torch.arange(3, lmax_g + 1, dtype=y.dtype, device=y.device)
-    F_lm1 = torch.cat([(2.0 * shear_g)[:, None], F_g[:, :-1]], dim=1)
+    sl_g, sl_g_p1 = cv.s_of_l(ls), cv.s_of_l(ls + 1.0)
+    F_lm1 = torch.cat([(2.0 * s_l2 * shear_g)[:, None], F_g[:, :-1]], dim=1)
     F_lp1 = torch.cat([F_g[:, 1:], zero[:, None]], dim=1)
-    dF = kc / (2.0 * ls + 1.0) * (ls * F_lm1 - (ls + 1.0) * F_lp1) - kapc * F_g
-    dF[:, -1] = k * (F_g[:, -2] - (lmax_g + 1.0) * cotKgen * F_g[:, -1]) - kap * F_g[:, -1]
+    dF = kc / (2.0 * ls + 1.0) * (ls * sl_g * F_lm1 - (ls + 1.0) * sl_g_p1 * F_lp1) - kapc * F_g
+    dF[:, -1] = k * (sl_g[:, -1] * F_g[:, -2] - (lmax_g + 1.0) * cotKgen * F_g[:, -1]) \
+        - kap * F_g[:, -1]
     dy[:, idx.F_g: idx.F_g + idx.n_F_g] = _w(hier_on, dF, 0.0)
 
     # polarization l = 0..l_max_pol_g (:8180-8213)
     lmax_p = idx.l_max_pol_g
     lp = torch.arange(0, lmax_p + 1, dtype=y.dtype, device=y.device)
+    sl_p, sl_p_p1 = cv.s_of_l(lp), cv.s_of_l(lp + 1.0)
     G_lm1 = torch.cat([zero[:, None], G[:, :-1]], dim=1)
     G_lp1 = torch.cat([G[:, 1:], zero[:, None]], dim=1)
-    dG = kc / (2.0 * lp + 1.0) * (lp * G_lm1 - (lp + 1.0) * G_lp1) - kapc * G
+    dG = kc / (2.0 * lp + 1.0) * (lp * sl_p * G_lm1 - (lp + 1.0) * sl_p_p1 * G_lp1) - kapc * G
     dG[:, 0] = -k * G[:, 1] - kap * (G[:, 0] - 4.0 * P0)
-    dG[:, 2] = k / 5.0 * (2.0 * G[:, 1] - 3.0 * G[:, 3]) - kap * (G[:, 2] - 4.0 / 5.0 * P0)
-    dG[:, -1] = k * (G[:, -2] - (lmax_p + 1.0) * cotKgen * G[:, -1]) - kap * G[:, -1]
+    dG[:, 2] = k / 5.0 * (2.0 * s_l2 * G[:, 1] - 3.0 * s_l3 * G[:, 3]) \
+        - kap * (G[:, 2] - 4.0 / 5.0 * P0)
+    dG[:, -1] = k * (sl_p[:, -1] * G[:, -2] - (lmax_p + 1.0) * cotKgen * G[:, -1]) \
+        - kap * G[:, -1]
     dy[:, idx.G_g: idx.G_g + idx.n_G_g] = _w(hier_on, dG, 0.0)
 
     dy[:, idx.delta_cdm] = -metric_continuity
@@ -306,16 +349,18 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     # massless neutrinos (:8630-8672)
     ur_on = ~rsa
     dy[:, idx.delta_ur] = _w(ur_on, -4.0 / 3.0 * (theta_ur + metric_continuity), zero)
-    dy[:, idx.theta_ur] = _w(ur_on, k2 * (delta_ur / 4.0 - shear_ur), zero)
-    d_shear_ur_full = 0.5 * (8.0 / 15.0 * (theta_ur + metric_shear) - 3.0 / 5.0 * k * F_ur[:, 0])
+    dy[:, idx.theta_ur] = _w(ur_on, k2 * (delta_ur / 4.0 - s2 * shear_ur), zero)
+    d_shear_ur_full = 0.5 * (8.0 / 15.0 * (theta_ur + metric_shear)
+                             - 3.0 / 5.0 * k * s_l3 / s_l2 * F_ur[:, 0])
     d_shear_ur_ufa = -3.0 / tau * shear_ur + 2.0 / 3.0 * (theta_ur + metric_continuity)
     dy[:, idx.shear_ur] = _w(ur_on, _w(ufa, d_shear_ur_ufa, d_shear_ur_full), zero)
     lmax_u = idx.l_max_ur
     lu = torch.arange(3, lmax_u + 1, dtype=y.dtype, device=y.device)
-    Fu_lm1 = torch.cat([(2.0 * shear_ur)[:, None], F_ur[:, :-1]], dim=1)
+    sl_u, sl_u_p1 = cv.s_of_l(lu), cv.s_of_l(lu + 1.0)
+    Fu_lm1 = torch.cat([(2.0 * s_l2 * shear_ur)[:, None], F_ur[:, :-1]], dim=1)
     Fu_lp1 = torch.cat([F_ur[:, 1:], zero[:, None]], dim=1)
-    dFu = kc / (2.0 * lu + 1.0) * (lu * Fu_lm1 - (lu + 1.0) * Fu_lp1)
-    dFu[:, -1] = k * (F_ur[:, -2] - (lmax_u + 1.0) * cotKgen * F_ur[:, -1])
+    dFu = kc / (2.0 * lu + 1.0) * (lu * sl_u * Fu_lm1 - (lu + 1.0) * sl_u_p1 * Fu_lp1)
+    dFu[:, -1] = k * (sl_u[:, -1] * F_ur[:, -2] - (lmax_u + 1.0) * cotKgen * F_ur[:, -1])
     dy[:, idx.F_ur: idx.F_ur + idx.n_F_ur] = _w((ur_on & ~ufa)[:, None], dFu, 0.0)
 
     # ncdm (perturb_derivs :8725-8894)
@@ -325,14 +370,17 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         qk_eps = (k[:, None, None] * nc.q[None, None, :] / eps_nc)[..., None]   # (L, ns, nq, 1)
         dl0 = nc.dlnf0[None]
         ln_ = torch.arange(0, nl, dtype=y.dtype, device=y.device)
+        sl_n, sl_n_p1 = cv.s_of_l(ln_)[:, None, None, :], cv.s_of_l(ln_ + 1.0)[:, None, None, :]
         zcol = torch.zeros_like(Psi[..., :1])
         Ps_m1 = torch.cat([zcol, Psi[..., :-1]], dim=-1)
         Ps_p1 = torch.cat([Psi[..., 1:], zcol], dim=-1)
-        dPsi = qk_eps / (2.0 * ln_ + 1.0) * (ln_ * Ps_m1 - (ln_ + 1.0) * Ps_p1)
+        dPsi = qk_eps / (2.0 * ln_ + 1.0) * (ln_ * sl_n * Ps_m1 - (ln_ + 1.0) * sl_n_p1 * Ps_p1)
         dPsi[..., 0] = -qk_eps[..., 0] * Psi[..., 1] \
             + metric_continuity[:, None, None] * dl0 / 3.0
-        dPsi[..., 2] = qk_eps[..., 0] / 5.0 * (2.0 * Psi[..., 1] - 3.0 * Psi[..., 3]) \
-            - metric_shear[:, None, None] * 2.0 / 15.0 * dl0
+        sl2c, sl3c = s_l2[:, None, None], s_l3[:, None, None]
+        dPsi[..., 2] = qk_eps[..., 0] / 5.0 * (2.0 * sl2c * Psi[..., 1]
+                                               - 3.0 * sl3c * Psi[..., 3]) \
+            - sl2c * metric_shear[:, None, None] * 2.0 / 15.0 * dl0
         dPsi[..., -1] = qk_eps[..., 0] * Psi[..., -2] \
             - (1.0 + (nl - 1.0)) * (k * cotKgen)[:, None, None] * Psi[..., -1]
         # fluid approximation (ncdmfa_CLASS, :8770-8790)
@@ -346,7 +394,7 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
                                + ceff2 / (1.0 + w_nc) * k2c * d_fl - k2c * s_fl)
         dPsi_fl[:, :, 0, 2] = (
             -3.0 * (aHc * (2.0 / 3.0 - ca2 - pp_nc / p_nc / 3.0) + 1.0 / tau[:, None]) * s_fl
-            + 8.0 / 3.0 * cvis2 / (1.0 + w_nc) * (t_fl + mc))
+            + 8.0 / 3.0 * cvis2 / (1.0 + w_nc) * s_l2[:, None] * (t_fl + mc))
         dPsi = _w(ctx.ncdmfa_on[:, None, None, None], dPsi_fl, dPsi)
         dy[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block] = dPsi.reshape(y.shape[0], -1)
 
@@ -370,8 +418,7 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         rho_tot_species = rho_tot_species + sum_rho_nc
     else:
         delta_m, theta_m, delta_nc, theta_nc = delta_cb, theta_cb, zero, zero
-    P = _w(rsa, zero, _w(tca, 5.0 * tca_shear_g / 8.0,
-                          (G[:, 0] + G[:, 2] + 2.0 * shear_g) / 8.0))
+    P = _w(rsa, zero, _w(tca, 5.0 * s_l2 * tca_shear_g / 8.0, P0))
     rpp_tot = fr.rho_tot + fr.p_tot
     loc = dict(
         aH=aH, aH_prime=aH_prime, h_prime=h_prime, eta_prime=eta_prime, alpha=alpha,
@@ -396,7 +443,8 @@ def rhs(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
 # --- stiff (Thomson-drag) split for the IMEX evolver ------------------------
 # The only stiff entries are the kappa' terms: diagonal over the photon
 # hierarchies, a Sherman-Morrison 3x3 {shear_g, G0, G2} block through
-# P0 = (G0 + G2 + 2 shear)/8, and the 2x2 {theta_g, theta_b} drag. Masked out
+# P0 = (G0 + G2 + 2 s_2 shear)/8 (u = (0.05/s_2, 0.5, 0.1), v = (2 s_2, 1, 1),
+# v.u = 0.7 whatever s_2), and the 2x2 {theta_g, theta_b} drag. Masked out
 # under TCA and RSA (classpp_public_tpu equations.py:966-1103).
 _SM_U = (0.05, 0.5, 0.1)
 _SM_VU = 0.7
@@ -407,19 +455,25 @@ def _stiff_kap(fr: Frame, ctx: PertCtx):
     return torch.where(on, fr.kap, 0.0), 4.0 / 3.0 * fr.rho_g / fr.rho_b
 
 
+def _s_l2(ctx: PertCtx) -> torch.Tensor:
+    """s_l[2] per lane (equations.py:1012-1014), as `curvature` computes it."""
+    return torch.sqrt(torch.clamp(1.0 - 3.0 * ctx.tables.K / (ctx.k * ctx.k), min=0.0))
+
+
 def stiff_apply(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
     """J_s y: exactly the kappa'-proportional terms of rhs()."""
     idx = ctx.tables.idx
     kap, R = _stiff_kap(fr, ctx)
+    sl2 = _s_l2(ctx)
     theta_g = y[:, idx.theta_g]
     theta_b = y[:, idx.theta_b]
     shear_g = y[:, idx.shear_g]
     G = y[:, idx.G_g: idx.G_g + idx.n_G_g]
-    P0 = (G[:, 0] + G[:, 2] + 2.0 * shear_g) / 8.0
+    P0 = (G[:, 0] + G[:, 2] + 2.0 * sl2 * shear_g) / 8.0
     out = torch.zeros_like(y)
     out[:, idx.theta_g] = kap * (theta_b - theta_g)
     out[:, idx.theta_b] = R * kap * (theta_g - theta_b)
-    out[:, idx.shear_g] = kap * (0.4 * P0 - shear_g)
+    out[:, idx.shear_g] = kap * (0.4 / sl2 * P0 - shear_g)
     out[:, idx.F_g: idx.G_g + idx.n_G_g] = -kap[:, None] * y[:, idx.F_g: idx.G_g + idx.n_G_g]
     out[:, idx.G_g] += kap * 4.0 * P0
     out[:, idx.G_g + 2] += kap * 0.8 * P0
@@ -433,10 +487,11 @@ def stiff_solve(fr: Frame, gh: torch.Tensor, r: torch.Tensor, ctx: PertCtx) -> t
     a = gh * kap
     x = r.clone()
     x[:, idx.F_g: idx.G_g + idx.n_G_g] = r[:, idx.F_g: idx.G_g + idx.n_G_g] / (1.0 + a)[:, None]
+    sl2 = _s_l2(ctx)
     r_sh, r_G0, r_G2 = r[:, idx.shear_g], r[:, idx.G_g], r[:, idx.G_g + 2]
-    vr = 2.0 * r_sh + r_G0 + r_G2
+    vr = 2.0 * sl2 * r_sh + r_G0 + r_G2
     den = (1.0 + a) * (1.0 + (1.0 - _SM_VU) * a)
-    x[:, idx.shear_g] = r_sh / (1.0 + a) + a * _SM_U[0] * vr / den
+    x[:, idx.shear_g] = r_sh / (1.0 + a) + a * (_SM_U[0] / sl2) * vr / den
     x[:, idx.G_g] = r_G0 / (1.0 + a) + a * _SM_U[1] * vr / den
     x[:, idx.G_g + 2] = r_G2 / (1.0 + a) + a * _SM_U[2] * vr / den
     det = 1.0 + a * (1.0 + R)
@@ -447,10 +502,11 @@ def stiff_solve(fr: Frame, gh: torch.Tensor, r: torch.Tensor, ctx: PertCtx) -> t
 
 
 def adiabatic_ic(fr: Frame, ctx: PertCtx, curvature_ini: float = 1.0) -> torch.Tensor:
-    """Adiabatic initial conditions, synchronous gauge
-    (perturb_initial_conditions :4825-4935)."""
+    """Adiabatic initial conditions, synchronous gauge, with the curvature
+    factor s2 (perturb_initial_conditions :4825-4935; equations.py:1109-1161)."""
     idx = ctx.tables.idx
     k, tau, ci = ctx.k, fr.tau, curvature_ini
+    s2 = 1.0 - 3.0 * ctx.tables.K / (k * k)
     rho_r = fr.rho_g + fr.rho_ur
     rho_m = fr.rho_b + fr.rho_cdm
     fracnu = fr.rho_ur / rho_r
@@ -458,18 +514,18 @@ def adiabatic_ic(fr: Frame, ctx: PertCtx, curvature_ini: float = 1.0) -> torch.T
     om = fr.a * rho_m / torch.sqrt(rho_r)
     ktau2 = (k * tau) ** 2
     ktau3 = (k * tau) ** 3
-    delta_g = -ktau2 / 3.0 * (1.0 - om * tau / 5.0) * ci
+    delta_g = -ktau2 / 3.0 * (1.0 - om * tau / 5.0) * ci * s2
     theta_g = -k * ktau3 / 36.0 * (1.0 - 3.0 * (1.0 + 5.0 * fracb - fracnu)
-                                   / 20.0 / (1.0 - fracnu) * om * tau) * ci
+                                   / 20.0 / (1.0 - fracnu) * om * tau) * ci * s2
     theta_ur = -k * ktau3 / 36.0 / (4.0 * fracnu + 15.0) * (
-        4.0 * fracnu + 11.0 + 12.0
+        4.0 * fracnu + 11.0 + 12.0 * s2
         - 3.0 * (8.0 * fracnu * fracnu + 50.0 * fracnu + 275.0) / 20.0
-        / (2.0 * fracnu + 15.0) * tau * om) * ci
-    shear_ur = ktau2 / (45.0 + 12.0 * fracnu) * 2.0 * (
+        / (2.0 * fracnu + 15.0) * tau * om) * ci * s2
+    shear_ur = ktau2 / (45.0 + 12.0 * fracnu) * (3.0 * s2 - 1.0) * (
         1.0 + (4.0 * fracnu - 5.0) / 4.0 / (2.0 * fracnu + 15.0) * tau * om) * ci
     l3_ur = ktau3 * 2.0 / 7.0 / (12.0 * fracnu + 45.0) * ci
     eta_hat = -ci * ktau2 / 12.0 / (15.0 + 4.0 * fracnu) * (
-        5.0 + 4.0 * fracnu
+        5.0 + 4.0 * s2 * fracnu
         - (16.0 * fracnu**2 + 280.0 * fracnu + 325.0) / 10.0 / (2.0 * fracnu + 15.0) * tau * om)
     eta_hat = eta_hat + (ci - ctx.eta_off)
     y = torch.zeros((k.shape[0], idx.size), dtype=k.dtype, device=k.device)
@@ -503,18 +559,21 @@ def adiabatic_ic(fr: Frame, ctx: PertCtx, curvature_ini: float = 1.0) -> torch.T
 
 def remap_tca_off(y: torch.Tensor, fr: Frame, ctx: PertCtx) -> torch.Tensor:
     """Fill the photon hierarchy from its tight-coupling values when TCA
-    switches off (perturb_vector_init :3900-3920)."""
+    switches off, with the curvature factors s_2, s_3 (perturb_vector_init
+    :3900-3920; equations.py:1421-1445)."""
     idx = ctx.tables.idx
     _, loc = rhs_full(fr, y, ctx._replace(tca_on=torch.ones_like(ctx.tca_on)))
     kk = ctx.k / fr.kap
-    shear_g = 8.0 / 5.0 * loc["P"]
+    cv = curvature(ctx.k, fr.tau, ctx.tables.K, idx.sgnK)
+    s_l2, s_l3 = cv.s_l2, cv.s_l3
+    shear_g = 8.0 / 5.0 * loc["P"] / s_l2      # P = 5 s_2 shear_g / 8 under TCA
     y = y.clone()
     y[:, idx.shear_g] = shear_g
-    y[:, idx.F_g] = 6.0 / 7.0 * kk * shear_g
+    y[:, idx.F_g] = 6.0 / 7.0 * kk * s_l3 * shear_g
     y[:, idx.G_g] = 2.5 * shear_g
-    y[:, idx.G_g + 1] = kk * (5.0 - 2.0) / 6.0 * shear_g
+    y[:, idx.G_g + 1] = kk * (5.0 - 2.0 * s_l2) / 6.0 * shear_g
     y[:, idx.G_g + 2] = 0.5 * shear_g
-    y[:, idx.G_g + 3] = kk * 3.0 / 14.0 * shear_g
+    y[:, idx.G_g + 3] = kk * 3.0 * s_l3 / 14.0 * shear_g
     return y
 
 

@@ -31,18 +31,26 @@ def get_k_list(params: CosmoParams, pr: PrecisionParams, bg, th,
                l_scalar_max: int = 2500, k_max_for_pk: float = 10.0,
                has_cls: bool = True, has_pk: bool = True,
                k_max_cl_extra: float = 0.0, m_mode: int = 0) -> np.ndarray:
-    """k grid [1/Mpc] (perturb_get_k_list, :1628), flat case. k_max_cl_extra
-    raises the densely sampled CMB region (the lensing potential's l_lss_max
-    requirement, :1726-1733). m_mode (0 scalars, 2 tensors) moves k_min only
-    in open models (grids.py:41-46), so the flat grid is the same for both."""
+    """k grid [1/Mpc] (perturb_get_k_list, :1628; grids.py:27-83).
+    k_max_cl_extra raises the densely sampled CMB region (the lensing
+    potential's l_lss_max requirement, :1726-1733). m_mode (0 scalars, 2
+    tensors) moves k_min only in curved models (grids.py:39-60): open models
+    keep q^2 = k^2 + (1 + m) K positive, closed ones start at nu = 3, that is
+    k = sqrt((8 - m) K)."""
     tau0 = float(bg.tau0)
     k_rec = 2.0 * math.pi / float(th.rs_rec)
     ang = float(th.angular_rescaling)
-    k_min = pr.k_min_tau0 / tau0
+    K = -params.Omega_k * float(bg.H0) ** 2
+    if K < 0.0:
+        k_min = math.sqrt(-(1.0 + m_mode) * K + (pr.k_min_tau0 / tau0 / ang) ** 2)
+    elif K > 0.0:
+        k_min = math.sqrt((8.0 - m_mode - 1.0e-4) * K)
+    else:
+        k_min = pr.k_min_tau0 / tau0
     k_max_cmb = pr.k_max_tau0_over_l_max * l_scalar_max / tau0 / ang if has_cls else k_min
     k_max_cmb = max(k_max_cmb, k_max_cl_extra)
     k_max = max(k_max_cmb, k_max_for_pk if has_pk else 0.0)
-    scale2 = float(bg.H0) ** 2
+    scale2 = float(bg.H0) ** 2 + abs(K)
     ks = [k_min]
     k = k_min
     while k < k_max_cmb:

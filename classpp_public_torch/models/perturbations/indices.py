@@ -3,8 +3,9 @@ classpp_public_tpu/models/perturbations/indices.py).
 
 One fixed maximal layout: slots inactive under the current approximation
 carry zero derivative and are re-initialised by a remap at the switch. The
-port holds the flat, synchronous-gauge LambdaCDM + ur layout plus the ncdm
-phase-space block; the other species' flags of the JAX PtIdx raise.
+port holds the synchronous-gauge LambdaCDM + ur layout (open, flat or
+closed) plus the ncdm phase-space block; the other species' flags of the JAX
+PtIdx raise.
 """
 
 from __future__ import annotations
@@ -32,12 +33,14 @@ class PtIdx:
     has_scf: bool = False
     has_idm_dr: bool = False
     gauge: str = "synchronous"
+    # sign of the spatial curvature (reference pba->sgnK): 0 flat, -1 open,
+    # +1 closed (indices.py:40-42)
     sgnK: int = 0
     nbody: bool = False
 
     def __post_init__(self):
         extra = [n for n in ("has_fld", "has_dcdm", "has_scf",
-                             "has_idm_dr", "sgnK", "nbody") if getattr(self, n)]
+                             "has_idm_dr", "nbody") if getattr(self, n)]
         if extra or self.gauge != "synchronous":
             raise NotImplementedError(
                 f"perturbation layout {extra or [self.gauge]} is not ported "

@@ -106,6 +106,12 @@ def _ctx(lanes: Lanes, t, eta_off, tables):
                       ncdmfa_on=t >= lanes.t_ncfa)
 
 
+def curvature_of(params: CosmoParams, bg) -> tuple:
+    """(K, sgnK): K = -Omega_k H0^2 [Mpc^-2] (reference pba->K) and its sign."""
+    K = float(-params.Omega_k * float(bg.H0) ** 2)
+    return K, 0 if params.Omega_k == 0.0 else (1 if K > 0 else -1)
+
+
 def _eta_off(k):
     return (k < K_ETA_SPLIT).to(k.dtype)
 
@@ -270,12 +276,19 @@ def _layout_ints(idx: PtIdx) -> list:
             idx.n_l_ncdm if idx.n_ncdm else 0, idx.eta]
 
 
+def sl_count(idx: PtIdx) -> int:
+    """Entries of the lane's s_l table, l = 0..: every l a hierarchy couples
+    (pk::sl_count)."""
+    nl = idx.n_l_ncdm if idx.n_ncdm else 0
+    return max(idx.n_F_g + 4, idx.n_G_g + 1, idx.n_F_ur + 4, nl + 1)
+
+
 def work_doubles(idx: PtIdx) -> int:
     """Scratch doubles per lane of the kernel (pk::work_doubles; its shared
     memory per block): y, Y, ynew, 6 explicit stage vectors (9 n) and 6
-    implicit ones plus the error over the stiff range [0, theta_b], and the
-    28-column frame buffer (kFrameCols)."""
-    return 9 * idx.size + 7 * (idx.theta_b + 1) + 28
+    implicit ones plus the error over the stiff range [0, theta_b], the
+    28-column frame buffer (kFrameCols) and the s_l table."""
+    return 9 * idx.size + 7 * (idx.theta_b + 1) + 28 + sl_count(idx)
 
 
 KERNEL_STATUS = {1: "exceeded MAX_ITERATIONS", 2: "produced a non-finite step"}
@@ -322,8 +335,9 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
         layout, lane_tab.data_ptr(), taus.data_ptr(), bg.y.data_ptr(), bg.y2.data_ptr(),
         float(bg.x0), float(bg.dx), int(bg.n), th.y.data_ptr(), th.y2.data_ptr(),
         float(th.x0), float(th.dx), int(th.n), ncdm.data_ptr() if idx.n_ncdm else None,
-        rtol.data_ptr(), atol.data_ptr(), K_ETA_SPLIT, MAX_ITERATIONS, nl, ntau,
-        S.data_ptr(), nsteps.data_ptr(), status.data_ptr(), cuda.stream_ptr(dev))
+        rtol.data_ptr(), atol.data_ptr(), K_ETA_SPLIT, float(tables.K), int(idx.sgnK),
+        MAX_ITERATIONS, nl, ntau, S.data_ptr(), nsteps.data_ptr(), status.data_ptr(),
+        cuda.stream_ptr(dev))
     cuda.check(err, "perturb_ark")
     launches += 1
     st = status.cpu()   # the one host read: waits for the launch
@@ -377,11 +391,13 @@ def compute_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th
     k_size_cmb = int(np.searchsorted(ks, k_max_cmb, side="right")) if has_cls else 0
     k_size_cmb = min(k_size_cmb + 1, len(ks))
     nq_ncdm, q_gauss, q_max_ncdm = ncdm_q_rule(params, pr)
+    # curvature: K = -Omega_k H0^2 (solve.py:480-481)
+    K, sgnK = curvature_of(params, bg)
     idx = PtIdx(l_max_g=pr.l_max_g, l_max_pol_g=pr.l_max_pol_g, l_max_ur=pr.l_max_ur,
                 n_ncdm=params.N_ncdm, l_max_ncdm=pr.l_max_ncdm, q_size_ncdm=nq_ncdm,
-                q_gauss=q_gauss, q_max_ncdm=q_max_ncdm)
+                q_gauss=q_gauss, q_max_ncdm=q_max_ncdm, sgnK=sgnK)
     ncdm = make_ncdm_ctx(params, idx).to(device) if idx.n_ncdm else None
-    tables = eq.make_tables(bg, bidx, th, idx, ncdm)
+    tables = eq.make_tables(bg, bidx, th, idx, ncdm, K)
     tables = tables._replace(bg=tables.bg.to(device), th=tables.th.to(device))
     t_ncfa = sched.tau_ncdmfa_on if idx.n_ncdm else np.full_like(ks, np.inf)
     taus_t = torch.as_tensor(taus, dtype=torch.float64, device=device)

@@ -1,13 +1,17 @@
-"""Tensor-mode perturbations (gravitational waves), flat universe.
+"""Tensor-mode perturbations (gravitational waves) in open, flat and closed
+universes.
 
 Counterpart of classpp_public_tpu/models/perturbations/tensors.py (`TnIdx`
 :33-100, `rhs_full` :136-278, `tensor_ic` :285, `remap_tca_off` :303,
 `remap_rsa_on` :314, `solve_one_k` :321-381, `get_tensor_solver` :384-400,
 `compute_tensor_perturbations` :411-455). Reference physics:
 perturb_derivs tensor block (perturbations_module.cpp:9045-9228), the
-Einstein equation gw'' = -2 aH gw' - k^2 gw + gw_source (perturb_einstein
-:6036), the sources S_T2 = -gw' e^-kappa + g P and S_P = sqrt(6) g P
-(perturb_sources :7243-7273).
+Einstein equation gw'' = -2 aH gw' - (k^2 + 2K) gw + gw_source
+(perturb_einstein :6036), the sources S_T2 = -gw' e^-kappa + g P and
+S_P = sqrt(6) g P (perturb_sources :7243-7273). Curvature K enters through
+s_l = sqrt(max(1 - K (l^2 - 1)/k^2, 0)), cotKgen (tensors.py:156-171), the
+k^2 + 2K of the gw equation and the curved amplitude of the initial gw
+(`tensor_ic`); when flat, s_l = 1 and cotKgen = 1/(k tau) exactly.
 
 The state is gw, gw', the photon temperature F_l and polarization G_l
 hierarchies and (methods `massless` and, without massive neutrinos, `exact`)
@@ -37,6 +41,7 @@ from ...config.precision import PrecisionParams
 from ...ops import cuda
 from ...ops.ode import rkck_step
 from ..thermodynamics import ThIdx
+from .equations import curvature
 
 _SQRT6 = math.sqrt(6.0)
 MAX_INTERVAL_STEPS = 100_000   # per sample interval (solve_one_k :338)
@@ -61,6 +66,7 @@ class TnIdx:
     l_max_ur: int = 17
     n_ncdm: int = 0
     method: str = "massless"     # photons | massless | exact (without ncdm)
+    sgnK: int = 0                # sign of the curvature: 0 flat, -1 open, +1 closed
 
     gw = 0
     gwdot = 1
@@ -104,15 +110,16 @@ class TensorTables(NamedTuple):
     bg: object    # UniformSpline over ln(tau)
     th: object
     idx: TnIdx
+    K: float = 0.0   # spatial curvature [Mpc^-2]; its sign is idx.sgnK
 
 
-def make_tables(bg, bidx, th, idx: TnIdx) -> TensorTables:
+def make_tables(bg, bidx, th, idx: TnIdx, K: float = 0.0) -> TensorTables:
     bi = [bidx[n] for n in BG_COLS] + [bidx[f"p_ncdm{i}"] for i in range(idx.n_rho_ncdm)]
     ti = [ThIdx.ix[n] for n in TH_COLS]
     b, t = bg.lntau_spline, th.lntau_spline
     return TensorTables(
         bg=b._replace(y=b.y[:, bi].contiguous(), y2=b.y2[:, bi].contiguous()),
-        th=t._replace(y=t.y[:, ti].contiguous(), y2=t.y2[:, ti].contiguous()), idx=idx)
+        th=t._replace(y=t.y[:, ti].contiguous(), y2=t.y2[:, ti].contiguous()), idx=idx, K=K)
 
 
 class Frame(NamedTuple):
@@ -138,27 +145,30 @@ def frame_at(tau: torch.Tensor, tables: TensorTables) -> Frame:
 
 
 class TensorCtx(NamedTuple):
-    """Per-lane data fixed during one step: wavenumber and the approximation
-    flags at the step's start time."""
+    """Per-lane data fixed during one step: wavenumber, the approximation
+    flags at the step's start time, and the curvature K."""
 
     k: torch.Tensor
     tca_on: torch.Tensor   # bool
     rsa_on: torch.Tensor
     idx: TnIdx
+    K: float = 0.0
 
 
-def _hier_deriv(Fv, k, ck, kap=None):
-    """Free-streaming hierarchy derivative of F_l, l = 0..L, flat case
-    (`_hier_deriv` :116-133): k/(2l+1) (l F_{l-1} - (l+1) F_{l+1}), the
-    truncation k (F_{L-1} - (L+1) F_L/(k tau)) at l = L, minus kap F_l. The
-    caller overrides the low moments. Fv (L, nl); k, ck, kap (L,)."""
+def _hier_deriv(Fv, k, ck, s_of_l, kap=None):
+    """Free-streaming hierarchy derivative of F_l, l = 0..L (`_hier_deriv`
+    :116-133): k/(2l+1) (l s_l F_{l-1} - (l+1) s_{l+1} F_{l+1}), the
+    truncation k (s_L F_{L-1} - (L+1) cotKgen F_L) at l = L, minus kap F_l.
+    The caller overrides the low moments. Fv (L, nl); k, ck, kap (L,);
+    s_of_l(l) -> (L, len(l))."""
     nl = Fv.shape[1]
     ls = torch.arange(nl, dtype=Fv.dtype, device=Fv.device)
+    sl, sl1 = s_of_l(ls), s_of_l(ls + 1.0)
     zero = torch.zeros_like(Fv[:, :1])
     Fm1 = torch.cat([zero, Fv[:, :-1]], dim=1)
     Fp1 = torch.cat([Fv[:, 1:], zero], dim=1)
-    d = k[:, None] / (2.0 * ls + 1.0) * (ls * Fm1 - (ls + 1.0) * Fp1)
-    d[:, -1] = k * (Fv[:, -2] - nl * ck * Fv[:, -1])
+    d = k[:, None] / (2.0 * ls + 1.0) * (ls * sl * Fm1 - (ls + 1.0) * sl1 * Fp1)
+    d[:, -1] = k * (sl[:, -1] * Fv[:, -2] - nl * ck * Fv[:, -1])
     if kap is not None:
         d = d - kap[:, None] * Fv
     return d
@@ -166,7 +176,7 @@ def _hier_deriv(Fv, k, ck, kap=None):
 
 def rhs_full(fr: Frame, y: torch.Tensor, ctx: TensorCtx):
     """dy/dtau (L, n) and the sources (S_T2, S_P) of every lane (rhs_full
-    :136-278, flat: the curvature factors s_l are 1 and cot_K = 1/(k tau))."""
+    :136-278)."""
     idx = ctx.idx
     k = ctx.k
     k2 = k * k
@@ -177,7 +187,13 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: TensorCtx):
     kap = fr.kap
     tca, rsa = ctx.tca_on, ctx.rsa_on
     hier_on = (~tca) & (~rsa)
-    ck = 1.0 / (k * tau)
+    # curvature coefficients (the shared s_l array, perturb_workspace :2532);
+    # the tensor equations use s2 = s_l[2]^2
+    K = ctx.K
+    cv = curvature(k, tau, K, idx.sgnK)
+    s_of_l, s_l2, s_l3, ck = cv.s_of_l, cv.s_l2, cv.s_l3, cv.cotKgen
+    s_l4 = s_of_l(torch.full((1,), 4.0, dtype=k.dtype, device=k.device))[:, 0]
+    s2 = s_l2 * s_l2
 
     gw = y[:, idx.gw]
     gwdot = y[:, idx.gwdot]
@@ -198,7 +214,8 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: TensorCtx):
             rho_rel = rho_rel + 3.0 * fr.p_nc[:, i]
         gw_src_ur = -_SQRT6 * 4.0 * a2 * rho_rel * (delta_ur / 15.0 + 4.0 / 21.0 * shear_ur
                                                     + U[:, 4] / 35.0)
-    gw_pp = -2.0 * aH * gwdot - k2 * gw + gw_src_g + gw_src_ur
+    # the curvature shift k^2 -> k^2 + 2K (perturb_einstein :6039)
+    gw_pp = -2.0 * aH * gwdot - (k2 + 2.0 * K) * gw + gw_src_g + gw_src_ur
 
     P2 = -(1.0 / _SQRT6) * (delta_g / 10.0 + 2.0 / 7.0 * shear_g + 3.0 / 70.0 * F[:, 4]
                             - 3.0 / 5.0 * G[:, 0] + 6.0 / 7.0 * G[:, 2] - 3.0 / 70.0 * G[:, 4])
@@ -206,21 +223,21 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: TensorCtx):
     dy = torch.zeros_like(y)
     dy[:, idx.gw] = gwdot
     dy[:, idx.gwdot] = gw_pp
-    dF = _hier_deriv(F, k, ck, kap)
+    dF = _hier_deriv(F, k, ck, s_of_l, kap)
     dF[:, 0] = -4.0 / 3.0 * theta_g - kap * (delta_g + _SQRT6 * P2) + _SQRT6 * gwdot
-    dF[:, 1] = k2 * (delta_g / 4.0 - shear_g) - kap * theta_g
-    dF[:, 2] = 4.0 / 15.0 * theta_g - 3.0 / 10.0 * k * F[:, 3] - kap * shear_g
-    dF[:, 3] = k / 7.0 * (6.0 * shear_g - 4.0 * F[:, 4]) - kap * F[:, 3]
+    dF[:, 1] = k2 * (delta_g / 4.0 - s_l2 * shear_g) - kap * theta_g
+    dF[:, 2] = 4.0 / 15.0 * s_l2 * theta_g - 3.0 / 10.0 * k * s_l3 * F[:, 3] - kap * shear_g
+    dF[:, 3] = k / 7.0 * (6.0 * s_l3 * shear_g - 4.0 * s_l4 * F[:, 4]) - kap * F[:, 3]
     dy[:, idx.F: idx.F + idx.n_F] = torch.where(hier_on[:, None], dF, 0.0)
-    dG = _hier_deriv(G, k, ck, kap)
+    dG = _hier_deriv(G, k, ck, s_of_l, kap)
     dG[:, 0] = -k * G[:, 1] - kap * (G[:, 0] - _SQRT6 * P2)
     dy[:, idx.G: idx.G + idx.n_G] = torch.where(hier_on[:, None], dG, 0.0)
     if idx.n_ur:
-        dU = _hier_deriv(U, k, ck)
+        dU = _hier_deriv(U, k, ck, s_of_l)
         dU[:, 0] = -4.0 / 3.0 * theta_ur + _SQRT6 * gwdot
-        dU[:, 1] = k2 * (delta_ur / 4.0 - shear_ur)
-        dU[:, 2] = 4.0 / 15.0 * theta_ur - 3.0 / 10.0 * k * U[:, 3]
-        dU[:, 3] = k / 7.0 * (6.0 * shear_ur - 4.0 * U[:, 4])
+        dU[:, 1] = k2 * (delta_ur / 4.0 - s2 * shear_ur)
+        dU[:, 2] = 4.0 / 15.0 * theta_ur - 3.0 / 10.0 * k * s_l3 / s_l2 * U[:, 3]
+        dU[:, 3] = k / 7.0 * (6.0 * s_l3 * s_l2 * shear_ur - 4.0 * s_l4 * U[:, 4])
         dy[:, idx.ur: idx.ur + idx.n_ur] = dU
 
     P_src = torch.where(rsa, 0.0, torch.where(tca, 2.0 / 5.0 * _SQRT6 * gwdot / kap, P2))
@@ -229,11 +246,34 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: TensorCtx):
     return dy, (s_t2, s_p)
 
 
-def tensor_ic(idx: TnIdx, nlanes: int, dtype=torch.float64, device="cpu") -> torch.Tensor:
-    """Adiabatic tensor initial condition gw = 1/sqrt(6) (:5387); a gw_ini
-    other than 1 scales the sources after the solve."""
+def tensor_amplitude(k: torch.Tensor, K: float, sgnK: int) -> torch.Tensor:
+    """gw at the initial time per lane (tensor_ic :285-299): 1/sqrt(6), in
+    curved space times the eigentensor factor sqrt(k^2 (k^2 - K)/((k^2 + 3K)
+    (k^2 + 2K))) and, in open models, the bubble-nucleation factor
+    sqrt(tanh(pi/2 sqrt(q^2/-K))) with q^2 = k^2 + 3K (zero where q^2 < 0), so
+    that the primordial P_h(k) keeps its flat form."""
+    amp = torch.full_like(k, 1.0 / _SQRT6)
+    if sgnK == 0:
+        return amp
+    k2 = k * k
+    amp = amp * torch.sqrt(k2 * (k2 - K) / ((k2 + 3.0 * K) * (k2 + 2.0 * K)))
+    if sgnK < 0:
+        q2 = torch.clamp(k2 + 3.0 * K, min=0.0)
+        amp = amp * torch.sqrt(torch.tanh(math.pi / 2.0 * torch.sqrt(q2) / math.sqrt(-K)))
+        amp = torch.where(k2 + 3.0 * K >= 0.0, amp, 0.0)
+    return amp
+
+
+def tensor_ic(idx: TnIdx, nlanes: int, dtype=torch.float64, device="cpu", k=None,
+              K: float = 0.0) -> torch.Tensor:
+    """Adiabatic tensor initial state: gw from `tensor_amplitude` (flat when k
+    is None), everything else 0; a gw_ini other than 1 scales the sources
+    after the solve."""
     y = torch.zeros((nlanes, idx.size), dtype=dtype, device=device)
-    y[:, idx.gw] = 1.0 / _SQRT6
+    if k is None:
+        y[:, idx.gw] = 1.0 / _SQRT6
+    else:
+        y[:, idx.gw] = tensor_amplitude(k, K, idx.sgnK)
     return y
 
 
@@ -266,8 +306,8 @@ class TensorLanes(NamedTuple):
         return TensorLanes(*(v[sel] for v in self))
 
 
-def _ctx(lanes: TensorLanes, t, idx):
-    return TensorCtx(k=lanes.k, tca_on=t < lanes.t_tca, rsa_on=t >= lanes.t_rsa, idx=idx)
+def _ctx(lanes: TensorLanes, t, idx, K=0.0):
+    return TensorCtx(k=lanes.k, tca_on=t < lanes.t_tca, rsa_on=t >= lanes.t_rsa, idx=idx, K=K)
 
 
 def _stalled(nsteps, lanes):
@@ -290,7 +330,7 @@ def tensor_rkck_plain(lanes: TensorLanes, taus: torch.Tensor, tables: TensorTabl
     Y = torch.zeros((nl, ntau + 1, n), dtype=f64, device=dev)   # + a spare slot
     Yflat = Y.view(nl * (ntau + 1), n)
     ids = torch.arange(nl, device=dev)
-    y = tensor_ic(idx, nl, dtype=f64, device=dev)
+    y = tensor_ic(idx, nl, dtype=f64, device=dev, k=lanes.k, K=tables.K)
     t = lanes.tau_ini.clone()
     h = 0.1 * lanes.tau_ini
     j = torch.zeros(nl, dtype=torch.long, device=dev)
@@ -313,7 +353,7 @@ def tensor_rkck_plain(lanes: TensorLanes, taus: torch.Tensor, tables: TensorTabl
         cand = torch.where(sw > (t * (1.0 + 1e-14))[:, None], sw, torch.inf)
         t_stop = torch.minimum(cand.min(dim=1).values, t_b)
         h_eff = torch.minimum(h, t_stop - t)
-        ctx = _ctx(lanes, t, idx)
+        ctx = _ctx(lanes, t, idx, tables.K)
         y_new, err, k1 = rkck_step(lambda ti, yy: rhs_full(frame_at(ti, tables), yy, ctx)[0],
                                    t, y, h_eff)
         scale = rtol * (y.abs() + (h_eff[:, None] * k1).abs() + 1e-30) + 1e-11
@@ -342,7 +382,7 @@ def tensor_rkck_plain(lanes: TensorLanes, taus: torch.Tensor, tables: TensorTabl
     tau_rows = taus.repeat(nl)
     lane_rows = lanes.take(ids.repeat_interleave(ntau))
     _, (s_t2, s_p) = rhs_full(frame_at(tau_rows, tables), Y[:, :ntau].reshape(nl * ntau, n),
-                              _ctx(lane_rows, tau_rows, idx))
+                              _ctx(lane_rows, tau_rows, idx, tables.K))
     S = torch.stack([s_t2, s_p], dim=1).reshape(nl, ntau, 2)
     return S, nsteps
 
@@ -352,10 +392,17 @@ def _layout_ints(idx: TnIdx) -> list:
     return [idx.size, idx.F, idx.n_F, idx.G, idx.n_G, idx.ur, idx.n_ur, idx.n_rho_ncdm]
 
 
+def sl_count(idx: TnIdx) -> int:
+    """Entries of the lane's s_l table, l = 0..: every l a hierarchy couples
+    (tk::sl_count)."""
+    return max(idx.n_F, idx.n_G, idx.n_ur) + 1
+
+
 def work_doubles(idx: TnIdx) -> int:
     """Scratch doubles per lane of the kernel (tk::work_doubles): y, the
-    stage state, y5, six stage derivatives (9 n) and the frame buffer."""
-    return 9 * idx.size + 16
+    stage state, y5, six stage derivatives (9 n), the frame buffer and the
+    s_l table."""
+    return 9 * idx.size + 16 + sl_count(idx)
 
 
 KERNEL_STATUS = {1: "took MAX_INTERVAL_STEPS steps in one interval"}
@@ -393,8 +440,9 @@ def tensor_rkck(lanes: TensorLanes, taus: torch.Tensor, tables: TensorTables,
     err = lib.tensor_rkck_launch(
         layout, lane_tab.data_ptr(), taus.data_ptr(), bg.y.data_ptr(), bg.y2.data_ptr(),
         float(bg.x0), float(bg.dx), int(bg.n), th.y.data_ptr(), th.y2.data_ptr(),
-        float(th.x0), float(th.dx), int(th.n), float(rtol), MAX_INTERVAL_STEPS, nl, ntau,
-        S.data_ptr(), nsteps.data_ptr(), status.data_ptr(), cuda.stream_ptr(dev))
+        float(th.x0), float(th.dx), int(th.n), float(rtol), float(tables.K), int(idx.sgnK),
+        MAX_INTERVAL_STEPS, nl, ntau, S.data_ptr(), nsteps.data_ptr(), status.data_ptr(),
+        cuda.stream_ptr(dev))
     cuda.check(err, "tensor_rkck")
     launches += 1
     st = status.cpu()   # the one host read: waits for the launch
@@ -429,8 +477,9 @@ def check_tensor_method(params: CosmoParams) -> None:
 def compute_tensor_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th,
                                  l_tensor_max: int = 500, device=None) -> TensorResult:
     """The tensor source table on the tensor k grid (compute_tensor_perturbations
-    :411-455, flat)."""
+    :411-455)."""
     from .grids import get_k_list, get_k_schedule, get_tau_sampling
+    from .solve import curvature_of
 
     check_lcdm(params)
     check_tensor_method(params)
@@ -439,9 +488,10 @@ def compute_tensor_perturbations(params: CosmoParams, pr: PrecisionParams, bg, b
                     has_cls=True, has_pk=False, m_mode=2)
     taus = get_tau_sampling(params, pr, bg, bidx, th, has_cmb=True)
     sched = get_k_schedule(ks, pr, bg, bidx, th, tau_first_sample=float(taus[0]))
+    K, sgnK = curvature_of(params, bg)
     idx = TnIdx(pr.l_max_g_ten, pr.l_max_pol_g_ten, pr.l_max_ur, params.N_ncdm,
-                params.tensor_method)
-    tables = make_tables(bg, bidx, th, idx)
+                params.tensor_method, sgnK)
+    tables = make_tables(bg, bidx, th, idx, K)
     tables = tables._replace(bg=tables.bg.to(device), th=tables.th.to(device))
 
     def dt(a):

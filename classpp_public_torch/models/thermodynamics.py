@@ -754,8 +754,18 @@ def _compute_thermodynamics_impl(params, pr, bg, bidx, device) -> ThermoResult:
     bg_star = bg_at(lntau_star)
     z_star = float(1.0 / bg_star[bidx["a"]] - 1.0)
     rs_star = float(bg_star[bidx["rs"]])
-    ra_star = bg.tau0 - tau_star
-    ra_rec = bg.tau0 - tau_rec
+
+    def comoving_ang(chi):
+        """Comoving angular diameter distance r(chi) (thermodynamics.py:1060-1070)."""
+        K = -params.Omega_k * float(bg.H0) ** 2
+        if params.Omega_k > 1e-12:      # open, K < 0
+            return math.sinh(math.sqrt(-K) * chi) / math.sqrt(-K)
+        if params.Omega_k < -1e-12:     # closed, K > 0
+            return math.sin(math.sqrt(K) * chi) / math.sqrt(K)
+        return chi
+
+    ra_star = comoving_ang(bg.tau0 - tau_star)
+    ra_rec = comoving_ang(bg.tau0 - tau_rec)
     rd_rec = float(interp(torch.tensor(lntau_rec, dtype=f64), lntau_u, rd_u))
     rd_star = float(interp(torch.tensor(lntau_star, dtype=f64), lntau_u, rd_u))
     H0_SI = params.h * 1.0e5 / const.Mpc_over_m

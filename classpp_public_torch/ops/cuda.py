@@ -34,13 +34,17 @@ SIGNATURES = {
     "transfer_los_launch": [_P, _P, _D, _P, _P, _P, _P, _D, _I, _I, _I, _I, _P, _P],
     "lensing_wigner_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "perturb_ark_launch": [_P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _P, _P, _P,
-                           _D, _L, _I, _I, _P, _P, _P, _P],
+                           _D, _D, _I, _L, _I, _I, _P, _P, _P, _P],
     "halofit_sigma_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
     "recfast_history_launch": [_P, _P, _P, _D, _D, _I, _I, _P, _P],
     "tb_march_launch": [_P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P, _P],
-    "tensor_rkck_launch": [_P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _D, _L, _I, _I,
-                           _P, _P, _P, _P],
+    "tensor_rkck_launch": [_P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _D, _D, _I, _L,
+                           _I, _I, _P, _P, _P, _P],
     "transfer_tensor_los_launch": [_P, _P, _D, _P, _P, _P, _D, _P, _I, _I, _I, _I, _P, _P],
+    "transfer_los_curved_launch": [_P, _P, _D, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _I,
+                                   _P, _P],
+    "transfer_tensor_los_curved_launch": [_P, _P, _D, _P, _P, _P, _P, _D, _P, _D, _I, _I, _I, _I,
+                                          _I, _P, _P],
 }
 
 

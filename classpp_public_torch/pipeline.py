@@ -1,7 +1,8 @@
 """Pipeline orchestrator: the staged, lazily cached computation chain.
 
 Counterpart of classpp_public_tpu/pipeline.py (`OutputSelection`, the
-`Cosmology` stages :141-467, the tensor stages :295-313). Each stage is
+`Cosmology` stages :141-467, the tensor stages :295-313, the curvature
+`curvature_K` and `sgnK` :317-326). Each stage is
 computed once per parameter set; downstream stages pull upstream ones on
 demand. Stage order: background, thermodynamics, perturbations, primordial,
 nonlinear, transfer, tensor_perturbations, tensor_transfer (with tensor
@@ -215,8 +216,22 @@ class Cosmology:
 
             self._cache["tr"] = compute_transfer(
                 self._pert_for_transfer(self.perturbations), self.thermodynamics,
-                self.pr, l_max=self.l_max_internal)
+                self.pr, l_max=self.l_max_internal, K=self.curvature_K, sgnK=self.sgnK)
         return self._cache["tr"]
+
+    @property
+    def curvature_K(self) -> float:
+        """K = -Omega_k H0^2 [Mpc^-2] (reference pba->K)."""
+        from .models.perturbations.solve import curvature_of
+
+        return curvature_of(self.params, self.background[0])[0]
+
+    @property
+    def sgnK(self) -> int:
+        """The sign of K: 0 flat, -1 open, +1 closed."""
+        from .models.perturbations.solve import curvature_of
+
+        return curvature_of(self.params, self.background[0])[1]
 
     @property
     def tensor_perturbations(self):
@@ -236,7 +251,7 @@ class Cosmology:
 
             self._cache["ttr"] = compute_transfer_tensor(
                 self.tensor_perturbations, self.thermodynamics, self.pr,
-                l_max=self.out.l_tensor_max)
+                l_max=self.out.l_tensor_max, K=self.curvature_K, sgnK=self.sgnK)
         return self._cache["ttr"]
 
     @property
@@ -245,8 +260,10 @@ class Cosmology:
             from .models.spectra import compute_spectra
 
             tr_tensor = self.tensor_transfer if "t" in self.out.modes else None
-            self._cache["sp"] = compute_spectra(self.transfer, self.primordial,
-                                                l_max=self.l_max_internal, tr_tensor=tr_tensor)
+            self._cache["sp"] = compute_spectra(
+                self.transfer, self.primordial, l_max=self.l_max_internal, tr_tensor=tr_tensor,
+                sgnK=self.sgnK, K=self.curvature_K,
+                q_flat_nu=self.pr.hyper_flat_approximation_nu)
         return self._cache["sp"]
 
     @property

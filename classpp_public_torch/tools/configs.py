@@ -1,4 +1,4 @@
-"""The three parameter sets the port is driven with at full size.
+"""The parameter sets the port is driven with at full size.
 
 `planck_row2`: flat LambdaCDM with massless neutrinos, lensed TT/TE/EE/phiphi
 to l = 2500 and P(k) to k = 10/Mpc. `row2_exact`: the
@@ -7,6 +7,13 @@ massive-neutrino species and halofit (P(k) to 20/Mpc). `g3_tensor`: the
 tensor-mode golden configuration tests/golden/gen/g3_tensor.ini, uncut:
 flat LambdaCDM with primordial gravitational waves (r = 0.1, n_t from the
 slow-roll consistency relation), scalar and tensor C_l, lensed TT/EE/BB.
+`g8_curved` and `g18_closed`: the curvature golden configurations
+tests/golden/gen/g8_curved.ini (open, Omega_k = 0.01, n_t = scc) and
+g18_closed.ini (closed, Omega_k = -0.01, n_t = 0), uncut: scalars and tensors
+(r = 0.1, l_max_tensors 500), lensed C_l to l = 2500, P(k) to 1/Mpc.
+`g29_open01` and `g30_closed01` (GOLDEN_ONLY): the same at Omega_k = +-0.1
+(g29_open01.ini, g30_closed01.ini). The output-file keys of the .ini files
+(headers, format, root) are left out.
 """
 
 PLANCK_ROW2 = {
@@ -30,4 +37,17 @@ G3_TENSOR = {
     "output": "tCl,pCl,lCl", "lensing": "yes", "modes": "s,t", "gauge": "synchronous",
     "l_max_scalars": 2500, "l_max_tensors": 500,
 }
-CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR}
+_CURVED = {
+    "h": 0.67810, "T_cmb": 2.7255, "omega_b": 0.02238280, "omega_cdm": 0.1201075,
+    "N_ur": 3.046, "A_s": 2.100549e-09, "n_s": 0.9660499, "tau_reio": 0.05430842,
+    "YHe": "BBN", "recombination": "RECFAST", "modes": "s,t", "r": 0.1,
+    "output": "tCl,pCl,lCl,mPk", "lensing": "yes", "l_max_scalars": 2500,
+    "l_max_tensors": 500, "P_k_max_1/Mpc": 1.0, "z_pk": "0",
+}
+G8_CURVED = dict(_CURVED, Omega_k=0.01, n_t="scc")
+G18_CLOSED = dict(_CURVED, Omega_k=-0.01)
+G29_OPEN01 = dict(_CURVED, Omega_k=0.1, n_t="scc")
+G30_CLOSED01 = dict(_CURVED, Omega_k=-0.1, n_t="scc")
+CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR,
+           "g8_curved": G8_CURVED, "g18_closed": G18_CLOSED}
+GOLDEN_ONLY = {"g29_open01": G29_OPEN01, "g30_closed01": G30_CLOSED01}
