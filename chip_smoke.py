@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card.
 
-Runs five configurations through `classpp_public_torch.Class(device="cuda")`,
-stage by stage, at full width and depth:
+Runs ten configurations through `classpp_public_torch.Class(device="cuda")`,
+stage by stage, at full width and depth, and the thermodynamics of an
+eleventh:
 
 - `planck_row2`: flat LambdaCDM with massless neutrinos, lensed TT/TE/EE/phiphi
   to l = 2500 plus P(k) to k = 10/Mpc;
@@ -13,22 +14,34 @@ stage by stage, at full width and depth:
 - `g8_curved` and `g18_closed`: tests/golden/gen/g8_curved.ini (open,
   Omega_k = 0.01) and g18_closed.ini (closed, Omega_k = -0.01), scalars and
   tensors, lensed C_l to l = 2500, P(k) to 1/Mpc;
+- the thermodynamics variants, each its golden's .ini uncut: `g5_hyrec`
+  (recombination = HyRec, lensed C_l to 2500, P(k) to 10/Mpc),
+  `g16_injection` and `g22_injection_bos` (DM annihilation on the spot and
+  beyond it), `g11a_reio_bins` and `g11b_reio_manytanh` (binned and many-tanh
+  reionization), the last four with lensed C_l to l = 1200;
+- `hyrec_full`: g5_hyrec's cosmology through the two-photon HyRec model, the
+  thermodynamics stage only (no golden holds it);
 
 and checks:
 
 1. the hand-written CUDA kernels (csrc/*.cu) build with nvcc for sm_90a;
 2. each path launched each kernel it runs, and a curved path none of the flat
-   scans (and a flat one none of the curved scans): launch counters, set to 0
-   just before the path and read just after;
+   scans (and a flat one none of the curved scans), a HyRec path
+   hyrec_history and not recfast_history (and a RECFAST path the reverse):
+   launch counters, set to 0 just before the path and read just after;
 3. each result against the reference C++ build: the probe
    tests/golden/bench_probe.json for the first two (rel TT/EE/TE <= 3e-3 at
    l = 220, 1000, 2000, 2500; rel P(0.1) <= 1e-2), the goldens
    tests/golden/*.npz for the others under the contracts of the JAX tests
    (classpp_public_torch/tools/golden_check.py; g3_tensor:
    tests/test_extended.py:58-92; g8_curved: tests/test_curved.py:176-196;
-   g18_closed: tests/test_curved.py:112-157);
-4. each kernel against its plain PyTorch version on the very tensors each of
-   the five pipelines fed it, with both timed on the card (CUDA events: the
+   g18_closed: tests/test_curved.py:112-157; g5_hyrec: tests/test_hyrec.py;
+   g16/g22: tests/test_injection.py; g11a/g11b: tests/test_reio.py, tau_reio
+   included);
+4. each kernel against its plain PyTorch version on the very tensors each
+   path fed it (hyrec_history in both models, recfast_history with and
+   without injection, tb_march through every reionization profile), with
+   both timed on the card (CUDA events: the
    kernels the median of 3 after a warm-up; the plain versions one call, the
    integrators on a stride of the lanes, or on 8 scalar and 4 tensor lanes
    of a curved path, the lowest and highest k among them), beside the least
@@ -76,6 +89,13 @@ KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-
 # decided by last bits may also move by one interval, which the smoothed
 # phase boundaries keep continuous.
 RECFAST_TOL = 1e-6
+# hyrec_history against its plain loop, x_e and T_m per step relative: libm
+# against the card's exp/pow/log and FMA contraction (in the two-photon model
+# the per-bin sums in the same tree order). HyRec has no stiff phase to
+# amplify last bits as RECFAST's HeI phase does: measured 8.8e-16 (3-level
+# model) and 8.3e-15 (two-photon) on the card, so a float32 intermediate or a
+# dropped small term shows
+HYREC_TOL = 1e-11
 # tensor_rkck against the plain integrator, per lane and source column:
 # |kernel - plain| <= TENSOR_TOL_FACTOR rtol max|plain| (an accept/reject at
 # the threshold may go the other way), step counts within PERTURB_STEPS_TOL.
@@ -221,11 +241,20 @@ class Kernel:
         self.source, self.replaces, self.size = source, replaces, size
 
 
-def expected_kernels(out, sgnK):
-    """(the kernels a path with OutputSelection `out` and curvature sign sgnK
-    must launch, those it must not launch): a curved path runs the
-    hyperspherical scans and not the flat ones, a flat path the reverse."""
-    names = {"recfast_history", "tb_march", "perturb_ark", "lensing_wigner"}
+def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=()):
+    """(the kernels a path with OutputSelection `out`, curvature sign sgnK and
+    `recombination` must launch, those it must not launch): a curved path
+    runs the hyperspherical scans and not the flat ones, a flat path the
+    reverse; a HyRec path hyrec_history and not recfast_history, a RECFAST
+    path the reverse. A path that stops after the thermodynamics (`last`)
+    launches its recombination kernel and tb_march, and none else of
+    `every`."""
+    hyrec = recombination in ("hyrec", "hyrec_full")
+    reco = {"hyrec_history"} if hyrec else {"recfast_history"}
+    other_reco = {"recfast_history"} if hyrec else {"hyrec_history"}
+    if last == "thermodynamics":
+        return reco | {"tb_march"}, set(every) - reco - {"tb_march"}
+    names = reco | {"tb_march", "perturb_ark", "lensing_wigner"}
     scans = {"transfer_los"} | ({"transfer_tensor_los"} if "t" in out.modes else set())
     if out.has_pk:
         names.add("halofit_sigma")
@@ -233,16 +262,17 @@ def expected_kernels(out, sgnK):
         names.add("tensor_rkck")
     curved = {f"{n}_curved" for n in scans}
     if sgnK:
-        return names | curved, {"transfer_los", "transfer_tensor_los"}
-    return names | scans, {"transfer_los_curved", "transfer_tensor_los_curved"}
+        return names | curved, {"transfer_los", "transfer_tensor_los"} | other_reco
+    return names | scans, {"transfer_los_curved", "transfer_tensor_los_curved"} | other_reco
 
 
-def run_config(name, params, kernels):
+def run_config(name, params, kernels, last="lensing"):
     """One path: the configuration through Class(device="cuda") stage by
-    stage with every launch counter set to 0 just before and read just after;
-    checks the kernels launched, shapes, finiteness and the reference (probe
-    or golden). Returns (launch counts, captured kernel arguments, stage
-    seconds)."""
+    stage up to `last` with every launch counter set to 0 just before and
+    read just after; checks the kernels launched, shapes, finiteness and the
+    reference (probe or golden), or for a path that stops after the
+    thermodynamics that its x_e and T_b tables are finite. Returns (launch
+    counts, captured kernel arguments, stage seconds)."""
     import numpy as np
     import torch
 
@@ -257,12 +287,25 @@ def run_config(name, params, kernels):
         setattr(k.module, k.counter, 0)
     t_all = time.time()
     stage_s = {}
-    for st in cosmo.stages("lensing"):
+    for st in cosmo.stages(last):
         t0 = time.time()
         getattr(cosmo, st)
         torch.cuda.synchronize()
         stage_s[st] = time.time() - t0
         phase(f"{name} stage {st}", t0)
+    if last == "thermodynamics":
+        phase(f"{name} total", t_all)
+        counts = read_counts(name, kernels, originals)
+        check_launches(name, counts, *expected_kernels(
+            cosmo.out, cosmo.sgnK, cosmo.params.recombination, last, counts))
+        th = cosmo.thermodynamics
+        if not (bool(torch.isfinite(th.xe_of_z).all()) and bool(torch.isfinite(th.Tb_of_z).all())):
+            raise RuntimeError(f"{name}: non-finite thermodynamics tables")
+        print(f"[thermo] {name} tau_reio {th.tau_reio:.6f} z_reio {th.z_reio:.4f} z_star "
+              f"{th.z_star:.4f} z_d {th.z_d:.4f} rs_d {th.rs_d:.4f}", flush=True)
+        print(f"[stages] {name} " + " ".join(f"{k}={v:.3f}s" for k, v in stage_s.items()),
+              flush=True)
+        return counts, captured, stage_s
     t0 = time.time()
     cl = c.lensed_cl(2500)
     raw = c.raw_cl(2500)
@@ -274,18 +317,9 @@ def run_config(name, params, kernels):
     stage_s["accessors"] = time.time() - t0
     phase(f"{name} accessors", t0)
     phase(f"{name} total", t_all)
-    counts = {k.name: getattr(k.module, k.counter) for k in kernels}
-    for k in kernels:
-        setattr(k.module, k.fn, originals[k.name])
-    print(f"[launches] {name} {counts}", flush=True)
-    must, must_not = expected_kernels(cosmo.out, cosmo.sgnK)
-    missing = sorted(n for n in must if counts[n] <= 0)
-    if missing:
-        raise RuntimeError(f"{name}: kernels not launched on the main path: {missing}")
-    stray = sorted(n for n in must_not if counts[n] != 0)
-    if stray:
-        raise RuntimeError(f"{name} (sgnK = {cosmo.sgnK}): kernels of the other geometry "
-                           f"launched: {stray}")
+    counts = read_counts(name, kernels, originals)
+    check_launches(name, counts, *expected_kernels(cosmo.out, cosmo.sgnK,
+                                                   cosmo.params.recombination))
     pt = cosmo.perturbations
     print(f"[shapes] {name} k {tuple(pt.k.shape)} tau {tuple(pt.tau.shape)} sources "
           f"{tuple(pt.sources.shape)} transfer {tuple(cosmo.transfer.delta.shape)} "
@@ -311,7 +345,7 @@ def run_config(name, params, kernels):
     if name not in ("planck_row2", "row2_exact"):
         from classpp_public_torch.tools.golden_check import golden_check
 
-        rel = golden_check(name, raw, cl, c.pk_lin, cosmo.params.h)
+        rel = golden_check(name, raw, cl, c.pk_lin, cosmo.params.h, cosmo.thermodynamics)
         print(f"[golden] {name} " + json.dumps({k: {"rel": v, "tol": t, "at": at}
                                                 for k, (v, t, at) in rel.items()}), flush=True)
         bad = {k: v for k, (v, t, _) in rel.items() if not v <= t}
@@ -325,6 +359,26 @@ def run_config(name, params, kernels):
     print(f"[stages] {name} " + " ".join(f"{k}={v:.3f}s" for k, v in stage_s.items()),
           flush=True)
     return counts, captured, stage_s
+
+
+def check_launches(name, counts, must, must_not):
+    missing = sorted(n for n in must if counts[n] <= 0)
+    if missing:
+        raise RuntimeError(f"{name}: kernels not launched on the main path: {missing}")
+    stray = sorted(n for n in must_not if counts[n] != 0)
+    if stray:
+        raise RuntimeError(f"{name}: kernels of another geometry or recombination code "
+                           f"launched: {stray}")
+
+
+def read_counts(name, kernels, originals):
+    """The launch counts of the path `name`, read just after it; puts the
+    spied-on wrappers back."""
+    counts = {k.name: getattr(k.module, k.counter) for k in kernels}
+    for k in kernels:
+        setattr(k.module, k.fn, originals[k.name])
+    print(f"[launches] {name} {counts}", flush=True)
+    return counts
 
 
 def compared_lanes(nl, stride, curved, name):
@@ -451,9 +505,9 @@ def check_recfast(thermo, args, tag):
     first interval where the two differ by more than 1e-12."""
     import torch
 
-    rp, H, Nz = args
-    ms, kout = timed(lambda: thermo.recfast_history(rp, H, Nz))
-    plain_ms, pout = host_timed(lambda: thermo.recfast_history_plain(rp, H, Nz))
+    rp, H, Nz, *inj_conv = args
+    ms, kout = timed(lambda: thermo.recfast_history(rp, H, Nz, *inj_conv))
+    plain_ms, pout = host_timed(lambda: thermo.recfast_history_plain(rp, H, Nz, *inj_conv))
     k, p = kout.cpu(), pout.cpu()
     if k.shape != p.shape or not bool(torch.isfinite(k).all()):
         raise RuntimeError(f"recfast_history ({tag}): shape {tuple(k.shape)} or non-finite")
@@ -472,9 +526,16 @@ def check_recfast(thermo, args, tag):
                 n_int = Nz - i
                 break
             y1 = (xe - 1.0) / pv["fHe"]
-    # ~350 operations per derivative evaluation (fourteen exp/pow/log/sqrt)
-    bms, bby = bound(nbytes(rp, H.y, H.y2, kout), 350.0 * (Nz + 16.0 * n_int))
-    print(f"[recfast_history] {tag}: {Nz} intervals, {n_int} integrated; worst relative "
+    # ~350 operations per derivative evaluation (fourteen exp/pow/log/sqrt),
+    # ~250 more with energy injection (the rate and the two chi fits); the
+    # ln E spline of the injection beyond the spot read once
+    inj_on = pv["inj_on"] != 0.0
+    extra = nbytes(inj_conv[0].y, inj_conv[0].y2) if inj_conv and inj_conv[0] is not None else 0
+    bms, bby = bound(nbytes(rp, H.y, H.y2, kout) + extra,
+                     (600.0 if inj_on else 350.0) * (Nz + 16.0 * n_int))
+    print(f"[recfast_history] {tag}: injection {'on' if inj_on else 'off'}"
+          f"{' (beyond the spot)' if extra else ''}; {Nz} intervals, {n_int} integrated; "
+          f"worst relative "
           f"difference per column {worst} (limit {RECFAST_TOL}); first interval over 1e-12: "
           f"{first}" + (f" (z = {float(p[0][Nz - 1 - first]):.2f})" if first is not None else ""),
           flush=True)
@@ -483,6 +544,51 @@ def check_recfast(thermo, args, tag):
     return dict(max_abs_err=float((k - p).abs().max()), max_rel_err=max(worst.values()),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                 scaled_err=max(worst.values()) / RECFAST_TOL, first_interval_over_1e12=first)
+
+
+def check_hyrec(hyrec, args, tag):
+    """hyrec_history against its plain loop, x_e and T_m per step; prints
+    the phase transitions and the first step where the two differ by more
+    than 1e-12."""
+    import torch
+
+    hp, tables, z, inj, model = args
+    ms, (xe, Tm) = timed(lambda: hyrec.hyrec_history(hp, tables, z, inj, model))
+    starts = []
+    plain_ms, (xep, Tmp) = host_timed(lambda: hyrec.hyrec_history_plain(
+        hp, tables, z, inj, model, phase_starts=starts))
+    kout, pout = torch.stack([xe, Tm]).cpu(), torch.stack([xep, Tmp])
+    if not bool(torch.isfinite(kout).all()):
+        raise RuntimeError(f"hyrec_history ({tag}): non-finite output")
+    rel = (kout - pout).abs() / pout.abs().clamp_min(1e-300)
+    worst = {"x_e": float(rel[0].max()), "T_m": float(rel[1].max())}
+    over = torch.nonzero(rel.max(dim=0).values > 1e-12).flatten()
+    first = int(over[0]) if len(over) else None
+    nz = int(z.shape[0])
+    zs = z.cpu()
+    # work: ~400 float64 operations a step (two Saha or rate evaluations with
+    # their pow/exp/sqrt, the two-step update, T_m); in the two-photon model
+    # each rate evaluation is ~190 operations per virtual bin (six exp/log and
+    # the row arithmetic), the two 40-step wing recurrences, three 80-row
+    # Thomas solves and eight 311-value sums: ~62 000
+    at = dict(starts)
+    n_2g = 0
+    if model == "full":
+        n_2g = 2 * (at[4] - at[3]) + (at[6] - at[4])
+    flops = 400.0 * nz + 62000.0 * n_2g
+    bms, bby = bound(nbytes(hp, *tables, z, xe, Tm) + (nbytes(inj) if inj is not None else 0),
+                     flops)
+    print(f"[hyrec_history] {tag}: model {model}, injection {'on' if inj is not None else 'off'}; "
+          f"{nz} steps, {n_2g} two-photon rate evaluations; phases start at (phase, step, z) "
+          + ", ".join(f"({p}, {j}, {float(zs[j]):.2f})" for p, j in starts if j < nz)
+          + f"; worst relative difference {worst} (limit {HYREC_TOL}); first step over 1e-12: "
+          f"{first}" + (f" (z = {float(zs[first]):.2f})" if first is not None else ""), flush=True)
+    if not max(worst.values()) <= HYREC_TOL:
+        raise RuntimeError(f"hyrec_history ({tag}) disagrees with its plain loop: {worst}")
+    return dict(max_abs_err=float((kout - pout).abs().max()), max_rel_err=max(worst.values()),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, model=model,
+                two_photon_evaluations=n_2g, scaled_err=max(worst.values()) / HYREC_TOL,
+                first_step_over_1e12=first)
 
 
 def check_tensor_rkck(tensors, args, tag, curved=False):
@@ -556,6 +662,9 @@ def check_kernels(tag, captured, mods, curved):
     import torch
 
     out = {}
+    if "hyrec_history" in captured:
+        out["hyrec_history"] = check_hyrec(mods["hyrec_history"], captured["hyrec_history"][0],
+                                           tag)
     if "integrate_sources" in captured:
         out["perturb_ark"] = check_perturb_ark(mods["perturb_ark"],
                                                captured["integrate_sources"][0], tag, curved)
@@ -591,32 +700,37 @@ def check_kernels(tag, captured, mods, curved):
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                          **columns(name, kout, pout, 1))
 
-    lensing = mods["lensing_wigner"]
-    args, kw = captured["lensing_wigner"]
-    ms, kout = timed(lambda: lensing.lensing_wigner(*args, **kw))
-    plain_ms, pout = timed(lambda: lensing.lensing_wigner_plain(*args, **kw), 1, False)
-    cl_of_l, mu, w8, l_lensed = args[:4]
-    # per mu: ~190 operations per unlensed l (the two d of the deflection
-    # variances, then the twelve Wigner recurrences and their sums) and ~100
-    # per lensed l of the back-transform
-    bms, bby = bound(nbytes(cl_of_l, mu, w8, kout),
-                     float(mu.numel()) * (190.0 * (cl_of_l.shape[0] - 1) + 100.0 * int(l_lensed)))
-    print(f"[lensing_wigner] {tag}: unlensed BB max {float(cl_of_l[:, 3].abs().max()):.3e}",
-          flush=True)
-    out["lensing_wigner"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                                 **columns("lensing_wigner", kout, pout, 1))
+    if "lensing_wigner" in captured:
+        lensing = mods["lensing_wigner"]
+        args, kw = captured["lensing_wigner"]
+        ms, kout = timed(lambda: lensing.lensing_wigner(*args, **kw))
+        plain_ms, pout = timed(lambda: lensing.lensing_wigner_plain(*args, **kw), 1, False)
+        cl_of_l, mu, w8, l_lensed = args[:4]
+        # per mu: ~190 operations per unlensed l (the two d of the deflection
+        # variances, then the twelve Wigner recurrences and their sums) and
+        # ~100 per lensed l of the back-transform
+        bms, bby = bound(nbytes(cl_of_l, mu, w8, kout),
+                         float(mu.numel()) * (190.0 * (cl_of_l.shape[0] - 1)
+                                              + 100.0 * int(l_lensed)))
+        print(f"[lensing_wigner] {tag}: unlensed BB max {float(cl_of_l[:, 3].abs().max()):.3e}",
+              flush=True)
+        out["lensing_wigner"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                                     **columns("lensing_wigner", kout, pout, 1))
 
     thermo = mods["recfast_history"]
-    out["recfast_history"] = check_recfast(thermo, captured["recfast_history"][0], tag)
-    args, _ = captured["tb_march"]
-    ms, (Tb, d) = timed(lambda: thermo.tb_march(*args))
-    plain_ms, (Tbp, dp) = host_timed(lambda: thermo.tb_march_plain(*args))
-    kout, pout = torch.stack([Tb, d]).cpu(), torch.stack([Tbp, dp])
-    n = Tb.shape[0]
-    # per node: the march step and dT/dz, ~30 operations each
-    bms, bby = bound(nbytes(*args[:5], Tb, d), 60.0 * n)
-    out["tb_march"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                           **columns("tb_march", kout, pout, 0))
+    if "recfast_history" in captured:
+        out["recfast_history"] = check_recfast(thermo, captured["recfast_history"][0], tag)
+    if "tb_march" in captured:
+        args, _ = captured["tb_march"]
+        ms, (Tb, d) = timed(lambda: thermo.tb_march(*args))
+        plain_ms, (Tbp, dp) = host_timed(lambda: thermo.tb_march_plain(*args))
+        kout, pout = torch.stack([Tb, d]).cpu(), torch.stack([Tbp, dp])
+        n = Tb.shape[0]
+        # per node: the march step and dT/dz, ~30 operations each
+        bms, bby = bound(nbytes(*args[:5], Tb, d), 60.0 * n)
+        print(f"[tb_march] {tag}: {n} nodes, march from node {int(args[7])}", flush=True)
+        out["tb_march"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                               **columns("tb_march", kout, pout, 0))
 
     if "tensor_rkck" in captured:
         out["tensor_rkck"] = check_tensor_rkck(mods["tensor_rkck"],
@@ -637,8 +751,8 @@ def check_kernels(tag, captured, mods, curved):
 
     scaled = {k: v.pop("scaled_err") for k, v in out.items()}
     print(f"[kernels] {tag} scaled error: {scaled}; tolerance {KERNEL_TOL} of max |plain|, "
-          f"recfast_history {RECFAST_TOL} per row, perturb_ark and tensor_rkck 1.0 of their "
-          f"per-lane, per-column limits", flush=True)
+          f"recfast_history {RECFAST_TOL} per row, hyrec_history {HYREC_TOL} per step, "
+          f"perturb_ark and tensor_rkck 1.0 of their per-lane, per-column limits", flush=True)
     bad = [n for n, e in scaled.items() if not e <= KERNEL_TOL.get(n, 1.0)]
     if bad:
         raise RuntimeError(f"{tag}: kernels disagree with their plain versions beyond "
@@ -654,10 +768,10 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from classpp_public_torch.models import lensing, nonlinear, thermodynamics, transfer
+    from classpp_public_torch.models import hyrec, lensing, nonlinear, thermodynamics, transfer
     from classpp_public_torch.models.perturbations import solve, tensors
     from classpp_public_torch.ops import cuda
-    from classpp_public_torch.tools.configs import CONFIGS
+    from classpp_public_torch.tools.configs import CONFIGS, THERMO_ONLY
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -694,6 +808,8 @@ def main():
         Kernel("transfer_tensor_los_curved", transfer, "tensor_curved_launches",
                "transfer_tensor_los_curved", src + "transfer_tensor_los_curved.cu",
                tpu + "transfer.py:757"),
+        Kernel("hyrec_history", hyrec, "launches", "hyrec_history", src + "hyrec.cu",
+               tpu + "hyrec.py:781"),
     ]
     mods = {k.name: k.module for k in kernels}
 
@@ -701,24 +817,27 @@ def main():
     counts, captured = {}, {}
     for tag, params in CONFIGS.items():
         counts[tag], captured[tag], _ = run_config(tag, params, kernels)
+    for tag, params in THERMO_ONLY.items():
+        counts[tag], captured[tag], _ = run_config(tag, params, kernels, "thermodynamics")
+    paths = {**CONFIGS, **THERMO_ONLY}
 
     # --- each kernel against its plain version, on the tensors of each path
     results = {}
-    for tag, params in CONFIGS.items():
+    for tag, params in paths.items():
         t0 = time.time()
         results[tag] = check_kernels(tag, captured[tag], mods, params.get("Omega_k", 0.0) != 0.0)
         phase(f"{tag} kernel vs plain comparison", t0)
 
-    # one entry per kernel: the numbers of the last path in CONFIGS that ran
-    # it (its launches beside its times) head the entry, and those of the
-    # other paths that ran it follow under their names
+    # one entry per kernel: the numbers of the last path that ran it (its
+    # launches beside its times) head the entry, and those of the other paths
+    # that ran it follow under their names
     entries = []
     for k in kernels:
-        main_tag = [tag for tag in CONFIGS if k.name in results[tag]][-1]
+        main_tag = [tag for tag in paths if k.name in results[tag]][-1]
         e = dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
                  launches=counts[main_tag][k.name], library_ms=None, path=main_tag,
                  **results[main_tag][k.name])
-        for tag in CONFIGS:
+        for tag in paths:
             if tag != main_tag and k.name in results[tag]:
                 e[tag] = dict(launches=counts[tag][k.name], library_ms=None,
                               **results[tag][k.name])

@@ -1,9 +1,12 @@
 """classy-compatible entry point (counterpart of classpp_public_tpu/classy.py:
 `Class.set` :76, `_m_ncdm_from_omega` :863, `compute` :976, `raw_cl` :1007,
 `lensed_cl` :1086, `pk_lin` :1221, `pk` :1257, `pk_cb` :1275, `sigma8` :1319),
-for the inputs of the flat-LambdaCDM slice with Fermi-Dirac massive neutrinos,
+for the inputs of the LambdaCDM slice with Fermi-Dirac massive neutrinos,
 halofit and tensor modes (`modes`, `r`, `n_t`, `alpha_t`, `l_max_tensors`,
-`tensor method`: classy.py:149-163, 565-630).
+`tensor method`: classy.py:149-163, 565-630), and the thermodynamics variants
+(`recombination` = HyRec / hyrec_full, `annihilation`, `decay` and their
+modifiers, `on the spot`, `reio_parametrization` with its node lists:
+classy.py:139-150, :173-206).
 
 Every other input key raises with the JAX file and line that implements it.
 """
@@ -41,7 +44,12 @@ def _parse_list(v):
 
 _FLOAT_KEYS = ("n_s", "alpha_s", "k_pivot", "T_cmb", "N_ur", "Omega_k", "tau_reio", "z_reio", "r",
                "reionization_width", "reionization_exponent",
-               "helium_fullreio_redshift", "helium_fullreio_width")
+               "helium_fullreio_redshift", "helium_fullreio_width",
+               "annihilation", "decay", "annihilation_variation", "annihilation_z",
+               "annihilation_zmax", "annihilation_zmin", "annihilation_f_halo",
+               "annihilation_z_halo", "binned_reio_step_sharpness", "many_tanh_width")
+_REIO_SCHEMES = ("reio_camb", "reio_half_tanh", "reio_bins_tanh", "reio_many_tanh", "reio_inter",
+                 "reio_none")
 _OUTPUT_TOKENS = ("tCl", "pCl", "lCl", "mPk")
 
 
@@ -92,6 +100,7 @@ class Class:
             kw["gauge"] = "newtonian" if g in ("new", "newt", "newtonian") else g
         if "recombination" in p:
             kw["recombination"] = str(p.pop("recombination")).strip().lower()
+        self._parse_thermo(p, kw)
         if "YHe" in p:
             v = p.pop("YHe")
             kw["YHe"] = None if isinstance(v, str) and v.strip().upper() == "BBN" else float(v)
@@ -183,6 +192,37 @@ class Class:
             # (input_module.cpp:2806-2811)
             out.P_k_max = max(out.P_k_max, pr.nonlinear_min_k_max, pr.halofit_min_k_max)
         return Cosmology(CosmoParams(**kw), pr, out, device=self.device)
+
+    @staticmethod
+    def _parse_thermo(p: dict, kw: dict) -> None:
+        """Energy injection's 'on the spot', the reionization scheme and the
+        node lists of the binned, many-tanh and interpolated schemes, with
+        the reference's guards (classy.py:139-150, :173-206,
+        input_module.cpp:1436, :1469-1487)."""
+        if "on the spot" in p or "on_the_spot" in p:
+            v = str(p.pop("on the spot", p.pop("on_the_spot", "yes"))).strip().lower()
+            p.pop("on_the_spot", None)
+            kw["on_the_spot"] = v not in ("no", "n", "false", "0")
+        if "reio_parametrization" in p:
+            reio = str(p.pop("reio_parametrization")).strip().lower()
+            if reio not in _REIO_SCHEMES:
+                raise CosmoSevereError(f"reio_parametrization {reio!r} unknown "
+                                       "(input_module.cpp:1436)")
+            kw["reio_parametrization"] = reio
+        # the *_num counts are implied by the list lengths, accepted and
+        # cross-checked
+        for base in ("binned_reio", "many_tanh", "reio_inter"):
+            zkey, xkey, nkey = f"{base}_z", f"{base}_xe", f"{base}_num"
+            if zkey in p or xkey in p:
+                zs = tuple(_parse_list(p.pop(zkey)))
+                xs = tuple(_parse_list(p.pop(xkey)))
+                if nkey in p and int(p.pop(nkey)) != len(zs):
+                    raise CosmoSevereError(f"{nkey} inconsistent with {zkey} length")
+                if len(zs) != len(xs):
+                    raise CosmoSevereError(f"{zkey} and {xkey} must have equal length")
+                kw[zkey], kw[xkey] = zs, xs
+            else:
+                p.pop(nkey, None)
 
     @staticmethod
     def _parse_modes(p: dict, out: OutputSelection, kw: dict) -> None:

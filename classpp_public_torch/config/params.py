@@ -22,10 +22,9 @@ class CosmoParams:
     """User-level cosmological parameters (reference explanatory.ini semantics).
 
     Defaults replicate the reference's built-in `input_default_params`
-    (input_module.cpp:3150-3400). Fields of features outside the ported
-    LambdaCDM + massive-neutrino slice (open, flat or closed) are kept so that
-    a parameter set carries over from the JAX package unchanged; the stages
-    raise when one is switched on."""
+    (input_module.cpp:3150-3400). Fields of features outside the ported slice
+    (see `check_lcdm`) are kept so that a parameter set carries over from the
+    JAX package unchanged; the stages raise when one is switched on."""
 
     # background
     h: float = 0.67556
@@ -171,9 +170,10 @@ class CosmoParams:
 
 
 def check_lcdm(params: CosmoParams) -> None:
-    """Raise for every parameter that switches on physics outside the
-    LambdaCDM + massive-neutrino slice (open, flat or closed; synchronous
-    gauge), naming the JAX code that implements it."""
+    """Raise for every parameter that switches on physics outside the ported
+    slice (LambdaCDM + massive neutrinos, open, flat or closed, synchronous
+    gauge; RECFAST or HyRec, energy injection, every reionization scheme),
+    naming the JAX code that implements it."""
     bad = []
     if any(params.ksi_ncdm) or any(params.ncdm_psd_files):
         bad.append("ncdm chemical potentials and tabulated phase-space distributions "
@@ -190,13 +190,6 @@ def check_lcdm(params: CosmoParams) -> None:
         bad.append("scalar-field dark energy (classpp_public_tpu/models/background.py:602)")
     if params.Omega_idm_dr > 0.0:
         bad.append("interacting dark matter (classpp_public_tpu/models/background.py:421)")
-    if params.annihilation != 0.0 or params.decay != 0.0:
-        bad.append("energy injection (classpp_public_tpu/models/thermodynamics.py:375)")
-    if params.recombination != "recfast":
-        bad.append("HyRec (classpp_public_tpu/models/hyrec.py)")
-    if params.reio_parametrization != "reio_camb":
-        bad.append("reionization schemes other than reio_camb "
-                   "(classpp_public_tpu/models/thermodynamics.py:873)")
     if params.gauge != "synchronous":
         bad.append("newtonian gauge (classpp_public_tpu/models/perturbations/equations.py:496)")
     if tuple(params.temp_contributions) != (1.0,) * 5 or params.eisw_lisw_split_z != 120.0:

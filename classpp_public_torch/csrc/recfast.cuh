@@ -9,7 +9,10 @@
 // Counterparts, line by line: thermodynamics.py `_hubble_evaluator`,
 // `make_recfast_derivs` (RECFAST derivatives, Heswitch = 6, Hswitch on),
 // `recfast_history_plain` (the staged Saha phases A-F, four RK4 sub-steps per
-// interval in phases E and F, the six output columns) and `tb_march_plain`.
+// interval in phases E and F, the six output columns), `_injection_rate`
+// and the chi fits (DM energy injection on the spot or beyond it, compiled in
+// only for inj_on) and
+// `tb_march_plain`.
 // Every `x ** y` of the Python is pow(x, y) here and every sum keeps the
 // Python's left-to-right order, so the host build reproduces the plain loop
 // up to the last bit or two; on the card the last bits of exp/pow and FMA
@@ -41,6 +44,10 @@ struct Params {
   // derived constants
   double c, not4, conv, dop_fac, CL_PSt, E_trip_ion, E_2St, wb_fac, dk_fac;
   double T_0, T_1, a_VF, a_trip;
+  // DM energy injection: inj_on, inj_bos (the rate is the ln E spline of
+  // Hubble), the eight RecfastCtx.inj scalars, rho_cdm today and constants
+  double inj_on, inj_bos, ann, dec, ann_var, ann_z, ann_zmax, ann_zmin, f_halo, z_halo;
+  double rho_cdm_J, hPc, kB, L_H_ion, L_H_alpha;
 };
 constexpr int kNParams = sizeof(Params) / sizeof(double);
 
@@ -53,12 +60,18 @@ constexpr double ka_PPB = 4.309, kb_PPB = -0.6166, kc_PPB = 0.6703, kd_PPB = 0.5
 constexpr double kb_VF = 0.711, kb_trip = 0.761;
 constexpr double kPi = 3.141592653589793;
 
-// The (H, H') cubic spline over ln a on a uniform grid: y, y2 are (n, 2).
+// The (H, H') cubic spline over ln a on a uniform grid: y, y2 are (n, 2);
+// beyond the spot, the ln E spline of the injection rate over -ln(1 + z):
+// Ey, Ey2 are (En, 1) (unset otherwise).
 struct Hubble {
   const double* y;
   const double* y2;
   double x0, dx;
   int n;
+  const double* Ey;
+  const double* Ey2;
+  double Ex0, Edx;
+  int En;
 };
 
 // Python max/min/clip semantics (the first argument wins ties and NaN).
@@ -99,8 +112,70 @@ RF_FN void gather_exp(const Team& tm, int n, const double* arg, double* out) {
 #endif
 }
 
+RF_FN void gather_log(const Team& tm, int n, const double* arg, double* out) {
+#ifdef __CUDA_ARCH__
+  double mine = 0.0;
+  if (tm.tid < n) mine = log(arg[tm.tid]);
+  for (int i = 0; i < n; ++i) out[i] = __shfl_sync(0xffffffffu, mine, i);
+#else
+  for (int i = 0; i < n; ++i) out[i] = log(arg[i]);
+#endif
+}
+
+// The energy-injection factors of a derivative evaluation (_injection_rate
+// and the chi fits of make_recfast_derivs) at z, for xc = clip(x, 0, 1):
+// the rate [J/m^3/s] (exp of the ln E spline beyond the spot, the
+// on-the-spot form otherwise), 0.369202 (1 - xc^0.463929)^1.70237 (chi_ion
+// where x < 1) and 0.996857 (1 - (1 - xc^0.300134)^1.51035) (the chi_heat fit
+// where x < 1). Their independent log/pow/exp calls are spread over the team
+// in gathers, each call with the Python's arguments.
+RF_FN void injection_terms(const Params& P, const Hubble& S, const Team& tm, double z, double xc,
+                           double* rate, double* chi_ion_fit, double* chi_heat_fit) {
+  double Q[3];
+  if (P.inj_bos != 0.0) {        // the ln E spline at -ln(1 + z)
+    const double t = (-log1p(z) - S.Ex0) / S.Edx;
+    int i = (int)floor(t);
+    i = i < 0 ? 0 : (i > S.En - 2 ? S.En - 2 : i);
+    const double b = t - (double)i, a = 1.0 - b, h2 = S.Edx * S.Edx / 6.0;
+    const double pb[4] = {a, b, xc, xc}, pe[4] = {3.0, 3.0, 0.463929, 0.300134};
+    double W[4];
+    gather_pow(tm, 4, pb, pe, W);
+    const double earg = a * S.Ey[i] + b * S.Ey[i + 1] + (W[0] - a) * h2 * S.Ey2[i]
+                        + (W[1] - b) * h2 * S.Ey2[i + 1];
+    gather_exp(tm, 1, &earg, rate);
+    const double qb[2] = {1.0 - W[2], 1.0 - W[3]}, qe[2] = {1.70237, 1.51035};
+    gather_pow(tm, 2, qb, qe, Q + 1);
+  } else {                       // on the spot
+    const double u = (1.0 + z) / (1.0 + P.z_halo);
+    const double lg[2] = {(P.ann_z + 1.0) / (P.ann_zmax + 1.0),
+                          z > P.ann_zmin ? (z + 1.0) / (P.ann_zmax + 1.0)
+                                         : (P.ann_zmin + 1.0) / (P.ann_zmax + 1.0)};
+    double L[2];
+    gather_log(tm, 2, lg, L);
+    const double pb[10] = {L[0], L[1], u, u, u, 1.0 + z, P.rho_cdm_J, P.c, xc, xc};
+    const double pe[10] = {2.0, 2.0, 2.0, 3.0, 4.0, 3.0, 2.0, 2.0, 0.463929, 0.300134};
+    double W[10];
+    gather_pow(tm, 10, pb, pe, W);
+    const double earg = z > P.ann_zmax ? -P.ann_var * W[0] : P.ann_var * (-W[0] + W[1]);
+    double E;
+    gather_exp(tm, 1, &earg, &E);
+    const double qb[3] = {1.0 + 0.278393 * u + 0.230389 * W[2] + 0.000972 * W[3] + 0.078108 * W[4],
+                          1.0 - W[8], 1.0 - W[9]};
+    const double qe[3] = {-4.0, 1.70237, 1.51035};
+    gather_pow(tm, 3, qb, qe, Q);
+    const double ann_z = P.ann * E;
+    const double zp3 = W[5];
+    *rate = W[6] / W[7] * zp3 * (zp3 * ann_z + P.f_halo * Q[0]) + P.rho_cdm_J * zp3 * P.dec;
+  }
+  *chi_ion_fit = 0.369202 * Q[1];
+  *chi_heat_fit = 0.996857 * (1.0 - Q[2]);
+}
+
 // d(x_H, x_He, Tmat)/dz (make_recfast_derivs, with its hubble evaluator); the
-// same in every thread.
+// same in every thread. Inj compiles the energy-injection terms in (P.inj_on
+// set): without them the code is the injection-free derivative, instruction
+// for instruction.
+template <bool Inj>
 RF_FN void derivs(const Params& P, const Hubble& S, const Team& tm, double z, double y0,
                   double y1, double y2, double d[3]) {
   const double x_H = clip(y0, 0.0, 1.0);
@@ -207,9 +282,18 @@ RF_FN void derivs(const Params& P, const Hubble& S, const Team& tm, double z, do
     const double KLn = K * kLambda_H * n * one_m_xH;
     C_peebles = (1.0 + KLn) / (1.0 / P.fu + KLn / P.fu + K * Rup * n * one_m_xH);
   }
+  double energy_rate = 0.0, chi_ion_fit = 0.0, chi_heat_fit = 0.0;
+  if constexpr (Inj)
+    injection_terms(P, S, tm, z, clip(x, 0.0, 1.0), &energy_rate, &chi_ion_fit, &chi_heat_fit);
   double dxH = 0.0;
-  if (!(x_H > P.trigH))
+  if (!(x_H > P.trigH)) {
     dxH = (x * x_H * n * Rdown - Rup * one_m_xH * X[6]) * C_peebles / (Hz * zp1);
+    if constexpr (Inj) {   // extra ionization (chi_ion fit); d/dz, so it subtracts
+      const double chi_ion_H = x < 1.0 ? chi_ion_fit : 0.0;
+      dxH = dxH - energy_rate * chi_ion_H / n
+                      * (1.0 / P.L_H_ion + (1.0 - C_peebles) / P.L_H_alpha) / (P.hPc * Hz * zp1);
+    }
+  }
 
   double dxHe = 0.0;
   if (!(x_He < 1e-15)) {
@@ -231,6 +315,10 @@ RF_FN void derivs(const Params& P, const Hubble& S, const Team& tm, double z, do
          - epsilon * dHdz / Hz + 3.0 * epsilon / zp1;
   } else {
     dT = P.CT * W[14] * x / (1.0 + x + P.fHe) * (Tmat - Trad) / (Hz * zp1) + 2.0 * Tmat / zp1;
+    if constexpr (Inj) {   // injection heating (chi_heat fit)
+      const double chi_heat = x < 1.0 ? (chi_heat_fit < 1.0 ? chi_heat_fit : 1.0) : 1.0;
+      dT = dT - 2.0 / (3.0 * P.kB) * energy_rate * chi_heat / n / (1.0 + P.fHe + x) / (Hz * zp1);
+    }
   }
   d[0] = dxH;
   d[1] = dxHe;
@@ -238,6 +326,7 @@ RF_FN void derivs(const Params& P, const Hubble& S, const Team& tm, double z, do
 }
 
 // Four classic RK4 sub-steps from za to zb (rk4_interval)
+template <bool Inj>
 RF_FN void rk4_interval(const Params& P, const Hubble& S, const Team& tm, const double y[3],
                         double za, double zb, double out[3]) {
   const int nsub = 4;
@@ -246,10 +335,12 @@ RF_FN void rk4_interval(const Params& P, const Hubble& S, const Team& tm, const 
   double k1[3], k2[3], k3[3], k4[3];
   for (int i = 0; i < nsub; ++i) {
     const double zz = za + i * h;
-    derivs(P, S, tm, zz, y0, y1, y2, k1);
-    derivs(P, S, tm, zz + h / 2, y0 + h / 2 * k1[0], y1 + h / 2 * k1[1], y2 + h / 2 * k1[2], k2);
-    derivs(P, S, tm, zz + h / 2, y0 + h / 2 * k2[0], y1 + h / 2 * k2[1], y2 + h / 2 * k2[2], k3);
-    derivs(P, S, tm, zz + h, y0 + h * k3[0], y1 + h * k3[1], y2 + h * k3[2], k4);
+    derivs<Inj>(P, S, tm, zz, y0, y1, y2, k1);
+    derivs<Inj>(P, S, tm, zz + h / 2, y0 + h / 2 * k1[0], y1 + h / 2 * k1[1], y2 + h / 2 * k1[2],
+                k2);
+    derivs<Inj>(P, S, tm, zz + h / 2, y0 + h / 2 * k2[0], y1 + h / 2 * k2[1], y2 + h / 2 * k2[2],
+                k3);
+    derivs<Inj>(P, S, tm, zz + h, y0 + h * k3[0], y1 + h * k3[1], y2 + h * k3[2], k4);
     y0 = y0 + h / 6 * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0]);
     y1 = y1 + h / 6 * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1]);
     y2 = y2 + h / 6 * (k1[2] + 2 * k2[2] + 2 * k3[2] + k4[2]);
@@ -271,6 +362,7 @@ RF_FN double x0_he3(const Params& P, double rhs) {
 
 // One interval i of the descending z grid: advances the state y and writes
 // the six columns of the interval's row (z, x_e, T_b, w_b, c_b^2, kappa').
+template <bool Inj>
 RF_FN void interval(const Params& P, const Hubble& S, const Team& tm, int Nz, int i,
                     double y[3], double row[6]) {
   const double za = P.z_init * (double)(Nz - i) / (double)Nz;
@@ -316,7 +408,7 @@ RF_FN void interval(const Params& P, const Hubble& S, const Team& tm, int Nz, in
       const double rhsH = saha(P, z, P.CB1, 1.0);
       const double x_H0_saha = 0.5 * (sqrt(pow(rhsH, 2.0) + 4.0 * rhsH) - rhsH);
       double yi[3];
-      rk4_interval(P, S, tm, y, za, zb, yi);
+      rk4_interval<Inj>(P, S, tm, y, za, zb, yi);
       if (y[0] > P.trigH) {                            // E: He integrated, H Saha
         yn[0] = x_H0_saha; yn[1] = yi[1]; yn[2] = yi[2];
         const double x0_new = yn[0] + fHe * yn[1];
@@ -338,7 +430,7 @@ RF_FN void interval(const Params& P, const Hubble& S, const Team& tm, int Nz, in
     }
   }
   double d[3];
-  derivs(P, S, tm, z, yn[0], yn[1], yn[2], d);
+  derivs<Inj>(P, S, tm, z, yn[0], yn[1], yn[2], d);
   const double Tb = yn[2];
   const double wb = P.wb_fac * (1.0 + (1.0 / P.not4 - 1.0) * P.YHe + x0 * (1.0 - P.YHe)) * Tb;
   row[0] = z;
@@ -354,12 +446,14 @@ RF_FN void interval(const Params& P, const Hubble& S, const Team& tm, int Nz, in
 
 // The whole history: out is (6, Nz), columns z, x_e, T_b, w_b, c_b^2, kappa'
 // in ascending z (interval i lands in position Nz - 1 - i), written by
-// thread 0.
+// thread 0. Inj: with the energy-injection terms (set exactly when P.inj_on
+// is).
+template <bool Inj>
 RF_FN void history(const Params& P, const Hubble& S, const Team& tm, int Nz, double* out) {
   double y[3] = {1.0, 1.0, P.Tnow * (1.0 + P.z_init)};
   double row[6];
   for (int i = 0; i < Nz; ++i) {
-    interval(P, S, tm, Nz, i, y, row);
+    interval<Inj>(P, S, tm, Nz, i, y, row);
     if (tm.tid == 0)
       for (int c = 0; c < 6; ++c) out[(long)c * Nz + (Nz - 1 - i)] = row[c];
   }

@@ -7,20 +7,35 @@
 //
 // The arguments are those of recfast_history_launch and tb_march_launch
 // (recfast.cu) with host pointers and without the stream. The package never
-// loads this library; tests/test_torch_background_thermo.py does.
+// loads this library; tests/test_torch_background_thermo.py and
+// tests/test_torch_thermo_variants.py do.
 
 #include "recfast.cuh"
 
 extern "C" int recfast_n_params() { return rf::kNParams; }
 
-extern "C" int recfast_history_host(const double* params, const double* Hy, const double* Hy2,
-                                    double Hx0, double Hdx, int Hn, int Nz, double* out) {
+// the history with the ln E spline of the injection beyond the spot (Ey, Ey2
+// (En, 1); null when params' inj_bos is not set)
+extern "C" int recfast_history_host_inj(const double* params, const double* Hy,
+                                        const double* Hy2, double Hx0, double Hdx, int Hn,
+                                        const double* Ey, const double* Ey2, double Ex0,
+                                        double Edx, int En, int Nz, double* out) {
   rf::Params P;
   double* pp = reinterpret_cast<double*>(&P);
   for (int i = 0; i < rf::kNParams; ++i) pp[i] = params[i];
-  const rf::Hubble S{Hy, Hy2, Hx0, Hdx, Hn};
-  rf::history(P, S, rf::Team{0, 1}, Nz, out);
+  const rf::Hubble S{Hy, Hy2, Hx0, Hdx, Hn, Ey, Ey2, Ex0, Edx, En};
+  if (P.inj_on != 0.0)
+    rf::history<true>(P, S, rf::Team{0, 1}, Nz, out);
+  else
+    rf::history<false>(P, S, rf::Team{0, 1}, Nz, out);
   return 0;
+}
+
+// the same without the spline
+extern "C" int recfast_history_host(const double* params, const double* Hy, const double* Hy2,
+                                    double Hx0, double Hdx, int Hn, int Nz, double* out) {
+  return recfast_history_host_inj(params, Hy, Hy2, Hx0, Hdx, Hn, nullptr, nullptr, 0.0, 0.0, 0,
+                                  Nz, out);
 }
 
 extern "C" int tb_march_host(const double* z, const double* xe, const double* H,

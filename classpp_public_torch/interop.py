@@ -20,12 +20,13 @@ import torch
 from .config.params import CosmoParams
 from .config.precision import PrecisionParams
 from .models.background import BackgroundResult, BgIdx
+from .models.hyrec import HY_PARAMS, HyrecCtx, HyrecTables
 from .models.nonlinear import PkResult
 from .models.perturbations.equations import NcdmCtx
 from .models.perturbations.solve import PerturbResult
 from .models.perturbations.tensors import TensorResult
 from .models.spectra import SpectraResult
-from .models.thermodynamics import ThermoResult
+from .models.thermodynamics import RecfastCtx, ThermoResult
 from .models.transfer import TransferResult
 from .ops.splines import UniformSpline
 
@@ -132,3 +133,26 @@ def pk_result(d: dict, device) -> PkResult:
     """PkResult from a JAX PkResult dict."""
     kw = {k: _t(d[k], device) for k in PkResult._fields if k != "sigma8"}
     return PkResult(sigma8=_f(d["sigma8"]), **kw)
+
+
+def hyrec_ctx(d: dict) -> HyrecCtx:
+    """HyrecCtx from a JAX HyrecCtx dict (scalars and tables, host)."""
+    t = torch.as_tensor
+    tables = HyrecTables(
+        _t(d["log_alpha"], "cpu"), _t(d["log_r2p2s"], "cpu"),
+        _t(np.stack([np.asarray(d[k]) for k in ("Eb", "A1s", "A2s", "A3s3d", "A4s4d")]), "cpu"),
+        t(np.array(d["read_src"], dtype=np.int32)), t(np.array(d["read_off"], dtype=np.int32)),
+        _t(d["read_w"], "cpu"))
+    return HyrecCtx(**{k: _f(d[k]) for k in HY_PARAMS}, tables=tables)
+
+
+def recfast_ctx(d: dict) -> RecfastCtx:
+    """RecfastCtx from a JAX RecfastCtx dict, with its energy-injection
+    fields (the inj scalars, rho_cdm today, the ln E spline beyond the
+    spot); recfast_params of the result is the RF_PARAMS vector."""
+    kw = {k: _f(d[k]) for k in RecfastCtx._fields
+          if k not in ("H_of_z", "inj", "inj_conv") and k in d}
+    conv = d.get("inj_conv")
+    return RecfastCtx(H_of_z=spline(d["H_of_z"], "cpu"),
+                      inj=tuple(float(np.asarray(v)) for v in d["inj"]),
+                      inj_conv=None if conv is None else spline(conv, "cpu"), **kw)

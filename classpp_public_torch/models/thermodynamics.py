@@ -1,21 +1,26 @@
-"""Thermodynamics: RECFAST recombination, reio_camb reionization, the
-tau_reio shooting and the derived epochs.
+"""Thermodynamics: RECFAST recombination (with DM energy injection, on the
+spot or beyond it), the switch to HyRec (models/hyrec.py), the reionization
+schemes (reio_camb with the tau_reio shooting, half_tanh, bins_tanh,
+many_tanh, inter, none) and the derived epochs.
 
 Counterpart of classpp_public_tpu/models/thermodynamics.py
-(`make_recfast_ctx` :160, `recfast_derivs` :295,
-`_compute_recombination_impl` :453-590, `_xe_reio_camb` :641,
-`_tb_march_impl` :756, `_compute_thermodynamics_impl` :806).
+(`make_recfast_ctx` :160-250, `_energy_injection_rate` / `_ots_rate`
+:253-282, `recfast_derivs` :295, `_compute_recombination_impl` :453-590, the
+reionization profiles :641-739, `_tb_march_impl` :756,
+`_compute_thermodynamics_impl` :806).
 
 Where each part runs. The two serial recurrences are kernels on a CUDA
 device: the RECFAST history (20 000 dependent intervals, four RK4 sub-steps
 each in the integrated phases) is `recfast_history`, the backward-Euler
 baryon-temperature march through reionization (4096 dependent steps) is
 `tb_march`; both are csrc/recfast.cu, launched on the stage's device, with
-their tables read back to the host. On device="cpu" their plain versions run:
-the host Python loops `recfast_history_plain` and `tb_march_plain`. The
-RecfastCtx constants, the tau_reio shooting, the merge and the runtime
-uniform-ln(tau) table are float64 tensor code on the host in both cases; the
-finished runtime table moves to the stage's device once.
+their tables read back to the host (with HyRec, the history is
+models/hyrec.py's `hyrec_history` instead). On device="cpu" their plain
+versions run: the host Python loops `recfast_history_plain` and
+`tb_march_plain`. The RecfastCtx constants and the injection convolution,
+the reionization profiles and the tau_reio shooting, the merge and the
+runtime uniform-ln(tau) table are float64 numpy/tensor code on the host in
+both cases; the finished runtime table moves to the stage's device once.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import ctypes
 import math
 from functools import lru_cache
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -102,6 +107,14 @@ class RecfastCtx(NamedTuple):
     Bfact: float
     H_of_z: UniformSpline   # (H, H') on the uniform loga grid, host tensors
     YHe: float
+    # DM energy injection: (annihilation [m^3/s/kg], decay [1/s], variation,
+    # z, zmax, zmin, f_halo, z_halo) and rho_cdm today [J/m^3]
+    # (thermodynamics_onthespot_energy_injection, :1755-1795)
+    inj: tuple = (0.0,) * 8
+    rho_cdm_J: float = 0.0
+    # beyond the spot: ln E of the delayed-deposition convolution over
+    # x = -ln(1 + z) (None on the spot; :1810-1870)
+    inj_conv: Optional[UniformSpline] = None
 
 
 @lru_cache(maxsize=4)
@@ -145,6 +158,11 @@ def make_recfast_ctx(params: CosmoParams, pr: PrecisionParams,
     Lalpha = 1.0 / _L_H_alpha
     Lalpha_He = 1.0 / _L_He_2p
     hc_k = const.h_P * const.c_SI / const.k_B
+    rho_cdm_J = H0_s**2 * 3.0 / (8.0 * math.pi * const.G_SI) * float(bg.Omega0_cdm) * const.c_SI**2
+    inj = tuple(float(v) for v in (
+        params.annihilation, params.decay, params.annihilation_variation, params.annihilation_z,
+        params.annihilation_zmax, params.annihilation_zmin, params.annihilation_f_halo,
+        params.annihilation_z_halo))
     loga = bg.loga.to(HOST)
     table = bg.table.to(HOST)
     Hcols = torch.stack([table[:, idx["H"]], table[:, idx["H_prime"]]], dim=1)
@@ -161,11 +179,67 @@ def make_recfast_ctx(params: CosmoParams, pr: PrecisionParams,
             8.0 * math.pi**5 * const.k_B**4 / 15.0 / const.h_P**3 / const.c_SI**3),
         Bfact=hc_k * (_L_He_2p - _L_He_2s),
         H_of_z=UniformSpline.build(float(loga[0]), float(loga[1] - loga[0]), Hcols),
-        YHe=YHe)
+        YHe=YHe, inj=inj, rho_cdm_J=rho_cdm_J,
+        inj_conv=_injection_convolution(params, bg, inj, rho_cdm_J, Nnow))
+
+
+def _ots_rate(inj, rho_cdm_J, z):
+    """On-the-spot injection rate [J/m^3/s] at the redshifts z (numpy)
+    (thermodynamics_onthespot_energy_injection, :1755-1795)."""
+    ann, dec, var, z0, zmax, zmin, f_halo, z_halo = inj
+    lz0 = np.log((z0 + 1.0) / (zmax + 1.0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ann_z = np.where(
+            z > zmax, ann * np.exp(-var * lz0**2),
+            np.where(z > zmin,
+                     ann * np.exp(var * (-lz0**2 + np.log((z + 1.0) / (zmax + 1.0)) ** 2)),
+                     ann * np.exp(var * (-lz0**2 + np.log((zmin + 1.0) / (zmax + 1.0)) ** 2))))
+    u_min = (1.0 + z) / (1.0 + z_halo)
+    erfc = (1.0 + 0.278393 * u_min + 0.230389 * u_min**2 + 0.000972 * u_min**3
+            + 0.078108 * u_min**4) ** -4
+    zp3 = (1.0 + z) ** 3
+    return rho_cdm_J**2 / const.c_SI**2 * zp3 * (zp3 * ann_z + f_halo * erfc) + rho_cdm_J * zp3 * dec
+
+
+def _injection_convolution(params, bg, inj, rho_cdm_J, Nnow):
+    """Beyond the spot (`on the spot = no` with annihilation): ln E(z) of the
+    delayed-deposition convolution E(z) = int dz' G(z, z') E_ots(z'),
+    G = factor (1+z)^8 / (1+z')^7.5 exp(2/3 factor ((1+z)^1.5 - (1+z')^1.5)),
+    as the reference's discrete loop (thermodynamics_module.cpp:1810-1870):
+    trapezoid with dz' = 1, half weight on the first point, stopping after the
+    first step whose integrand drops to <= 2% of the first; on 1024 nodes
+    uniform in -ln(1 + z) up to z = 2e4 (make_recfast_ctx,
+    classpp_public_tpu thermodynamics.py:199-243). None on the spot."""
+    if params.on_the_spot or not inj[0] > 0.0:
+        return None
+    om_m = float(bg.Omega0_b) + float(bg.Omega0_cdm)
+    factor = const.sigma_T * Nnow / (float(bg.H0) / const.Mpc_over_m) / math.sqrt(om_m)
+    nz_c, nstep = 1024, 4096
+    zg = np.expm1(np.linspace(0.0, math.log1p(2.0e4), nz_c))
+    zc = zg[:, None]
+
+    def integrand(zp):
+        return (factor * (1.0 + zc) ** 8 / (1.0 + zp) ** 7.5
+                * np.exp(np.minimum(2.0 / 3.0 * factor * ((1.0 + zc) ** 1.5 - (1.0 + zp) ** 1.5),
+                                    700.0))
+                * _ots_rate(inj, rho_cdm_J, zp))
+
+    first = integrand(zc)[:, 0]
+    integ = integrand(zc + np.arange(1.0, nstep + 1.0)[None, :])      # (nz, nstep)
+    below = integ <= 0.02 * first[:, None]
+    stop = np.where(below.any(axis=1), np.argmax(below, axis=1), nstep - 1)
+    keep = np.arange(nstep)[None, :] <= stop[:, None]                # inclusive
+    E = 0.5 * first + np.sum(np.where(keep, integ, 0.0), axis=1)
+    x = -np.log1p(zg)
+    xu = np.linspace(x[-1], x[0], nz_c)
+    lnE = np.interp(xu, x[::-1], np.log(np.maximum(E, 1e-300))[::-1])
+    return UniformSpline.build(float(xu[0]), float(xu[1] - xu[0]), torch.as_tensor(lnE)[:, None])
 
 
 # order of rf::Params in csrc/recfast.cuh: the RecfastCtx scalars, the
-# precision parameters and the derived constants the history reads
+# precision parameters, the derived constants the history reads, and the
+# energy injection (inj_on: 0 or 1; inj_bos: 1 when the rate is the ln E
+# spline passed beside the H spline; the eight RecfastCtx.inj scalars)
 RF_PARAMS = (
     "fHe", "Nnow", "Tnow", "fu", "H0_s", "CDB", "CDB_He", "CB1", "CB1_He1", "CB1_He2",
     "CR", "CK", "CK_He", "CL", "CL_He", "CT", "Bfact", "YHe",
@@ -174,6 +248,8 @@ RF_PARAMS = (
     "dtrigHe", "dtrigH",
     "c", "not4", "conv", "dop_fac", "CL_PSt", "E_trip_ion", "E_2St", "wb_fac", "dk_fac",
     "T_0", "T_1", "a_VF", "a_trip",
+    "inj_on", "inj_bos", "ann", "dec", "ann_var", "ann_z", "ann_zmax", "ann_zmin", "f_halo",
+    "z_halo", "rho_cdm_J", "hPc", "kB", "L_H_ion", "L_H_alpha",
 )
 RECO_COLUMNS = ("z", "xe", "Tb", "wb", "cb2", "dkappadtau")
 
@@ -199,8 +275,60 @@ def recfast_params(ctx: RecfastCtx, pr: PrecisionParams) -> torch.Tensor:
         CL_PSt=hP * c * (_L_He_2Pt - _L_He_2St) / kB,
         E_trip_ion=hP * c * _L_He2St_ion / kB, E_2St=hP * c * _L_He_2St / kB,
         wb_fac=kB / (c**2 * mH), dk_fac=ctx.Nnow * const.sigma_T * const.Mpc_over_m,
-        T_0=_T_0, T_1=_T_1, a_VF=_a_VF, a_trip=_a_trip)
+        T_0=_T_0, T_1=_T_1, a_VF=_a_VF, a_trip=_a_trip,
+        inj_on=float(ctx.inj[0] != 0.0 or ctx.inj[1] != 0.0),
+        inj_bos=float(ctx.inj_conv is not None), rho_cdm_J=ctx.rho_cdm_J, hPc=hP * c, kB=kB,
+        L_H_ion=_L_H_ion, L_H_alpha=_L_H_alpha,
+        **dict(zip(("ann", "dec", "ann_var", "ann_z", "ann_zmax", "ann_zmin", "f_halo", "z_halo"),
+                   ctx.inj)))
     return torch.tensor([float(v[n]) for n in RF_PARAMS], dtype=torch.float64)
+
+
+def _spline_evaluator(spl: UniformSpline):
+    """Host scalar evaluation of a one-column UniformSpline at x (cubes as
+    pow calls, as recfast.cuh's)."""
+    y, y2 = spl.y[:, 0].tolist(), spl.y2[:, 0].tolist()
+    x0, dx, n = spl.x0, spl.dx, spl.n
+    h2 = dx * dx / 6.0
+
+    def ev(x):
+        t = (x - x0) / dx
+        i = min(max(int(math.floor(t)), 0), n - 2)
+        b = t - i
+        a = 1.0 - b
+        return a * y[i] + b * y[i + 1] + (a**3 - a) * h2 * y2[i] + (b**3 - b) * h2 * y2[i + 1]
+
+    return ev
+
+
+def _injection_rate(p: dict, inj_conv):
+    """The energy injection rate [J/m^3/s] at redshift z as a host scalar
+    function (_energy_injection_rate and _ots_rate, classpp_public_tpu
+    thermodynamics.py:253-282): exp of the ln E spline beyond the spot, the
+    on-the-spot form otherwise."""
+    if p["inj_bos"] != 0.0:
+        lnE = _spline_evaluator(inj_conv)
+        return lambda z: math.exp(lnE(-math.log1p(z)))
+    ann, dec, var, z0 = p["ann"], p["dec"], p["ann_var"], p["ann_z"]
+    zmax, zmin, f_halo, z_halo = p["ann_zmax"], p["ann_zmin"], p["f_halo"], p["z_halo"]
+    rho, c = p["rho_cdm_J"], p["c"]
+    log, exp = math.log, math.exp
+
+    def rate(z):
+        lz0 = log((z0 + 1.0) / (zmax + 1.0))
+        if z > zmax:
+            ann_z = ann * exp(-var * lz0**2)
+        elif z > zmin:
+            ann_z = ann * exp(var * (-lz0**2 + log((z + 1.0) / (zmax + 1.0)) ** 2))
+        else:
+            ann_z = ann * exp(var * (-lz0**2 + log((zmin + 1.0) / (zmax + 1.0)) ** 2))
+        u_min = (1.0 + z) / (1.0 + z_halo)
+        erfc = (1.0 + 0.278393 * u_min + 0.230389 * u_min**2 + 0.000972 * u_min**3
+                + 0.078108 * u_min**4) ** -4
+        zp3 = (1.0 + z) ** 3
+        return rho**2 / c**2 * zp3 * (zp3 * ann_z + f_halo * erfc) + rho * zp3 * dec
+
+    return rate
 
 
 def _hubble_evaluator(spl: UniformSpline, conv: float):
@@ -223,12 +351,17 @@ def _hubble_evaluator(spl: UniformSpline, conv: float):
     return hubble
 
 
-def make_recfast_derivs(p: dict, H_of_z: UniformSpline):
+def make_recfast_derivs(p: dict, H_of_z: UniformSpline, inj_conv=None):
     """RECFAST 1.5 derivatives d(x_H, x_He, Tmat)/dz as a host scalar
     function (recfast_derivs, classpp_public_tpu thermodynamics.py:295;
-    reference thermodynamics_module.cpp:3727-3960, Heswitch=6, Hswitch on).
-    p: RF_PARAMS by name."""
+    reference thermodynamics_module.cpp:3727-3960, Heswitch=6, Hswitch on),
+    with the DM energy injection terms when p["inj_on"] (:3894-3904,
+    :3952-3962). p: RF_PARAMS by name; inj_conv: the ln E spline beyond the
+    spot."""
     hubble = _hubble_evaluator(H_of_z, p["conv"])
+    inj_on = p["inj_on"] != 0.0
+    inj_rate = _injection_rate(p, inj_conv) if inj_on else None
+    hPc, kB, L_H_ion, L_H_alpha = p["hPc"], p["kB"], p["L_H_ion"], p["L_H_alpha"]
     fHe, Nnow, Tnow, fu, H0_s = p["fHe"], p["Nnow"], p["Tnow"], p["fu"], p["H0_s"]
     CR, CDB, CDB_He, CK, CK_He = p["CR"], p["CDB"], p["CDB_He"], p["CK"], p["CK_He"]
     CL, CL_He, CT, Bfact = p["CL"], p["CL_He"], p["CT"], p["Bfact"]
@@ -305,11 +438,20 @@ def make_recfast_derivs(p: dict, H_of_z: UniformSpline):
             C_peebles = (1.0 + KLn) / (1.0 / fu + KLn / fu + K * Rup * n * one_m_xH)
         else:
             C_peebles = 1.0
+        if inj_on:
+            energy_rate = inj_rate(z)
+            xc = _clip(x, 0.0, 1.0)
         if x_H > trigH:
             dxH = 0.0
         else:
             dxH = (x * x_H * n * Rdown - Rup * one_m_xH * exp(-CL / Tmat)) \
                 * C_peebles / (Hz * zp1)
+            if inj_on:
+                # extra ionization (Slatyer/Poulin chi_ion fit); d/dz, so it
+                # subtracts
+                chi_ion_H = 0.369202 * (1.0 - xc**0.463929) ** 1.70237 if x < 1.0 else 0.0
+                dxH = dxH - energy_rate * chi_ion_H / n \
+                    * (1.0 / L_H_ion + (1.0 - C_peebles) / L_H_alpha) / (hPc * Hz * zp1)
 
         if x_He < 1e-15:
             dxHe = 0.0
@@ -332,6 +474,12 @@ def make_recfast_derivs(p: dict, H_of_z: UniformSpline):
         else:
             dT = (CT * Trad**4 * x / (1.0 + x + fHe) * (Tmat - Trad) / (Hz * zp1)
                   + 2.0 * Tmat / zp1)
+            if inj_on:
+                # injection heating (chi_heat fit)
+                fit = 0.996857 * (1.0 - (1.0 - xc**0.300134) ** 1.51035)
+                chi_heat = (fit if fit < 1.0 else 1.0) if x < 1.0 else 1.0
+                dT = dT - 2.0 / (3.0 * kB) * energy_rate * chi_heat / n / (1.0 + fHe + x) \
+                    / (Hz * zp1)
         return dxH, dxHe, dT
 
     return derivs
@@ -346,14 +494,16 @@ class RecoTable(NamedTuple):
     dkappadtau: torch.Tensor
 
 
-def recfast_history_plain(rp: torch.Tensor, H_of_z: UniformSpline, Nz: int) -> torch.Tensor:
+def recfast_history_plain(rp: torch.Tensor, H_of_z: UniformSpline, Nz: int,
+                          inj_conv: Optional[UniformSpline] = None) -> torch.Tensor:
     """Plain version of `recfast_history`: a host loop over the Nz intervals
     of the descending z grid, with the staged Saha approximations of
     thermodynamics_recombination_with_recfast (:3461-3647). In the Saha
     regimes A-D the state is pinned, so the RK4 candidate (unused there) is
-    not integrated. Returns (6, Nz) in RECO_COLUMNS order, ascending z."""
+    not integrated. inj_conv: the ln E spline beyond the spot (rp's inj_bos).
+    Returns (6, Nz) in RECO_COLUMNS order, ascending z."""
     p = dict(zip(RF_PARAMS, rp.tolist()))
-    derivs = make_recfast_derivs(p, H_of_z)
+    derivs = make_recfast_derivs(p, H_of_z, inj_conv)
     z_init, fHe, Tnow, Nnow, CR = p["z_init"], p["fHe"], p["Tnow"], p["Nnow"], p["CR"]
     zHe1, dzHe1, zHe2, dzHe2 = p["zHe1"], p["dzHe1"], p["zHe2"], p["dzHe2"]
     zHe3, dzHe3 = p["zHe3"], p["dzHe3"]
@@ -446,28 +596,43 @@ def recfast_history_plain(rp: torch.Tensor, H_of_z: UniformSpline, Nz: int) -> t
     return torch.tensor(rows[::-1], dtype=torch.float64).T.contiguous()
 
 
-def recfast_history(rp: torch.Tensor, H_of_z: UniformSpline, Nz: int) -> torch.Tensor:
+def recfast_history(rp: torch.Tensor, H_of_z: UniformSpline, Nz: int,
+                    inj_conv: Optional[UniformSpline] = None) -> torch.Tensor:
     """The RECFAST history, (6, Nz) in RECO_COLUMNS order, ascending z: the
     kernel recfast_history (csrc/recfast.cu) for CUDA tensors, the plain
     loop for CPU tensors. rp: the RF_PARAMS vector; H_of_z: the (H, H')
-    spline over ln a, on rp's device."""
+    spline over ln a; inj_conv: the (n, 1) ln E spline of the injection
+    beyond the spot when rp's inj_bos is set, else None; all on rp's
+    device."""
     global recfast_launches
     dev = rp.device
+    bos = inj_conv is not None
     if dev.type == "cpu":
-        return recfast_history_plain(rp, H_of_z, Nz)
+        return recfast_history_plain(rp, H_of_z, Nz, inj_conv)
     if dev.type != "cuda":
         raise ValueError(f"recfast_history: unsupported device {dev}")
     Hy, Hy2 = H_of_z.y, H_of_z.y2
     if rp.shape != (len(RF_PARAMS),) or Hy.shape != (H_of_z.n, 2) or Hy2.shape != Hy.shape:
         raise ValueError(f"recfast_history: bad shapes rp{tuple(rp.shape)} H{tuple(Hy.shape)}")
-    for t in (rp, Hy, Hy2):
+    params = rp.tolist()
+    if bos != (params[RF_PARAMS.index("inj_bos")] != 0.0):
+        raise ValueError("recfast_history: inj_conv must be given exactly when inj_bos is set")
+    Ey, Ey2 = (inj_conv.y, inj_conv.y2) if bos else (Hy, Hy2)
+    if bos and (Ey.shape != (inj_conv.n, 1) or Ey2.shape != Ey.shape):
+        raise ValueError(f"recfast_history: bad shape of the ln E spline {tuple(Ey.shape)}")
+    for t in (rp, Hy, Hy2, Ey, Ey2):
         if t.dtype != torch.float64 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"recfast_history: every input must be contiguous float64 on {dev}")
     lib = cuda.library()
     out = torch.empty((6, Nz), dtype=torch.float64, device=dev)
-    params = (ctypes.c_double * len(RF_PARAMS))(*rp.tolist())   # a kernel parameter
+    params = (ctypes.c_double * len(RF_PARAMS))(*params)   # a kernel parameter
     err = lib.recfast_history_launch(params, Hy.data_ptr(), Hy2.data_ptr(),
-                                     float(H_of_z.x0), float(H_of_z.dx), int(H_of_z.n), int(Nz),
+                                     float(H_of_z.x0), float(H_of_z.dx), int(H_of_z.n),
+                                     Ey.data_ptr() if bos else None,
+                                     Ey2.data_ptr() if bos else None,
+                                     float(inj_conv.x0) if bos else 0.0,
+                                     float(inj_conv.dx) if bos else 0.0,
+                                     int(inj_conv.n) if bos else 0, int(Nz),
                                      out.data_ptr(), cuda.stream_ptr(dev))
     cuda.check(err, "recfast_history")
     recfast_launches += 1
@@ -478,9 +643,13 @@ def compute_recombination(pr: PrecisionParams, ctx: RecfastCtx, device="cpu") ->
     """The RECFAST table on the host, computed on `device` (the kernel on a
     CUDA device, the plain loop on the CPU)."""
     dev = torch.device(device)
-    spl = ctx.H_of_z.to(dev)
-    spl = spl._replace(y=spl.y.contiguous(), y2=spl.y2.contiguous())
-    out = recfast_history(recfast_params(ctx, pr).to(dev), spl, pr.recfast_Nz0)
+
+    def on_dev(spl):
+        spl = spl.to(dev)
+        return spl._replace(y=spl.y.contiguous(), y2=spl.y2.contiguous())
+
+    out = recfast_history(recfast_params(ctx, pr).to(dev), on_dev(ctx.H_of_z), pr.recfast_Nz0,
+                          None if ctx.inj_conv is None else on_dev(ctx.inj_conv))
     return RecoTable(*out.cpu())
 
 
@@ -523,16 +692,96 @@ class ThermoResult(NamedTuple):
     n_e: float = None
 
 
-def _xe_reio_camb(z, z_reio, z_start, xe_before, xe_after, fHe, params: CosmoParams):
-    """reio_camb ionization function (thermodynamics_reionization_function,
-    thermodynamics_module.cpp:1893); broadcasts over tensors."""
+def _xe_reio_camb(z, z_reio, z_start, xe_before, xe_after, fHe, params: CosmoParams,
+                  half: bool = False):
+    """reio_camb / reio_half_tanh ionization function
+    (thermodynamics_reionization_function, thermodynamics_module.cpp:1893;
+    half: plain tanh to xe_after, no He term, :1936); broadcasts over
+    tensors."""
     ex = params.reionization_exponent
     arg = ((1.0 + z_reio) ** ex - (1.0 + z) ** ex) / (ex * (1.0 + z_reio) ** (ex - 1.0)) \
         / params.reionization_width
-    xe = (xe_after - xe_before) * (torch.tanh(arg) + 1.0) / 2.0 + xe_before
-    arg_he = (params.helium_fullreio_redshift - z) / params.helium_fullreio_width
-    xe = xe + fHe * (torch.tanh(arg_he) + 1.0) / 2.0
+    if half:
+        xe = (xe_after - xe_before) * torch.tanh(arg) + xe_before
+    else:
+        xe = (xe_after - xe_before) * (torch.tanh(arg) + 1.0) / 2.0 + xe_before
+        arg_he = (params.helium_fullreio_redshift - z) / params.helium_fullreio_width
+        xe = xe + fHe * (torch.tanh(arg_he) + 1.0) / 2.0
     return torch.where(z > z_start, xe_before, xe)
+
+
+def _xe_reio_bins_tanh(z, params: CosmoParams, xe_top: float, fHe: float):
+    """reio_bins_tanh profile (thermodynamics_module.cpp:1958-2016, bin setup
+    :2358-2446). Returns (xe(z), z_start); xe_top: the recombination xe at
+    z_start."""
+    zi, xi = list(params.binned_reio_z), list(params.binned_reio_xe)
+    if len(zi) < 2:
+        raise ValueError("binned reio requires at least two bin centers")
+    z_top = zi[-1] + 2.0 * (zi[-1] - zi[-2])
+    z_arr = [max(2.0 * zi[0] - zi[1], 0.0)] + zi + [z_top]
+    xe_arr = [1.0 + fHe] + xi + [xe_top]
+    n = len(z_arr)
+    sharp = params.binned_reio_step_sharpness
+    xe = torch.full_like(z, xe_arr[0])
+    for i in range(n - 1):
+        if i == n - 2:
+            z_jump = z_arr[i] + 0.5 * (z_arr[i] - z_arr[i - 1])
+        else:
+            z_jump = 0.5 * (z_arr[i + 1] + z_arr[i])
+        val = xe_arr[i] + 0.5 * (torch.tanh((z - z_jump) / sharp) + 1.0) \
+            * (xe_arr[i + 1] - xe_arr[i])
+        xe = torch.where((z >= z_arr[i]) & (z < z_arr[i + 1]), val, xe)
+    return torch.where(z >= z_arr[-1], xe_arr[-1], xe), z_top
+
+
+def _special_xe(values, fHe: float, name: str):
+    """Node values: >= 0 as given, -1 for H + singly ionized He, -2 for H +
+    doubly ionized He (input_module.cpp reio_many_tanh / reio_inter)."""
+    out = []
+    for v in values:
+        if v >= 0.0:
+            out.append(v)
+        elif -1.1 < v < -0.9:
+            out.append(1.0 + fHe)
+        elif -2.1 < v < -1.9:
+            out.append(1.0 + 2.0 * fHe)
+        else:
+            raise ValueError(f"{name} entry {v} invalid (>=0, -1 or -2)")
+    return out
+
+
+def _xe_reio_many_tanh(z, params: CosmoParams, pr, xe_top: float, fHe: float):
+    """reio_many_tanh profile (thermodynamics_module.cpp:2021-2060, setup
+    :2448-2560): tanh jumps walking down from the recombination value."""
+    zi = list(params.many_tanh_z)
+    xi = _special_xe(params.many_tanh_xe, fHe, "many_tanh_xe")
+    if not zi:
+        raise ValueError("reio_many_tanh requires at least one jump center")
+    width = params.many_tanh_width
+    z_top = zi[-1] + pr.reionization_start_factor * width
+    z_arr = [max(zi[0] - pr.reionization_start_factor * width, 0.0)] + zi + [z_top]
+    xe_arr = [xi[0]] + xi + [xe_top]
+    n = len(z_arr)
+    xe = torch.full_like(z, xe_arr[-1])
+    for jump in range(1, n - 1):
+        before = xe_arr[n - 1 - jump] - xe_arr[n - jump]
+        xe = xe + before * (1.0 - torch.tanh((z - z_arr[n - 1 - jump]) / width)) / 2.0
+    xe = torch.where(z <= z_arr[0], xe_arr[0], xe)
+    return torch.where(z >= z_arr[-1], xe_arr[-1], xe), z_top
+
+
+def _xe_reio_inter(z, params: CosmoParams, xe_top: float, fHe: float):
+    """reio_inter profile (thermodynamics_module.cpp:2063-2110, setup
+    :2562-2640): piecewise-linear xe(z); the last node's xe must be 0 and
+    becomes the recombination value there."""
+    zi, xi_in = list(params.reio_inter_z), list(params.reio_inter_xe)
+    if not zi or zi[0] != 0.0:
+        raise ValueError("reio_inter_z must start at z=0")
+    if xi_in[-1] != 0.0:
+        raise ValueError("last reio_inter_xe must be 0 (recombination value)")
+    xi = _special_xe(xi_in[:-1], fHe, "reio_inter_xe") + [xe_top]
+    f64 = torch.float64
+    return interp(z, torch.tensor(zi, dtype=f64), torch.tensor(xi, dtype=f64)), zi[-1]
 
 
 def tb_march_plain(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine, consts,
@@ -598,11 +847,13 @@ def tb_march(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine, consts,
 
 def compute_thermodynamics(params: CosmoParams, pr: PrecisionParams,
                            bg: BackgroundResult, bidx: BgIdx, device="cuda") -> ThermoResult:
-    """RECFAST -> reio_camb (tau_reio shooting) -> Tb/cb2 through
-    reionization -> merge -> runtime uniform-ln(tau) table
-    (thermodynamics_init, thermodynamics_module.cpp:293-1297). The RECFAST
-    history and the Tb march run on `device` (kernels on a CUDA device), the
-    rest on the host; the runtime table is returned on `device`."""
+    """Recombination (RECFAST, with energy injection when set, or HyRec) ->
+    reionization (reio_camb with the tau_reio shooting, or a fixed-profile
+    scheme) -> Tb/cb2 through reionization -> merge -> runtime uniform-ln(tau)
+    table (thermodynamics_init, thermodynamics_module.cpp:293-1297). The
+    recombination history and the Tb march run on `device` (kernels on a CUDA
+    device), the rest on the host; the runtime table is returned on
+    `device`."""
     from ..pipeline import resolve_device
 
     device = resolve_device(device)
@@ -611,18 +862,37 @@ def compute_thermodynamics(params: CosmoParams, pr: PrecisionParams,
     return th._replace(lntau_spline=th.lntau_spline.to(device))
 
 
+def _recombination(params, pr, ctx: RecfastCtx, bg, device) -> RecoTable:
+    """HyRec for recombination = hyrec / hyrec_full, RECFAST otherwise
+    (_compute_thermodynamics_impl, classpp_public_tpu thermodynamics.py:806-819)."""
+    if params.recombination in ("hyrec", "hyrec_full"):
+        from .hyrec import compute_recombination_hyrec
+
+        return compute_recombination_hyrec(
+            params, pr, ctx, bg, model="full" if params.recombination == "hyrec_full" else "recfast",
+            device=device)
+    return compute_recombination(pr, ctx, device)
+
+
 def _compute_thermodynamics_impl(params, pr, bg, bidx, device) -> ThermoResult:
     f64 = torch.float64
     ctx = make_recfast_ctx(params, pr, bg, bidx)
-    reco = compute_recombination(pr, ctx, device)
+    reco = _recombination(params, pr, ctx, bg, device)
     fHe = ctx.fHe
-    xe_after = 1.0 + fHe
+    scheme = params.reio_parametrization
+    half = scheme == "reio_half_tanh"
+    xe_after = 1.0 if half else 1.0 + fHe     # half_tanh neglects He (:2246)
 
     n_fine = 4096
     z_fine = torch.linspace(0.0, pr.reionization_z_start_max, n_fine, dtype=f64)
     H_fine = ctx.H_of_z.eval(-torch.log1p(z_fine))[:, 0]
     xe_reco_fine = interp(z_fine, reco.z, reco.xe)
     kappa_fac = ctx.Nnow * const.sigma_T * const.Mpc_over_m
+
+    def tau_of_profile(xe, z_start):
+        """Optical depth of the profiles xe (..., n_fine) below z_start (...)."""
+        integrand = (1.0 + z_fine) ** 2 * kappa_fac * xe / H_fine
+        return torch.trapezoid(torch.where(z_fine <= z_start, integrand, 0.0), z_fine, dim=-1)
 
     def tau_of_zreio(z_reio):
         """Optical depth for each candidate z_reio (any shape)."""
@@ -633,30 +903,57 @@ def _compute_thermodynamics_impl(params, pr, bg, bidx, device) -> ThermoResult:
             + pr.reionization_start_factor * params.helium_fullreio_width)
         xe_before = interp(z_start, reco.z, reco.xe)
         zs, zr, xb = z_start[..., None], z_reio[..., None], xe_before[..., None]
-        xe = _xe_reio_camb(z_fine, zr, zs, xb, xe_after, fHe, params)
-        integrand = (1.0 + z_fine) ** 2 * kappa_fac * xe / H_fine
-        return torch.trapezoid(torch.where(z_fine <= zs, integrand, 0.0), z_fine, dim=-1)
+        xe = _xe_reio_camb(z_fine, zr, zs, xb, xe_after, fHe, params, half=half)
+        return tau_of_profile(xe, zs)
 
-    if params.z_reio is not None:
-        z_reio = float(params.z_reio)
-        tau_reio = float(tau_of_zreio(z_reio))
+    def reco_xe_at(z):
+        return interp(torch.tensor(z, dtype=f64), reco.z, reco.xe)
+
+    if scheme in ("reio_camb", "reio_half_tanh"):
+        if params.z_reio is not None:
+            z_reio = float(params.z_reio)
+            tau_reio = float(tau_of_zreio(z_reio))
+        else:
+            z_cand = torch.linspace(0.0, pr.reionization_z_start_max
+                                    - pr.reionization_start_factor * params.reionization_width
+                                    - 1e-3, 512, dtype=f64)
+            tau_cand = tau_of_zreio(z_cand)
+            z_reio = float(interp(torch.tensor(params.tau_reio, dtype=f64), tau_cand, z_cand))
+            t0 = float(tau_of_zreio(z_reio))
+            t1 = float(tau_of_zreio(z_reio + 0.01))
+            z_reio = z_reio + (params.tau_reio - t0) * 0.01 / (t1 - t0)
+            tau_reio = float(tau_of_zreio(z_reio))
+        z_start = max(z_reio + pr.reionization_start_factor * params.reionization_width,
+                      params.helium_fullreio_redshift
+                      + pr.reionization_start_factor * params.helium_fullreio_width)
+        z_start_t = torch.tensor(z_start, dtype=f64)
+        xe_fine = _xe_reio_camb(z_fine, z_reio, z_start_t, interp(z_start_t, reco.z, reco.xe),
+                                xe_after, fHe, params, half=half)
     else:
-        z_cand = torch.linspace(0.0, pr.reionization_z_start_max
-                                - pr.reionization_start_factor * params.reionization_width
-                                - 1e-3, 512, dtype=f64)
-        tau_cand = tau_of_zreio(z_cand)
-        z_reio = float(interp(torch.tensor(params.tau_reio, dtype=f64), tau_cand, z_cand))
-        t0 = float(tau_of_zreio(z_reio))
-        t1 = float(tau_of_zreio(z_reio + 0.01))
-        z_reio = z_reio + (params.tau_reio - t0) * 0.01 / (t1 - t0)
-        tau_reio = float(tau_of_zreio(z_reio))
-
-    z_start = max(z_reio + pr.reionization_start_factor * params.reionization_width,
-                  params.helium_fullreio_redshift
-                  + pr.reionization_start_factor * params.helium_fullreio_width)
-    z_start_t = torch.tensor(z_start, dtype=f64)
-    xe_before = interp(z_start_t, reco.z, reco.xe)
-    xe_fine = _xe_reio_camb(z_fine, z_reio, z_start_t, xe_before, xe_after, fHe, params)
+        # fixed-profile schemes: tau_reio is derived, not shot for
+        # (thermodynamics_module.cpp:2358-2640)
+        if scheme == "reio_bins_tanh":
+            zb = params.binned_reio_z
+            xe_top = float(reco_xe_at(zb[-1] + 2.0 * (zb[-1] - zb[-2])))
+            xe_fine, z_start = _xe_reio_bins_tanh(z_fine, params, xe_top, fHe)
+        elif scheme == "reio_many_tanh":
+            xe_top = float(reco_xe_at(params.many_tanh_z[-1]
+                                      + pr.reionization_start_factor * params.many_tanh_width))
+            xe_fine, z_start = _xe_reio_many_tanh(z_fine, params, pr, xe_top, fHe)
+        elif scheme == "reio_inter":
+            xe_top = float(reco_xe_at(params.reio_inter_z[-1]))
+            xe_fine, z_start = _xe_reio_inter(z_fine, params, xe_top, fHe)
+        elif scheme == "reio_none":
+            xe_fine, z_start = xe_reco_fine, 0.0
+        else:
+            raise ValueError(f"unknown reio_parametrization {scheme!r}")
+        z_start = float(z_start)
+        z_start_t = torch.tensor(z_start, dtype=f64)
+        tau_reio = float(tau_of_profile(xe_fine, z_start_t))
+        # the half-maximum crossing as the reported z_reio
+        xe_mid = 0.5 * (xe_fine[0] + interp(z_start_t, z_fine, xe_reco_fine))
+        z_reio = float(z_fine[torch.argmin(torch.abs(xe_fine - xe_mid))])
+    # above z_start the merged table keeps the recombination history
     xe_fine = torch.where(z_fine > z_start, xe_reco_fine, xe_fine)
 
     # --- Tb through reionization

@@ -36,7 +36,8 @@ SIGNATURES = {
     "perturb_ark_launch": [_P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _P, _P, _P,
                            _D, _D, _I, _L, _I, _I, _P, _P, _P, _P],
     "halofit_sigma_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
-    "recfast_history_launch": [_P, _P, _P, _D, _D, _I, _I, _P, _P],
+    "recfast_history_launch": [_P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _I, _P, _P],
+    "hyrec_history_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
     "tb_march_launch": [_P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P, _P],
     "tensor_rkck_launch": [_P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _D, _D, _I, _L,
                            _I, _I, _P, _P, _P, _P],

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """The reference goldens' contracts, and a check of configurations against them.
 
-`golden_check(name, raw, lensed, pk_lin, h)` holds the spectra of a run of
-the configuration `name` to the golden tests/golden/<name>.npz (built by the
-reference C++ code) under the contract of the JAX package's test of that
-golden: g3_tensor (tests/test_extended.py:58-92), g8_curved
-(tests/test_curved.py:176-196), g18_closed (tests/test_curved.py:112-157),
-g29_open01 and g30_closed01 (tests/test_curved_large.py:43-102). chip_smoke.py
-uses it for its golden paths.
+`golden_check(name, raw, lensed, pk_lin, h, thermo)` holds the spectra (and
+for the thermodynamics variants the x_e history and tau_reio) of a run of the
+configuration `name` to its golden (tests/golden/<name>.npz, built by the
+reference C++ code; g11a/g11b share g11_reio.npz) under the contract of the
+JAX package's test of that golden: g3_tensor (tests/test_extended.py:58-92),
+g8_curved (tests/test_curved.py:176-196), g18_closed
+(tests/test_curved.py:112-157), g29_open01 and g30_closed01
+(tests/test_curved_large.py:43-102), g5_hyrec (tests/test_hyrec.py),
+g16_injection and g22_injection_bos (tests/test_injection.py:40-66,
+:121-147), g11a_reio_bins and g11b_reio_manytanh (tests/test_reio.py:51-90).
+chip_smoke.py uses it for its golden paths.
 
 Run as a script it drives configurations through Class(device="cuda") and
 prints each measure against its limit with the multipole of the largest
@@ -59,26 +63,72 @@ class Golden:
                      - np.interp(ell, lr, te)) / den
         return float(err.max()), int(ell[err.argmax()])
 
-    def rel_pk(self, pk_lin, h):
+    def rel_pk(self, pk_lin, h, k_max=0.9):
         """(max relative error, its k in 1/Mpc) of P(k, z = 0) against the
-        table pk (every 5th k in 1e-3 < k < 0.9/Mpc, k and P in h units), as
+        table pk (every 5th k in 1e-3 < k < k_max/Mpc, k and P in h units), as
         the JAX tests read it."""
         T = self.g["pk"]
         ks = T[:, 0] * h
-        sel = (ks > 1e-3) & (ks < 0.9)
+        sel = (ks > 1e-3) & (ks < k_max)
         mine = np.array([pk_lin(k, 0.0) for k in ks[sel][::5]])
         err = np.abs(mine / (T[sel, 1][::5] / h**3) - 1)
         return float(err.max()), float(ks[sel][::5][err.argmax()])
 
 
-def golden_check(name, raw, lensed, pk_lin, h):
+    def rel_xe(self, table, thermo, zmin, zmax, log=False):
+        """(max |x_e(mine) / x_e(golden) - 1| over zmin < z < zmax of the
+        golden's table, its z): mine interpolated linearly in z, or in
+        ln(1 + z) and ln x_e (log), as the JAX tests read it."""
+        zr, xer = self.col(table, "z")[1], self.col(table, "x_e")[1]
+        sel = (zr > zmin) & (zr < zmax)
+        z_mine, xe_mine = np.asarray(thermo.z_grid), np.asarray(thermo.xe_of_z)
+        if log:
+            mine = np.exp(np.interp(np.log1p(zr[sel]), np.log1p(z_mine), np.log(xe_mine)))
+        else:
+            mine = np.interp(zr[sel], z_mine, xe_mine)
+        err = np.abs(mine / xer[sel] - 1)
+        return float(err.max()), float(zr[sel][err.argmax()])
+
+
+# the thermodynamics variants: (golden file, table prefix, x_e table, x_e
+# window and limit, reference tau_reio or None)
+VARIANTS = {
+    "g16_injection": ("g16_injection", "", "thermo", (50.0, 1500.0), 1e-3, None),
+    "g22_injection_bos": ("g22_injection_bos", "", "thermodynamics", (50.0, 1500.0), 2e-3, None),
+    "g11a_reio_bins": ("g11_reio", "g11a_", "g11a_thermo", (-1.0, 45.0), 3e-3, 0.080889),
+    "g11b_reio_manytanh": ("g11_reio", "g11b_", "g11b_thermo", (-1.0, 45.0), 3e-3, 0.057604),
+}
+
+
+def golden_check(name, raw, lensed, pk_lin, h, thermo=None):
     """The contract of the golden `name`: {measure: (relative error, limit,
-    where)}, where is the multipole (or k) of the largest error. raw and
-    lensed: C_l dicts indexed by l to 2500; pk_lin(k, z): the linear P(k)."""
-    g = Golden(name)
+    where)}, where is the multipole (or k, or z) of the largest error. raw
+    and lensed: C_l dicts indexed by l to 2500; pk_lin(k, z): the linear
+    P(k); thermo: the ThermoResult (the thermodynamics variants)."""
 
     def item(measure, tol):
         return (measure[0], tol, measure[1])
+
+    if name in VARIANTS:
+        fname, pre, xe_table, (zmin, zmax), xe_tol, tau_ref = VARIANTS[name]
+        g = Golden(fname)
+        rel = {"x_e": item(g.rel_xe(xe_table, thermo, zmin, zmax), xe_tol)}
+        if tau_ref is not None:
+            rel["tau_reio"] = (abs(float(thermo.tau_reio) / tau_ref - 1), 2e-3, tau_ref)
+        for n in ("tt", "ee"):
+            rel[f"lensed_{n}"] = item(g.rel(pre + "cl_lensed", n.upper(), lensed[n], 2, 1100),
+                                      CL_TOL)
+        return rel
+    g = Golden(name)
+    if name == "g5_hyrec":
+        # x_e through recombination (log interpolation), raw and lensed
+        # TT/EE, P(k) to 9/Mpc
+        rel = {"x_e": item(g.rel_xe("thermodynamics", thermo, 200.0, 1800.0, log=True), 1e-3)}
+        for n in ("tt", "ee"):
+            rel[f"raw_{n}"] = item(g.rel("cl", n.upper(), raw[n], 2, 2500), CL_TOL)
+            rel[f"lensed_{n}"] = item(g.rel("cl_lensed", n.upper(), lensed[n], 2, 2400), CL_TOL)
+        rel["pk"] = item(g.rel_pk(pk_lin, h, k_max=9.0), PK_TOL)
+        return rel
 
     if name == "g3_tensor":
         # tensor-only BB (clt) at l = 2-500, raw total TT (clt + cls), lensed
@@ -131,7 +181,8 @@ def main():
         c.compute(["lensing"])
         raw, lensed = c.raw_cl(2500), c.lensed_cl(2500)
         torch.cuda.synchronize()
-        rel = golden_check(name, raw, lensed, c.pk_lin, c.cosmo.params.h)
+        rel = golden_check(name, raw, lensed, c.pk_lin, c.cosmo.params.h,
+                           c.cosmo.thermodynamics)
         bad = sorted(k for k, (v, tol, _) in rel.items() if not v <= tol)
         ok = ok and not bad
         print(f"[golden] {name} ({time.time() - t0:.3f} s) "

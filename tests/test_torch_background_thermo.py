@@ -149,8 +149,8 @@ def test_unported_physics_raises():
     with pytest.raises(NotImplementedError, match="decaying ncdm"):
         tbg.compute_background(TParams(m_ncdm=(0.06,), N_ncdm_decay_dr=1), TPrec(**SMALL),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="HyRec"):
-        tbg.compute_background(TParams(recombination="hyrec"), TPrec(**SMALL), device="cpu")
+    with pytest.raises(NotImplementedError, match="fluid"):
+        tbg.compute_background(TParams(use_fld=True), TPrec(**SMALL), device="cpu")
 
 
 @pytest.fixture(scope="module")
