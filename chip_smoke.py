@@ -21,6 +21,14 @@ eleventh:
   reionization), the last four with lensed C_l to l = 1200;
 - `hyrec_full`: g5_hyrec's cosmology through the two-photon HyRec model, the
   thermodynamics stage only (no golden holds it);
+- `planck_row2_ss005`: planck_row2 at perturb_sampling_stepsize 0.05 (1179 tau
+  samples, more than the 1024 a pass of the LOS scans holds);
+- `ncdm_row3` (bench.py:62-69): three massive-neutrino species, held to its
+  probe row;
+- the number counts and galaxy lensing: `g19_ncl_full` (nCl,sCl, two Gaussian
+  bins, every contribution, galaxy and magnification bias), `g27_pd` (CMB x
+  number counts: phi-dens and T-dens) and `nc_des_y1` (the five DES Y1
+  redMaGiC lens bins, every contribution and bin pair, l_max_lss 1000);
 
 and checks:
 
@@ -30,14 +38,17 @@ and checks:
    hyrec_history and not recfast_history (and a RECFAST path the reverse):
    launch counters, set to 0 just before the path and read just after;
 3. each result against the reference C++ build: the probe
-   tests/golden/bench_probe.json for the first two (rel TT/EE/TE <= 3e-3 at
-   l = 220, 1000, 2000, 2500; rel P(0.1) <= 1e-2), the goldens
+   tests/golden/bench_probe.json for planck_row2 (and planck_row2_ss005),
+   row2_exact and ncdm_row3 (rel TT/EE/TE <= 3e-3 at l = 220, 1000, 2000,
+   2500; rel P(0.1) <= 1e-2), the goldens
    tests/golden/*.npz for the others under the contracts of the JAX tests
    (classpp_public_torch/tools/golden_check.py; g3_tensor:
    tests/test_extended.py:58-92; g8_curved: tests/test_curved.py:176-196;
    g18_closed: tests/test_curved.py:112-157; g5_hyrec: tests/test_hyrec.py;
    g16/g22: tests/test_injection.py; g11a/g11b: tests/test_reio.py, tau_reio
-   included);
+   included; g19_ncl_full, g27_pd: tests/test_numbercounts.py), and for
+   nc_des_y1 positive autos and every cross inside the Cauchy-Schwarz envelope
+   of its autos;
 4. each kernel against its plain PyTorch version on the very tensors each
    path fed it (hyrec_history in both models, recfast_history with and
    without injection, tb_march through every reionization profile), with
@@ -45,13 +56,19 @@ and checks:
    kernels the median of 3 after a warm-up; the plain versions one call, the
    integrators on a stride of the lanes, or on 8 scalar and 4 tensor lanes
    of a curved path, the lowest and highest k among them), beside the least
-   time the card could take for the same work (`bound_ms`).
+   time the card could take for the same work (`bound_ms`);
+5. the three LOS scans that no path above runs past 1024 tau samples
+   (transfer_tensor_los, transfer_los_curved, transfer_tensor_los_curved) on
+   g3_tensor's and g8_curved's captured inputs refined fourfold in tau
+   (> 2048 samples, by a cubic spline of the sources in tau), against their
+   plain versions; and the scaled errors of the paths that ran at commit
+   f721a22 beside those printed there (`PRIOR_SCALED_ERR`).
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one card)
 
-Prints per-phase seconds, a JSON line of kernel results, the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}. Any failure
-raises and exits non-zero.
+Prints per-phase seconds, the command time, a JSON line of kernel results,
+the card's name and power limit, and as its last line {"ok": true, "device":
+{...}}. Any failure raises and exits non-zero.
 """
 
 import json
@@ -60,6 +77,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.time()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROBE = os.path.join(ROOT, "tests", "golden", "bench_probe.json")
 
@@ -79,9 +97,16 @@ CL_TOL, PK_TOL = 3e-3, 1e-2
 # The curved scans run the hyperspherical recurrence through the same kind of
 # band (beta sin_K < l < beta sin_K + 6 (beta sin_K)^(1/3) + 2): the same
 # limit.
+# The selection-window scan runs the same recurrence through the same band
+# (each row's x = k (tau0 - tau)); held per row of its output relative to the
+# row's max |plain|. Its limit is about 100 times its own measurement on the
+# paths' tensors (3.2e-9 on g19_ncl_full and g27_pd, 5.8e-9 on nc_des_y1; NVIDIA
+# H100 80GB HBM3 at 700 W): a dropped series term or a float32 intermediate
+# shows, the last-bit spread of the band does not.
+NC_SCAN_TOL = 6e-7
 KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-11,
               "transfer_tensor_los": 1e-6, "tb_march": 1e-10, "transfer_los_curved": 1e-6,
-              "transfer_tensor_los_curved": 1e-6}
+              "transfer_tensor_los_curved": 1e-6, "nc_scan": NC_SCAN_TOL}
 # recfast_history, per row and column relative to the plain loop: libm's and
 # the card's exp/pow differ in the last bit, which the explicit RK4 through
 # the stiff HeI equation amplifies (measured against the JAX package's XLA
@@ -139,6 +164,9 @@ PERTURB_RADIATION_COLS = ("delta_g", "theta_g", "delta_ur", "theta_ur")
 PERTURB_DERIVED_COLS = ("t0", "t1", "t2", "p", "phi_prime", "H_T_Nb_prime", "theta_tot")
 PERTURB_NCDM_COLS = ("delta_ncdm", "theta_ncdm")
 PERTURB_STRIDE = 24   # lanes of the plain comparison: every 24th and the last
+# a wider stride where the plain integrator is slow: ncdm_row3's three species
+# make a 910-wide state (every 48th lane and the last)
+PERTURB_STRIDE_OF = {"ncdm_row3": 48}
 # The plain integrator steps all its lanes in lockstep (~6 ms a step on the
 # card with the ncdm block), so a lane of more steps than this is left out of
 # the comparison: the k = 22.6/Mpc tail lane of row2_exact (~31 000 steps, the
@@ -153,10 +181,10 @@ def phase(name, t0):
     print(f"[phase] {name}: {time.time() - t0:.3f} s", flush=True)
 
 
-def probe_check(config, cl, pk):
-    """The bench.py rule (bench.py:91-118) against the configuration's probe."""
+def probe_check(row, cl, pk):
+    """The bench.py rule (bench.py:91-118) against the probe row `row`."""
     with open(PROBE) as f:
-        ref = json.load(f)[config]
+        ref = json.load(f)[row]
     worst = {}
     for spec in ("tt", "ee", "te"):
         errs = []
@@ -220,6 +248,14 @@ def compare(name, kern, plain):
     return float(diff.max()), float(diff.max() / plain.abs().max().clamp_min(1e-300))
 
 
+def columns(kname, kern, plain, axis):
+    """max_abs_err and the largest scaled error over the slices of the
+    outputs along `axis`, each relative to its own max |plain|."""
+    errs = [compare(kname, kern.select(axis, i), plain.select(axis, i))
+            for i in range(kern.shape[axis])]
+    return dict(max_abs_err=max(e[0] for e in errs), scaled_err=max(e[1] for e in errs))
+
+
 def bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     float64 operations over the peak rate."""
@@ -254,8 +290,14 @@ def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(
     other_reco = {"recfast_history"} if hyrec else {"hyrec_history"}
     if last == "thermodynamics":
         return reco | {"tb_march"}, set(every) - reco - {"tb_march"}
-    names = reco | {"tb_march", "perturb_ark", "lensing_wigner"}
-    scans = {"transfer_los"} | ({"transfer_tensor_los"} if "t" in out.modes else set())
+    names = reco | {"tb_march", "perturb_ark"}
+    scans = set()
+    if out.has_cls:
+        scans = {"transfer_los"} | ({"transfer_tensor_los"} if "t" in out.modes else set())
+        if out.lensing:
+            names.add("lensing_wigner")
+    if out.has_nc:
+        names.add("nc_scan")
     if out.has_pk:
         names.add("halofit_sigma")
     if "t" in out.modes:
@@ -307,8 +349,9 @@ def run_config(name, params, kernels, last="lensing"):
               flush=True)
         return counts, captured, stage_s
     t0 = time.time()
-    cl = c.lensed_cl(2500)
-    raw = c.raw_cl(2500)
+    out = cosmo.out
+    cl = c.lensed_cl(2500) if out.lensing else None
+    raw = c.raw_cl(2500 if out.has_cls else out.l_lss_max)
     has_pk = cosmo.out.has_pk
     if has_pk:
         pk = c.pk_lin(0.1, 0.0)
@@ -321,8 +364,9 @@ def run_config(name, params, kernels, last="lensing"):
     check_launches(name, counts, *expected_kernels(cosmo.out, cosmo.sgnK,
                                                    cosmo.params.recombination))
     pt = cosmo.perturbations
+    tr_shape = tuple(cosmo.transfer.delta.shape) if out.has_cls else None
     print(f"[shapes] {name} k {tuple(pt.k.shape)} tau {tuple(pt.tau.shape)} sources "
-          f"{tuple(pt.sources.shape)} transfer {tuple(cosmo.transfer.delta.shape)} "
+          f"{tuple(pt.sources.shape)} transfer {tr_shape} "
           f"steps max {int(pt.stats_steps.max())} mean {float(pt.stats_steps.float().mean()):.1f} "
           f"m_ncdm {cosmo.params.m_ncdm}", flush=True)
     if "t" in cosmo.out.modes:
@@ -332,17 +376,25 @@ def run_config(name, params, kernels, last="lensing"):
               f"steps max {int(tp.stats_steps.max())} "
               f"mean {float(tp.stats_steps.float().mean()):.1f}", flush=True)
     for tname, tab in (("lensed", cl), ("raw", raw)):
+        if tab is None or not out.has_cls:
+            continue
         for spec in ("tt", "ee", "te", "bb", "pp"):
             arr = np.asarray(tab[spec])
             if arr.shape != (2501,) or not np.isfinite(arr).all():
                 raise RuntimeError(f"{name} {tname} C_l[{spec}]: shape {arr.shape} or non-finite")
+    if out.has_nc:
+        check_nc_output(name, c, raw)
     if has_pk:
         nl = cosmo.nonlinear
         print(f"[nonlinear] {name} k_nl {[round(float(v), 6) for v in nl.k_nl]} "
               f"sigma8 {nl.sigma8:.6f}", flush=True)
         if not (np.isfinite(pk) and pk > 0 and 0.8 * pk <= pk_nl <= 1.5 * pk):
             raise RuntimeError(f"{name}: P(k=0.1) linear {pk}, nonlinear {pk_nl}")
-    if name not in ("planck_row2", "row2_exact"):
+    from classpp_public_torch.tools.configs import PROBE_ROW
+
+    if name == "nc_des_y1":
+        pass                        # no golden: check_nc_output held it
+    elif name not in PROBE_ROW:
         from classpp_public_torch.tools.golden_check import golden_check
 
         rel = golden_check(name, raw, cl, c.pk_lin, cosmo.params.h, cosmo.thermodynamics)
@@ -352,13 +404,61 @@ def run_config(name, params, kernels, last="lensing"):
         if bad:
             raise RuntimeError(f"{name} out of its golden's contract: {bad}")
     else:
-        ok, rel = probe_check(name, cl, pk)
-        print(f"[probe] {name} {json.dumps(rel)} (tol C_l {CL_TOL}, P(k) {PK_TOL})", flush=True)
+        ok, rel = probe_check(PROBE_ROW[name], cl, pk)
+        print(f"[probe] {name} (row {PROBE_ROW[name]}) {json.dumps(rel)} (tol C_l {CL_TOL}, "
+              f"P(k) {PK_TOL})", flush=True)
         if not ok:
             raise RuntimeError(f"{name} probe out of contract: {rel}")
     print(f"[stages] {name} " + " ".join(f"{k}={v:.3f}s" for k, v in stage_s.items()),
           flush=True)
     return counts, captured, stage_s
+
+
+def check_nc_output(name, c, raw):
+    """The number-count keys of raw_cl: the JAX classy's key set for the
+    output, finite, every auto positive, and every cross inside the
+    Cauchy-Schwarz envelope of its two autos (exact on the k quadrature's
+    multipoles; 1% headroom for the spline to every l)."""
+    import numpy as np
+
+    out = c.cosmo.out
+    nbin, nd = len(out.selection_mean), out.non_diagonal
+    pairs = [(i, j) for i in range(1, nbin + 1) for j in range(i, min(i + nd, nbin) + 1)]
+    want = set()
+    if out.nCl:
+        want |= {f"dens[{i}]-dens[{j}]" for i, j in pairs}
+    if out.sCl:
+        want |= {f"lens[{i}]-lens[{j}]" for i, j in pairs}
+    if out.nCl and out.sCl:
+        want |= {f"dens[{i}]-lens[{j}]" for i in range(1, nbin + 1) for j in range(1, nbin + 1)
+                 if abs(i - j) <= nd}
+    if out.nCl and out.lCl and out.has_cls:
+        want |= {f"phi-dens[{b}]" for b in range(1, nbin + 1)}
+        if out.tCl:
+            want |= {f"T-dens[{b}]" for b in range(1, nbin + 1)}
+    got = {k for k in raw if "[" in k}
+    if got != want:
+        raise RuntimeError(f"{name}: raw_cl number-count keys {sorted(got ^ want)} differ")
+    ell = np.arange(2, out.l_lss_max + 1)
+    worst = 0.0
+    for key in sorted(want):
+        arr = np.asarray(raw[key])[ell]
+        if not np.isfinite(arr).all():
+            raise RuntimeError(f"{name} C_l[{key}] is not finite")
+        if key.startswith(("phi-", "T-")):
+            continue
+        a, b = key.split("-")
+        if a == b:
+            if not (arr > 0).all():
+                raise RuntimeError(f"{name} auto C_l[{key}] is not positive")
+            continue
+        auto_a = np.asarray(raw[f"{a}-{a}"])[ell]
+        auto_b = np.asarray(raw[f"{b}-{b}"])[ell]
+        worst = max(worst, float(np.max(np.abs(arr) / np.sqrt(auto_a * auto_b))))
+    print(f"[nc] {name}: {len(want)} spectra to l = {out.l_lss_max}, finite, autos positive; "
+          f"largest cross over its envelope {worst:.6f}", flush=True)
+    if not worst <= 1.01:
+        raise RuntimeError(f"{name}: a cross spectrum leaves its Cauchy-Schwarz envelope: {worst}")
 
 
 def check_launches(name, counts, must, must_not):
@@ -399,7 +499,8 @@ def print_lane_steps(name, tag, k, steps_kernel, steps_plain):
 
 def check_perturb_ark(solve, args, tag, curved=False):
     """The integrator kernel against its plain version on every
-    PERTURB_STRIDE-th lane and the last (highest k) of the captured call, or
+    PERTURB_STRIDE-th lane (PERTURB_STRIDE_OF on the paths named there) and
+    the last (highest k) of the captured call, or
     on a curved path on CURVED_LANES lanes from the lowest k to the highest;
     lanes of more than PLAIN_MAX_STEPS steps are left out."""
     import torch
@@ -410,7 +511,8 @@ def check_perturb_ark(solve, args, tag, curved=False):
     idx = tables.idx
     nl = lanes.k.shape[0]
     ms, (S, nsteps) = timed(lambda: solve.integrate_sources(lanes, taus, tables, (rtol, atol)))
-    picked = compared_lanes(nl, PERTURB_STRIDE, curved, "perturb_ark")
+    stride = PERTURB_STRIDE_OF.get(tag, PERTURB_STRIDE)
+    picked = compared_lanes(nl, stride, curved, "perturb_ark")
     long_lanes = [i for i in picked if int(nsteps[i]) > PLAIN_MAX_STEPS]
     if long_lanes:
         print(f"[perturb_ark] {tag}: lanes of more than {PLAIN_MAX_STEPS} steps left out of "
@@ -467,7 +569,8 @@ def check_perturb_ark(solve, args, tag, curved=False):
     dn_rel = float((dn / np_).max())
     if curved:
         print_lane_steps("perturb_ark", tag, lanes.k[sel], nsteps[sel], np_)
-    print(f"[perturb_ark] {tag}: {len(sel)} of {nl} lanes compared, state {idx.size}; worst error "
+    print(f"[perturb_ark] {tag}: {len(sel)} of {nl} lanes compared (stride {stride} and the "
+          f"last), state {idx.size}, {idx.n_ncdm} ncdm species; worst error "
           f"{worst:.3e} of its limit; max |nsteps_kernel - nsteps_plain| {int(dn.max())} "
           f"({dn_rel:.3e} of the plain count, limit {PERTURB_STEPS_TOL}); plain {plain_ms:.0f} ms "
           f"for {len(sel)} lanes, kernel {ms:.1f} ms for {nl}", flush=True)
@@ -655,6 +758,15 @@ def scan_work(q, taus, tau0, l_emit, curved):
         + 40.0 * n_series * len(l_emit)
 
 
+def nc_scan_work(x, l_emit):
+    """Float64 operations of the selection-window scan on its (row, k, tau)
+    points: ~6 per l of the recurrence, ~25 per emitted l (the radial function
+    and the sum), and ~40 more for the series where x < 1."""
+    n_pts = float(x.numel())
+    n_series = float((x < 1.0).sum())
+    return n_pts * (6.0 * int(l_emit[-1]) + 25.0 * len(l_emit)) + 40.0 * n_series * len(l_emit)
+
+
 def check_kernels(tag, captured, mods, curved):
     """Every kernel the main path `tag` launched against its plain version on
     the tensors the path fed it; returns {kernel: measurements}. Raises where
@@ -668,11 +780,6 @@ def check_kernels(tag, captured, mods, curved):
     if "integrate_sources" in captured:
         out["perturb_ark"] = check_perturb_ark(mods["perturb_ark"],
                                                captured["integrate_sources"][0], tag, curved)
-
-    def columns(kname, kern, plain, axis):
-        errs = [compare(kname, kern.select(axis, i), plain.select(axis, i))
-                for i in range(kern.shape[axis])]
-        return dict(max_abs_err=max(e[0] for e in errs), scaled_err=max(e[1] for e in errs))
 
     if "halofit_sums" in captured:
         nonlinear = mods["halofit_sigma"]
@@ -699,6 +806,20 @@ def check_kernels(tag, captured, mods, curved):
         print(f"[{name}] {tag}: W {tuple(W.shape)} out {tuple(kout.shape)}", flush=True)
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                          **columns(name, kout, pout, 1))
+
+    if "nc_scan" in captured:
+        nc = mods["nc_scan"]
+        args, kw = captured["nc_scan"]
+        ms, kout = timed(lambda: nc.nc_scan(*args, **kw))
+        plain_ms, pout = timed(lambda: nc.nc_scan_plain(*args, **kw), 1, False)
+        x, Wrow, radial, l_emit = args[:4]
+        bms, bby = bound(nbytes(x, Wrow, kout), nc_scan_work(x, l_emit))
+        print(f"[nc_scan] {tag}: x {tuple(x.shape)} (rows, k, tau), {len(l_emit)} emitted l to "
+              f"{int(l_emit[-1])}, radial codes {list(radial)}; out {tuple(kout.shape)}",
+              flush=True)
+        out["nc_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                              nrow=int(x.shape[0]), nk=int(x.shape[1]), ntau=int(x.shape[2]),
+                              nl=len(l_emit), **columns("nc_scan", kout, pout, 1))
 
     if "lensing_wigner" in captured:
         lensing = mods["lensing_wigner"]
@@ -750,6 +871,7 @@ def check_kernels(tag, captured, mods, curved):
                          **columns(name, kout, pout, 1))
 
     scaled = {k: v.pop("scaled_err") for k, v in out.items()}
+    SCALED[tag] = scaled
     print(f"[kernels] {tag} scaled error: {scaled}; tolerance {KERNEL_TOL} of max |plain|, "
           f"recfast_history {RECFAST_TOL} per row, hyrec_history {HYREC_TOL} per step, "
           f"perturb_ark and tensor_rkck 1.0 of their per-lane, per-column limits", flush=True)
@@ -760,6 +882,123 @@ def check_kernels(tag, captured, mods, curved):
     return out
 
 
+REFINE = 4     # the refined-tau phase: 4 samples per interval of the path's grid
+
+
+def refine_tau(taus, W, late=None):
+    """The tau grid refined REFINE-fold (REFINE - 1 points inside each
+    interval), the sources W / trapezoid weights splined in tau onto it (a
+    natural cubic spline per (type, q)) and weighted by its trapezoid weights,
+    and the late-source mask (a prefix of the grid) carried over."""
+    import torch
+
+    from classpp_public_torch.ops.quadrature import trapz_weights
+    from classpp_public_torch.ops.splines import spline_d2, spline_eval
+
+    n = taus.shape[0]
+    f = torch.arange(REFINE, dtype=taus.dtype, device=taus.device) / REFINE
+    t_new = torch.cat([(taus[:-1, None] + f[None, :] * torch.diff(taus)[:, None]).reshape(-1),
+                       taus[-1:]]).contiguous()
+    y = (W / trapz_weights(taus)).reshape(-1, n).T.contiguous()
+    S_new = spline_eval(taus, y, spline_d2(taus, y), t_new).T.reshape(*W.shape[:-1], -1)
+    W_new = (S_new * trapz_weights(t_new)).contiguous()
+    late_new = None
+    if late is not None:
+        late_new = (t_new <= taus[late][-1]) if bool(late.any()) \
+            else torch.zeros_like(t_new, dtype=torch.bool)
+    return t_new, W_new, late_new
+
+
+def check_refined_tau(captured, transfer):
+    """The LOS scans no path runs past 1024 tau samples, on the inputs
+    captured on g3_tensor and g8_curved with tau refined REFINE-fold, each
+    against its plain version (launches made here are not counted)."""
+    out = {}
+    for tag, name in (("g3_tensor", "transfer_tensor_los"), ("g8_curved", "transfer_los_curved"),
+                      ("g8_curved", "transfer_tensor_los_curved")):
+        args, kw = captured[tag][name]
+        i_late = 7 if name == "transfer_los_curved" else None
+        t_new, W_new, late_new = refine_tau(args[1], args[0],
+                                            args[i_late] if i_late is not None else None)
+        new = [W_new, t_new] + list(args[2:])
+        if i_late is not None:
+            new[i_late] = late_new
+        ms, kout = timed(lambda: getattr(transfer, name)(*new, **kw))
+        plain_ms, pout = timed(lambda: getattr(transfer, name + "_plain")(*new, **kw), 1, False)
+        tau0, q = new[2], new[3]
+        l_emit = new[5 if name.endswith("curved") else 4]
+        bms, bby = bound(nbytes(W_new, t_new, q, kout),
+                         scan_work(q, t_new, tau0, l_emit, name.endswith("curved")))
+        res = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, ntau=int(t_new.shape[0]),
+                   from_path=tag, **columns(name, kout, pout, 1))
+        print(f"[refined_tau] {name} on {tag}'s inputs: tau {int(args[1].shape[0])} -> "
+              f"{res['ntau']}, W {tuple(W_new.shape)}; scaled error {res['scaled_err']:.3e} "
+              f"(limit {KERNEL_TOL[name]}); kernel {ms:.2f} ms, plain {plain_ms:.0f} ms",
+              flush=True)
+        if not res["scaled_err"] <= KERNEL_TOL[name]:
+            raise RuntimeError(f"{name} with {res['ntau']} tau samples disagrees with its plain "
+                               f"version: {res['scaled_err']:.3e}")
+        res.pop("scaled_err")
+        out[name] = res
+    return out
+
+
+# The scaled errors (kernel vs plain) that chip_smoke.py printed at commit
+# f721a22, before the LOS scans ran the tau axis in chunks and perturb_ark read
+# its frame buffer in place, for the paths it drove (NVIDIA H100 80GB HBM3,
+# 700 W): those paths run one tau chunk (ntau <= 1024) and at most one ncdm
+# species, the same arithmetic, so each should print the same error again.
+PRIOR_SCALED_ERR = {
+    "planck_row2": {"perturb_ark": 0.5618799667387414, "halofit_sigma": 1.8478273803406114e-16,
+        "transfer_los": 4.4437836747931904e-08, "lensing_wigner": 1.0221964890521095e-12,
+        "recfast_history": 0.05939776493160124, "tb_march": 7.9324953437532275e-16},
+    "row2_exact": {"perturb_ark": 1.0931460285967364e-08, "halofit_sigma": 3.6640293745745595e-16,
+        "transfer_los": 4.057055956343156e-08, "lensing_wigner": 1.0195875815053596e-12,
+        "recfast_history": 0.030823707573104573, "tb_march": 5.299930513032124e-16},
+    "g3_tensor": {"perturb_ark": 1.1530214980152129e-09, "transfer_los": 4.018858338393332e-08,
+        "lensing_wigner": 1.3090935683406288e-15, "recfast_history": 0.02217806901964524,
+        "tb_march": 7.954893429391944e-16, "tensor_rkck": 5.804170502089567e-10,
+        "transfer_tensor_los": 5.439818822737725e-09},
+    "g8_curved": {"perturb_ark": 7.501770789471937e-10, "halofit_sigma": 2.0926156718595554e-16,
+        "transfer_los_curved": 6.903038776810008e-08, "lensing_wigner": 1.1788036695546696e-15,
+        "recfast_history": 0.022177995424852798, "tb_march": 7.928849762594652e-16,
+        "tensor_rkck": 5.479404707179538e-10, "transfer_tensor_los_curved": 9.884294630760786e-09},
+    "g18_closed": {"perturb_ark": 1.5067570433155278e-09, "halofit_sigma": 1.9085498999199042e-16,
+        "transfer_los_curved": 6.922692846799493e-08, "lensing_wigner": 1.3580517155419417e-15,
+        "recfast_history": 0.022178142614441357, "tb_march": 6.648995482642576e-16,
+        "tensor_rkck": 5.65304219488308e-10, "transfer_tensor_los_curved": 9.599384839663895e-09},
+    "g5_hyrec": {"hyrec_history": 8.817051442044188e-05, "perturb_ark": 0.617022186890438,
+        "halofit_sigma": 3.6862683191296e-16, "transfer_los": 3.552546515277659e-08,
+        "lensing_wigner": 1.0427296633166732e-12, "tb_march": 9.271980157426458e-16},
+    "g16_injection": {"perturb_ark": 1.0161939060221722e-09,
+        "transfer_los": 6.041295582295815e-08, "lensing_wigner": 1.082365828072719e-12,
+        "recfast_history": 0.030823440562491658, "tb_march": 1.062814871099748e-15},
+    "g22_injection_bos": {"perturb_ark": 7.385876591101924e-10,
+        "transfer_los": 4.798350890044443e-08, "lensing_wigner": 1.0632382840535906e-12,
+        "recfast_history": 0.030823440562491658, "tb_march": 7.258420508201523e-16},
+    "g11a_reio_bins": {"perturb_ark": 1.1530214980152129e-09,
+        "transfer_los": 2.3626296479071612e-08, "lensing_wigner": 1.0662069256103238e-12,
+        "recfast_history": 0.02217806901964524, "tb_march": 7.602493887529517e-16},
+    "g11b_reio_manytanh": {"perturb_ark": 1.1530214980152129e-09,
+        "transfer_los": 5.0203211734954065e-08, "lensing_wigner": 1.0918470304619696e-12,
+        "recfast_history": 0.02217806901964524, "tb_march": 7.238316065464541e-16},
+    "hyrec_full": {"hyrec_history": 0.0008261464041298425, "tb_march": 6.628786035995634e-16},
+}
+SCALED = {}   # this run's scaled errors, by path and kernel (check_kernels)
+
+
+def compare_prior():
+    """Each (path, kernel) scaled error beside the one printed at f721a22."""
+    same, diff = [], []
+    for tag, kerr in PRIOR_SCALED_ERR.items():
+        for kname, old in kerr.items():
+            new = SCALED.get(tag, {}).get(kname)
+            (same if new == old else diff).append(f"{tag}/{kname}: now {new!r}, then {old!r}")
+    print(f"[unchanged] {len(same)} of {len(same) + len(diff)} scaled errors equal to those "
+          f"printed at f721a22"
+          + ("; differing: " + "; ".join(diff) if diff else ""), flush=True)
+
+
 def main():
     import torch
 
@@ -768,7 +1007,8 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from classpp_public_torch.models import hyrec, lensing, nonlinear, thermodynamics, transfer
+    from classpp_public_torch.models import (hyrec, lensing, nonlinear, numbercounts,
+                                             thermodynamics, transfer)
     from classpp_public_torch.models.perturbations import solve, tensors
     from classpp_public_torch.ops import cuda
     from classpp_public_torch.tools.configs import CONFIGS, THERMO_ONLY
@@ -792,7 +1032,7 @@ def main():
         Kernel("halofit_sigma", nonlinear, "launches", "halofit_sums", src + "halofit_sigma.cu",
                tpu + "nonlinear.py:433", size=lambda a: a[2].numel()),
         Kernel("transfer_los", transfer, "launches", "transfer_los", src + "transfer_los.cu",
-               tpu + "transfer.py:360"),
+               tpu + "transfer.py:360", size=lambda a: a[0].numel()),
         Kernel("lensing_wigner", lensing, "launches", "lensing_wigner",
                src + "lensing_wigner.cu", tpu + "lensing.py:94"),
         Kernel("recfast_history", thermodynamics, "recfast_launches", "recfast_history",
@@ -810,6 +1050,8 @@ def main():
                tpu + "transfer.py:757"),
         Kernel("hyrec_history", hyrec, "launches", "hyrec_history", src + "hyrec.cu",
                tpu + "hyrec.py:781"),
+        Kernel("nc_scan", numbercounts, "launches", "nc_scan", src + "nc_scan.cu",
+               tpu + "numbercounts.py:629", size=lambda a: a[0].numel()),
     ]
     mods = {k.name: k.module for k in kernels}
 
@@ -828,9 +1070,15 @@ def main():
         results[tag] = check_kernels(tag, captured[tag], mods, params.get("Omega_k", 0.0) != 0.0)
         phase(f"{tag} kernel vs plain comparison", t0)
 
+    t0 = time.time()
+    refined = check_refined_tau(captured, transfer)
+    phase("refined-tau LOS scans vs plain", t0)
+    compare_prior()
+
     # one entry per kernel: the numbers of the last path that ran it (its
     # launches beside its times) head the entry, and those of the other paths
-    # that ran it follow under their names
+    # that ran it follow under their names (the refined-tau phase, whose
+    # launches are not counted, under "refined_tau")
     entries = []
     for k in kernels:
         main_tag = [tag for tag in paths if k.name in results[tag]][-1]
@@ -841,7 +1089,10 @@ def main():
             if tag != main_tag and k.name in results[tag]:
                 e[tag] = dict(launches=counts[tag][k.name], library_ms=None,
                               **results[tag][k.name])
+        if k.name in refined:
+            e["refined_tau"] = dict(library_ms=None, **refined[k.name])
         entries.append(e)
+    print(f"[time] command {time.time() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,10 +3,13 @@
 `lensed_cl` :1086, `pk_lin` :1221, `pk` :1257, `pk_cb` :1275, `sigma8` :1319),
 for the inputs of the LambdaCDM slice with Fermi-Dirac massive neutrinos,
 halofit and tensor modes (`modes`, `r`, `n_t`, `alpha_t`, `l_max_tensors`,
-`tensor method`: classy.py:149-163, 565-630), and the thermodynamics variants
+`tensor method`: classy.py:149-163, 565-630), the thermodynamics variants
 (`recombination` = HyRec / hyrec_full, `annihilation`, `decay` and their
 modifiers, `on the spot`, `reio_parametrization` with its node lists:
-classy.py:139-150, :173-206).
+classy.py:139-150, :173-206), and the number counts and galaxy lensing
+(`output` nCl / dCl / sCl with the selection, contribution, bias and dN/dz
+keys: classy.py:455-510; `raw_cl`'s number-count and cross keys :1008-1075,
+`density_cl` :1077).
 
 Every other input key raises with the JAX file and line that implements it.
 """
@@ -50,7 +53,8 @@ _FLOAT_KEYS = ("n_s", "alpha_s", "k_pivot", "T_cmb", "N_ur", "Omega_k", "tau_rei
                "annihilation_z_halo", "binned_reio_step_sharpness", "many_tanh_width")
 _REIO_SCHEMES = ("reio_camb", "reio_half_tanh", "reio_bins_tanh", "reio_many_tanh", "reio_inter",
                  "reio_none")
-_OUTPUT_TOKENS = ("tCl", "pCl", "lCl", "mPk")
+_OUTPUT_TOKENS = ("tCl", "pCl", "lCl", "mPk", "nCl", "dCl", "sCl")
+_NC_CONTRIBUTIONS = ("density", "rsd", "lensing", "gr")
 
 
 class Class:
@@ -145,6 +149,10 @@ class Class:
                 f"output {extra} not ported (classpp_public_tpu/classy.py:451-468)")
         out.tCl, out.pCl = "tCl" in output, "pCl" in output
         out.lCl, out.mPk = "lCl" in output, "mPk" in output
+        out.nCl = "nCl" in output or "dCl" in output
+        out.sCl = "sCl" in output
+        if out.has_nc:
+            self._parse_nc(p, out)
         lensing_explicit = "lensing" in p
         out.lensing = _parse_bool(p.pop("lensing", "yes" if out.lCl else "no"))
         if lensing_explicit and out.lensing and not ((out.tCl or out.pCl) and out.lCl):
@@ -223,6 +231,41 @@ class Class:
                 kw[zkey], kw[xkey] = zs, xs
             else:
                 p.pop(nkey, None)
+
+    @staticmethod
+    def _parse_nc(p: dict, out: OutputSelection) -> None:
+        """The selection windows, number-count contributions, biases and
+        dN/dz of the nCl / sCl spectra, with the JAX classy's refusals
+        (classy.py:469-510, input_module.cpp:1678-1699)."""
+        kind = str(p.pop("selection", "gaussian")).strip().lower()
+        if kind not in ("gaussian", "tophat", "dirac"):
+            raise CosmoSevereError(f"unknown selection {kind!r}")
+        out.selection_kind = kind
+        out.selection_mean = tuple(_parse_list(p.pop("selection_mean", "1.0")))
+        w = _parse_list(p.pop("selection_width", "0.1"))
+        if len(w) == 1:
+            w = w * len(out.selection_mean)
+        out.selection_width = tuple(w)
+        out.l_lss_max = int(float(p.pop("l_max_lss", 300)))
+        out.non_diagonal = int(float(p.pop("non_diagonal", 0)))
+        contrib = str(p.pop("number count contributions",
+                            p.pop("number_count_contributions", "density")))
+        p.pop("number_count_contributions", None)
+        got = [name for name in _NC_CONTRIBUTIONS if name in contrib]
+        extras = [c.strip() for c in contrib.replace(",", " ").split()
+                  if c.strip() and c.strip() not in ("density", "dens", "rsd", "lensing", "gr")]
+        if extras or not got:
+            raise CosmoSevereError(f"unknown number count contributions {extras} "
+                                   "(supported: density, rsd, lensing, gr)")
+        out.nc_contributions = tuple(got)
+        if "selection_bias" in p:
+            out.selection_bias = tuple(_parse_list(p.pop("selection_bias")))
+        if "selection_magnification_bias" in p:
+            out.magnification_bias = tuple(_parse_list(p.pop("selection_magnification_bias")))
+        for key, field in (("dNdz_selection", "dndz"), ("dNdz_evolution", "dndz_evo")):
+            if key in p:
+                v = str(p.pop(key)).strip()
+                setattr(out, field, "analytic" if v.lower() == "analytic" else v)
 
     @staticmethod
     def _parse_modes(p: dict, out: OutputSelection, kw: dict) -> None:
@@ -315,7 +358,7 @@ class Class:
             lv = ["spectra" if x == "lensing" else x for x in lv]
         if not self._cosmo.out.has_cls:
             lv = ["nonlinear" if x in ("lensing", "spectra", "transfer") else x for x in lv]
-        if not (self._cosmo.out.has_cls or self._cosmo.out.has_pk):
+        if not (self._cosmo.out.has_cls or self._cosmo.out.has_pk or self._cosmo.out.has_nc):
             lv = ["thermodynamics"]
         self._cosmo.compute(lv)
 
@@ -341,11 +384,62 @@ class Class:
         return out
 
     def raw_cl(self, lmax=-1):
-        """Unlensed C_l dict (classy.pyx raw_cl)."""
-        if not self.cosmo.out.has_cls:
+        """Unlensed C_l dict (classy.pyx raw_cl; classy.py:1007-1075): the CMB
+        types, and with nCl / sCl "dens[i]-dens[j]", "lens[i]-lens[j]",
+        "dens[i]-lens[j]" (|i - j| <= non_diagonal) and, with nCl and lCl,
+        "phi-dens[i]" with the "T-dens[i]" / "T-lens[i]" extensions."""
+        o = self.cosmo.out
+        if not (o.has_cls or o.has_nc):
             raise CosmoSevereError("No Cls computed")
-        sp = self.cosmo.spectra
-        return self._cl_dict(sp.ell, sp.cl, self.cosmo.out.l_scalar_max if lmax < 0 else lmax)
+        if lmax < 0:
+            lmax = o.l_scalar_max if o.has_cls else o.l_lss_max
+        n = lmax + 1
+        if o.has_cls:
+            sp = self.cosmo.spectra
+            out = self._cl_dict(sp.ell, sp.cl, lmax)
+        else:
+            out = {"ell": np.arange(n)}
+        if not o.has_nc:
+            return out
+
+        def put(name, ell, row):
+            ell, row = ell.cpu().numpy(), row.cpu().numpy()
+            m = ell <= lmax
+            arr = np.zeros(n)
+            arr[ell[m]] = row[m]
+            out[name] = arr
+
+        nc = self.cosmo.number_counts
+        if o.nCl:
+            for p, (i, j) in enumerate(nc.dd_pairs):
+                put(f"dens[{i + 1}]-dens[{j + 1}]", nc.ell, nc.dd[p])
+        if o.sCl:
+            for p, (i, j) in enumerate(nc.dd_pairs):
+                put(f"lens[{i + 1}]-lens[{j + 1}]", nc.ell, nc.ll[p])
+        if o.nCl and o.sCl:
+            for p, (i, j) in enumerate(nc.dl_pairs):
+                if abs(i - j) <= o.non_diagonal:
+                    put(f"dens[{i + 1}]-lens[{j + 1}]", nc.ell, nc.dl[p])
+        if o.nCl and o.lCl and o.has_cls:
+            ncx = self.cosmo.nc_cross
+            for b in range(len(o.selection_mean)):
+                put(f"phi-dens[{b + 1}]", ncx.ell, ncx.pd[b])
+                if ncx.td is not None:
+                    put(f"T-dens[{b + 1}]", ncx.ell, ncx.td[b])
+                if ncx.tl is not None:
+                    put(f"T-lens[{b + 1}]", ncx.ell, ncx.tl[b])
+        return out
+
+    def density_cl(self, lmax=-1):
+        """Number-count spectra: 'ell', and 'dd', 'll', 'dl' stacked over the
+        bin pairs (classy.py:1077)."""
+        nc = self.cosmo.number_counts
+        ell = nc.ell.cpu().numpy()
+        if lmax < 0:
+            lmax = int(ell[-1])
+        m = ell <= lmax
+        return {"ell": ell[m], "dd": nc.dd.cpu().numpy()[:, m], "ll": nc.ll.cpu().numpy()[:, m],
+                "dl": nc.dl.cpu().numpy()[:, m]}
 
     def lensed_cl(self, lmax=-1):
         if not self.cosmo.out.has_cls:

@@ -137,6 +137,14 @@ class PrecisionParams:
     transfer_neglect_delta_k_T_b: float = 0.1
     transfer_neglect_late_source: float = 400.0
     l_switch_limber: float = 10.0
+    # number counts / selection windows (precisions.h:400-411)
+    selection_tophat_edge: float = 0.1
+    l_switch_limber_for_nc_local_over_z: float = 100.0
+    l_switch_limber_for_nc_los_over_z: float = 30.0
+    selection_cut_at_sigma: float = 5.0
+    selection_sampling: float = 50.0
+    selection_sampling_bessel: float = 20.0
+    selection_sampling_bessel_los: float = 20.0
 
     # --- nonlinear (precisions.h:418-449)
     nonlinear_min_k_max: float = 20.0

@@ -91,7 +91,9 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
 // device pointer. ncdm: q (nq), w (ns, nq), dlnf0 (ns, nq), x_fac (ns),
 // pref (ns) packed in this order (unused when ns = 0). K: the spatial
 // curvature in 1/Mpc^2, sgnK its sign. The lane's scratch is dynamic shared
-// memory: a state too wide for one block's 227 KB is refused.
+// memory, sized from the layout (any number of species): a state too wide for
+// one block's 227 KB is refused here, and before that by the wrapper
+// (solve.py `check_lane_scratch`), which names N_ncdm.
 extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const double* taus,
                                   const double* bg_y, const double* bg_y2, double bg_x0,
                                   double bg_dx, int bg_n, const double* th_y,
@@ -104,7 +106,7 @@ extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const 
   int* li = reinterpret_cast<int*>(&L);
   for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
   const size_t smem = (size_t)pk::work_doubles(L) * sizeof(double);
-  if (L.ns > pk::kMaxSpecies || nlanes < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
+  if (nlanes < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         perturb_ark_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -46,7 +46,6 @@
 
 namespace pk {
 
-constexpr int kMaxSpecies = 4;   // ncdm species a frame can hold
 constexpr int kNSrc = 27;        // SrcIdx.n
 constexpr int kNBgBase = 10;     // BG_COLS without the ncdm columns
 constexpr int kNTh = 6;          // TH_COLS
@@ -143,7 +142,9 @@ using team::team_sync;
 struct Frame {
   double tau, a, H, Hp, rho_g, rho_b, rho_cdm, rho_ur, rho_tot, p_tot, p_tot_prime;
   double kap, kapp, g, dg, emk, cb2;
-  double rho_nc[kMaxSpecies], p_nc[kMaxSpecies], pp_nc[kMaxSpecies];
+  // rho, p and p' of ncdm species s: nc[3 s], nc[3 s + 1], nc[3 s + 2], the
+  // ncdm columns of the frame buffer (valid until the next frame_at)
+  const double* nc;
 };
 
 struct Flags {
@@ -186,11 +187,13 @@ PK_FN Flags flags_at(const Lane& ln, double t) {
   return Flags{t < ln.t_tca, t >= ln.t_rsa, t >= ln.t_ufa, t >= ln.t_ncfa};
 }
 
-constexpr int kFrameCols = kNBgBase + 3 * kMaxSpecies + kNTh;   // room in the frame buffer
+// Doubles of the frame buffer: the background columns (3 per ncdm species)
+// and the thermodynamics columns.
+PK_HOST_FN int frame_cols(const Layout& L) { return kNBgBase + 3 * L.ns + kNTh; }
 
-// Table values at tau, the same in every thread. `buf` (kFrameCols doubles,
+// Table values at tau, the same in every thread. `buf` (frame_cols doubles,
 // shared by the team) carries the table row across (team::table_row).
-PK_FN void frame_at(const Tables& T, const Team& tm, int ns, double tau, double* buf, Frame& f) {
+PK_FN void frame_at(const Tables& T, const Team& tm, double tau, double* buf, Frame& f) {
   const int nbg = T.bg_ncol;
   team::table_row(T, tm, kNTh, log(tau), buf);
   const double* bgv = buf;
@@ -199,11 +202,7 @@ PK_FN void frame_at(const Tables& T, const Team& tm, int ns, double tau, double*
   f.a = bgv[0]; f.H = bgv[1]; f.Hp = bgv[2]; f.rho_g = bgv[3]; f.rho_b = bgv[4];
   f.rho_cdm = bgv[5]; f.rho_ur = bgv[6]; f.rho_tot = bgv[7]; f.p_tot = bgv[8];
   f.p_tot_prime = bgv[9];
-  for (int s = 0; s < ns; ++s) {
-    f.rho_nc[s] = bgv[kNBgBase + 3 * s];
-    f.p_nc[s] = bgv[kNBgBase + 3 * s + 1];
-    f.pp_nc[s] = bgv[kNBgBase + 3 * s + 2];
-  }
+  f.nc = bgv + kNBgBase;
   f.kap = thv[0]; f.kapp = thv[1]; f.g = thv[2]; f.dg = thv[3]; f.emk = thv[4];
   f.cb2 = thv[5];
 }
@@ -266,7 +265,7 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   double sum_rho_nc = 0.0, sum_rpp_nc = 0.0;
   for (int s = 0; s < ns; ++s) {
     const int base = L.ncdm + s * nq * nl;
-    const double rho_s = fr.rho_nc[s], p_s = fr.p_nc[s], pp_s = fr.pp_nc[s];
+    const double rho_s = fr.nc[3 * s], p_s = fr.nc[3 * s + 1], pp_s = fr.nc[3 * s + 2];
     const double w_s = p_s / rho_s;
     double rd, rt, rs, dp;
     if (ncfa) {
@@ -442,7 +441,7 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
         if (ns > 1)
           for (int i = 3 + tid; i < nq * nl; i += nt) dy[base + i] = 0.0;
         if (tid == 0) {
-          const double rho_s = fr.rho_nc[s], p_s = fr.p_nc[s], pp_s = fr.pp_nc[s];
+          const double rho_s = fr.nc[3 * s], p_s = fr.nc[3 * s + 1], pp_s = fr.nc[3 * s + 2];
           const double w_s = p_s / rho_s;
           const double d_fl = y[base], t_fl = y[base + 1], s_fl = y[base + 2];
           const double ca2 = w_s / 3.0 / (1.0 + w_s) * (5.0 - pp_s / p_s);
@@ -672,7 +671,7 @@ PK_FN void remap_ncdmfa_on(const Layout& L, const Tables& T, const Team& tm, con
     for (int i = tm.tid; i < L.nq * L.nl; i += tm.nt) y[base + i] = 0.0;
     team_sync(tm);
     if (tm.tid == 0) {
-      const double rho_s = fr.rho_nc[s], rpp = fr.rho_nc[s] + fr.p_nc[s];
+      const double rho_s = fr.nc[3 * s], rpp = fr.nc[3 * s] + fr.nc[3 * s + 1];
       y[base] = fac * sm[0] / rho_s;
       y[base + 1] = ln.k * fac * sm[1] / rpp;
       y[base + 2] = 2.0 / 3.0 * fac * sm[2] / rpp;
@@ -714,7 +713,7 @@ PK_FN void compute_sources(const Layout& L, const Tables& T, const Team& tm, con
 // E (nst), with nst = theta_b + 1 the stiff range, the frame buffer and the
 // s_l table.
 PK_HOST_FN long work_doubles(const Layout& L) {
-  return 9L * L.n + 7L * (L.theta_b + 1) + kFrameCols + sl_count(L);
+  return 9L * L.n + 7L * (L.theta_b + 1) + frame_cols(L) + sl_count(L);
 }
 
 // Integrate one lane from tau_ini through every sample (solve.py `_step`
@@ -730,7 +729,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
   const int n = L.n, nst = L.theta_b + 1, ns = L.ns;
   const Vec y = work, Y = work + n, ynew = work + 2L * n, FE = work + 3L * n;
   const Vec FI = work + 9L * n, E = work + 9L * n + 6L * nst, fbuf = E + nst;
-  const Vec sl = fbuf + kFrameCols;
+  const Vec sl = fbuf + frame_cols(L);
   const double sw[4] = {ln.t_tca, ln.t_ufa, ln.t_rsa, ln.t_ncfa};
   const int nsw = ns ? 4 : 3;
   const double inf = INFINITY;
@@ -746,7 +745,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
 
   Frame fr;
   double t = tau_ini, h = 0.1 * tau_ini;
-  frame_at(T, tm, ns, t, fbuf, fr);
+  frame_at(T, tm, t, fbuf, fr);
   adiabatic_ic(L, T, tm, fr, ln, y);
 
   int j = 0, bad_in_a_row = 0, status = kOk;
@@ -769,7 +768,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
 
     // --- six stages (ops/ode.py ark_step)
     for (int i = 0; i < kStages; ++i) {
-      frame_at(T, tm, ns, t + kC[i] * h_eff, fbuf, fr);
+      frame_at(T, tm, t + kC[i] * h_eff, fbuf, fr);
       PK_PROF(0)
       const Vec fe = FE + (long)i * n, fi = FI + (long)i * nst;
       if (i > 0) {
@@ -861,7 +860,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       }
       if (any) {
         const Flags fn = flags_at(ln, t_new);
-        frame_at(T, tm, ns, t_new, fbuf, fr);
+        frame_at(T, tm, t_new, fbuf, fr);
         if (crossed[0]) remap_tca_off(L, T, tm, fr, ln, fn, y);
         if (crossed[1]) remap_ufa_on(L, tm, y);
         if (crossed[2]) remap_rsa_on(L, tm, y);
@@ -869,7 +868,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       }
       t = t_new;
       if (t_new >= t_b * (1.0 - 1e-15)) {
-        frame_at(T, tm, ns, t_b, fbuf, fr);
+        frame_at(T, tm, t_b, fbuf, fr);
         compute_sources(L, T, tm, fr, ln, flags_at(ln, t_b), y, S + (long)j * kNSrc);
         t = t_b;
         ++j;

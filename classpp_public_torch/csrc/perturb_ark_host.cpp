@@ -26,7 +26,6 @@ extern "C" int perturb_ark_host_curved(const int* layout, const double* lanes,
   pk::Layout L;
   int* li = reinterpret_cast<int*>(&L);
   for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
-  if (L.ns > pk::kMaxSpecies) return 1;
   pk::Tables T;
   T.bg_y = bg_y; T.bg_y2 = bg_y2; T.bg_x0 = bg_x0; T.bg_dx = bg_dx; T.bg_n = bg_n;
   T.bg_ncol = pk::kNBgBase + 3 * L.ns;
@@ -64,4 +63,13 @@ extern "C" int perturb_ark_host(const int* layout, const double* lanes, const do
   return perturb_ark_host_curved(layout, lanes, taus, bg_y, bg_y2, bg_x0, bg_dx, bg_n, th_y,
                                  th_y2, th_x0, th_dx, th_n, ncdm, rtol, atol, k_eta_split, 0.0,
                                  0, max_steps, nlanes, ntau, work, S, nsteps, status);
+}
+
+// pk::work_doubles of a layout: the lane scratch the kernel sizes its shared
+// memory by, so the wrapper's count (solve.py work_doubles) can be held to it.
+extern "C" long long perturb_ark_host_work_doubles(const int* layout) {
+  pk::Layout L;
+  int* li = reinterpret_cast<int*>(&L);
+  for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
+  return pk::work_doubles(L);
 }

@@ -32,6 +32,13 @@
 // every l, the series at beta x < 1, and the late-source mask above l_late.
 // The q-neglect masks (in k(q)) and the Limber rows act on the result in
 // torch, as on the flat path.
+//
+// Any number of tau samples: the block holds kChunk = 1024 of them in
+// registers (4 a thread) and runs the whole l scan once per chunk of the tau
+// axis, the recurrence of a point depending on that point alone; each chunk's
+// sums are added to the output in chunk order by the one thread that writes
+// it. With ntau <= 1024 there is one chunk and the arithmetic is that of a
+// single pass.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,7 +48,8 @@
 namespace {
 
 constexpr int kThreads = 256;          // threads per block (8 warps)
-constexpr int kMaxPerThread = 4;       // tau points per thread: ntau <= 1024
+constexpr int kMaxPerThread = 4;       // tau points per thread in a chunk
+constexpr int kChunk = kThreads * kMaxPerThread;   // tau points per pass of the scan
 constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -70,74 +78,80 @@ transfer_los_curved_kernel(const double* __restrict__ W,        // (5, nq, ntau)
   const double kv = kq[iq], k2 = kv * kv;
   const double s_l2 = sqrt(1.0 - 3.0 * K / k2);
   const double absK_over_k2 = fabs(K) / k2, sab_over_k = sab / kv;
-  hs::Point pt[kMaxPerThread];
-  bool valid[kMaxPerThread];
-#pragma unroll
-  for (int s = 0; s < kMaxPerThread; ++s) {
-    const int it = tid + s * kThreads;
-    valid[s] = it < ntau;
-    pt[s] = hs::seed(valid[s] ? tau0 - taus[it] : 1.0, sab, beta, beta2, sgnK);
-  }
   const size_t plane = (size_t)nq * ntau;
   const double* Wq = W + (size_t)iq * ntau;
 
-  double sq_lm1 = hs::sqrt_k(beta2, Kt, 1.0);
-  double lnC = 0.5 * log1p(-Kt * 1.0 / beta2);
-  for (int li = 2; li <= lmax; ++li) {
-    const double l = (double)li;
-    const double sq_l = hs::sqrt_k(beta2, Kt, l), inv_sq_l = 1.0 / sq_l;
-    double pl[kMaxPerThread];
-#pragma unroll
-    for (int s = 0; s < kMaxPerThread; ++s)
-      pl[s] = hs::step(pt[s], l, beta, inv_sq_l, sq_lm1, sgnK);
-    lnC = hs::ln_c_step(lnC, l, beta2, Kt);
-    const int ei = emit_idx[li];
-    if (ei >= 0) {
-      const double ef = per_l[ei], lndf = per_l[n_l + ei];
-      const hs::Series c = hs::series(l, beta2, Kt);
-      const bool late_on = l > l_late;
-      double acc[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
-#pragma unroll
-      for (int s = 0; s < kMaxPerThread; ++s) {
-        if (!valid[s]) continue;
-        const int it = tid + s * kThreads;
-        const hs::Point& p = pt[s];
-        double pl_e, dp_e, d2p;
-        hs::emitted(p, l, pl[s], sq_l, lnC, lndf, c, beta2, Kt, pl_e, dp_e, d2p);
-        const double csc2 = fabs(K) / (k2 * p.sinK * p.sinK);
-        const double rad_t1 = sab_over_k * dp_e;
-        const double rad_t2 = (3.0 * absK_over_k2 * d2p + pl_e) / (2.0 * s_l2);
-        const double rad_e = (ef / s_l2) * csc2 * pl_e;
-        const double late = late_on ? late_mask[it] : 1.0;
-        acc[0] += Wq[it] * pl_e;
-        acc[1] += Wq[plane + it] * late * rad_t1;
-        acc[2] += Wq[2 * plane + it] * late * rad_t2;
-        acc[3] += Wq[3 * plane + it] * late * rad_e;
-        acc[4] += Wq[4 * plane + it] * pl_e;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 5; ++cc) {
-        const double v = warp_sum(acc[cc]);
-        if (lane == 0) red[cc][warp] = v;
-      }
-      __syncthreads();
-      if (warp == 0) {
-#pragma unroll
-        for (int cc = 0; cc < 5; ++cc) {
-          double v = lane < kWarps ? red[cc][lane] : 0.0;
-          v = warp_sum(v);
-          if (lane == 0) out[((size_t)ei * 5 + cc) * nq + iq] = v;
-        }
-      }
-      __syncthreads();
-    }
+  for (int t0 = 0; t0 < ntau; t0 += kChunk) {
+    hs::Point pt[kMaxPerThread];
+    bool valid[kMaxPerThread];
 #pragma unroll
     for (int s = 0; s < kMaxPerThread; ++s) {
-      pt[s].pm2 = pt[s].pm1;
-      pt[s].pm1 = pl[s];
+      const int it = t0 + tid + s * kThreads;
+      valid[s] = it < ntau;
+      pt[s] = hs::seed(valid[s] ? tau0 - taus[it] : 1.0, sab, beta, beta2, sgnK);
     }
-    sq_lm1 = sq_l;
-  }
+    double sq_lm1 = hs::sqrt_k(beta2, Kt, 1.0);
+    double lnC = 0.5 * log1p(-Kt * 1.0 / beta2);
+    for (int li = 2; li <= lmax; ++li) {
+      const double l = (double)li;
+      const double sq_l = hs::sqrt_k(beta2, Kt, l), inv_sq_l = 1.0 / sq_l;
+      double pl[kMaxPerThread];
+#pragma unroll
+      for (int s = 0; s < kMaxPerThread; ++s)
+        pl[s] = hs::step(pt[s], l, beta, inv_sq_l, sq_lm1, sgnK);
+      lnC = hs::ln_c_step(lnC, l, beta2, Kt);
+      const int ei = emit_idx[li];
+      if (ei >= 0) {
+        const double ef = per_l[ei], lndf = per_l[n_l + ei];
+        const hs::Series c = hs::series(l, beta2, Kt);
+        const bool late_on = l > l_late;
+        double acc[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+        for (int s = 0; s < kMaxPerThread; ++s) {
+          if (!valid[s]) continue;
+          const int it = t0 + tid + s * kThreads;
+          const hs::Point& p = pt[s];
+          double pl_e, dp_e, d2p;
+          hs::emitted(p, l, pl[s], sq_l, lnC, lndf, c, beta2, Kt, pl_e, dp_e, d2p);
+          const double csc2 = fabs(K) / (k2 * p.sinK * p.sinK);
+          const double rad_t1 = sab_over_k * dp_e;
+          const double rad_t2 = (3.0 * absK_over_k2 * d2p + pl_e) / (2.0 * s_l2);
+          const double rad_e = (ef / s_l2) * csc2 * pl_e;
+          const double late = late_on ? late_mask[it] : 1.0;
+          acc[0] += Wq[it] * pl_e;
+          acc[1] += Wq[plane + it] * late * rad_t1;
+          acc[2] += Wq[2 * plane + it] * late * rad_t2;
+          acc[3] += Wq[3 * plane + it] * late * rad_e;
+          acc[4] += Wq[4 * plane + it] * pl_e;
+        }
+#pragma unroll
+        for (int cc = 0; cc < 5; ++cc) {
+          const double v = warp_sum(acc[cc]);
+          if (lane == 0) red[cc][warp] = v;
+        }
+        __syncthreads();
+        if (warp == 0) {
+#pragma unroll
+          for (int cc = 0; cc < 5; ++cc) {
+            double v = lane < kWarps ? red[cc][lane] : 0.0;
+            v = warp_sum(v);
+            if (lane == 0) {
+              double& o = out[((size_t)ei * 5 + cc) * nq + iq];
+              const double r = v;
+              o = t0 == 0 ? r : o + r;
+            }
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int s = 0; s < kMaxPerThread; ++s) {
+        pt[s].pm2 = pt[s].pm1;
+        pt[s].pm1 = pl[s];
+      }
+      sq_lm1 = sq_l;
+    }
+  }  // tau chunk
 }
 
 }  // namespace
@@ -147,7 +161,7 @@ extern "C" int transfer_los_curved_launch(const void* W, const void* taus, doubl
                                           const void* per_l, const void* late_mask,
                                           double l_late, double K, int sgnK, int nq, int ntau,
                                           int lmax, int n_l, void* out, void* stream) {
-  if (ntau > kThreads * kMaxPerThread || nq <= 0 || ntau <= 0 || n_l <= 0 || sgnK == 0)
+  if (nq <= 0 || ntau <= 0 || n_l <= 0 || sgnK == 0)
     return (int)cudaErrorInvalidValue;
   transfer_los_curved_kernel<<<nq, kThreads, 0, (cudaStream_t)stream>>>(
       (const double*)W, (const double*)taus, tau0, (const double*)q, (const double*)kq,

@@ -22,6 +22,13 @@
 // the warp sums): deterministic, no atomics. The q-neglect masks
 // l >= (k(q) - dk) ra_rec act on the sums in the kernel, as in the flat
 // tensor scan.
+//
+// Any number of tau samples: the block holds kChunk = 1024 of them in
+// registers (4 a thread) and runs the whole l scan once per chunk of the tau
+// axis, the recurrence of a point depending on that point alone; each chunk's
+// sums are added to the output in chunk order by the one thread that writes
+// it. With ntau <= 1024 there is one chunk and the arithmetic is that of a
+// single pass.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -31,7 +38,8 @@
 namespace {
 
 constexpr int kThreads = 256;          // threads per block (8 warps)
-constexpr int kMaxPerThread = 4;       // tau points per thread: ntau <= 1024
+constexpr int kMaxPerThread = 4;       // tau points per thread in a chunk
+constexpr int kChunk = kThreads * kMaxPerThread;   // tau points per pass of the scan
 constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -65,76 +73,82 @@ transfer_tensor_los_curved_kernel(const double* __restrict__ W,      // (2, nq, 
   const double ssqrt2 = sqrt(1.0 - K / k2), si = sqrt(1.0 + 2.0 * K / k2);
   const double ssqrt2i = sqrt(1.0 + 3.0 * K / k2);
   const double absK_over_k2 = fabs(K) / k2, sab_over_k = sab / kv;
-  hs::Point pt[kMaxPerThread];
-  bool valid[kMaxPerThread];
-#pragma unroll
-  for (int s = 0; s < kMaxPerThread; ++s) {
-    const int it = tid + s * kThreads;
-    valid[s] = it < ntau;
-    pt[s] = hs::seed(valid[s] ? tau0 - taus[it] : 1.0, sab, beta, beta2, sgnK);
-  }
   const size_t plane = (size_t)nq * ntau;
   const double* Wq = W + (size_t)iq * ntau;
 
-  double sq_lm1 = hs::sqrt_k(beta2, Kt, 1.0);
-  double lnC = 0.5 * log1p(-Kt * 1.0 / beta2);
-  for (int li = 2; li <= lmax; ++li) {
-    const double l = (double)li;
-    const double sq_l = hs::sqrt_k(beta2, Kt, l), inv_sq_l = 1.0 / sq_l;
-    double pl[kMaxPerThread];
-#pragma unroll
-    for (int s = 0; s < kMaxPerThread; ++s)
-      pl[s] = hs::step(pt[s], l, beta, inv_sq_l, sq_lm1, sgnK);
-    lnC = hs::ln_c_step(lnC, l, beta2, Kt);
-    const int ei = emit_idx[li];
-    if (ei >= 0) {
-      const double t2f = per_l[ei], lndf = per_l[n_l + ei];
-      const hs::Series c = hs::series(l, beta2, Kt);
-      double acc[3] = {0.0, 0.0, 0.0};
-#pragma unroll
-      for (int s = 0; s < kMaxPerThread; ++s) {
-        if (!valid[s]) continue;
-        const int it = tid + s * kThreads;
-        const hs::Point& p = pt[s];
-        double pl_e, dp_e, d2p;
-        hs::emitted(p, l, pl[s], sq_l, lnC, lndf, c, beta2, Kt, pl_e, dp_e, d2p);
-        const double cscKgen = sab / (kv * p.sinK);
-        const double cotKgen = cscKgen * p.cosK;
-        const double rad_t2 = t2f / (si * ssqrt2) * cscKgen * cscKgen * pl_e;
-        const double rad_e = 0.25 / (si * ssqrt2) * (
-            absK_over_k2 * d2p + 4.0 * cotKgen * sab_over_k * dp_e
-            - (1.0 + 4.0 * K / k2 - 2.0 * cotKgen * cotKgen) * pl_e);
-        const double rad_b = 0.5 * ssqrt2i / (ssqrt2 * si) * (sab_over_k * dp_e
-                                                              + 2.0 * cotKgen * pl_e);
-        const double wt = Wq[it], wp = Wq[plane + it];
-        acc[0] += wt * rad_t2;
-        acc[1] += wp * rad_e;
-        acc[2] += wp * rad_b;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) {
-        const double v = warp_sum(acc[cc]);
-        if (lane == 0) red[cc][warp] = v;
-      }
-      __syncthreads();
-      if (warp == 0) {
-#pragma unroll
-        for (int cc = 0; cc < 3; ++cc) {
-          double v = lane < kWarps ? red[cc][lane] : 0.0;
-          v = warp_sum(v);
-          const bool keep = l >= (kv - ng.dk[cc]) * ra_rec;
-          if (lane == 0) out[((size_t)ei * 3 + cc) * nq + iq] = keep ? v : 0.0;
-        }
-      }
-      __syncthreads();
-    }
+  for (int t0 = 0; t0 < ntau; t0 += kChunk) {
+    hs::Point pt[kMaxPerThread];
+    bool valid[kMaxPerThread];
 #pragma unroll
     for (int s = 0; s < kMaxPerThread; ++s) {
-      pt[s].pm2 = pt[s].pm1;
-      pt[s].pm1 = pl[s];
+      const int it = t0 + tid + s * kThreads;
+      valid[s] = it < ntau;
+      pt[s] = hs::seed(valid[s] ? tau0 - taus[it] : 1.0, sab, beta, beta2, sgnK);
     }
-    sq_lm1 = sq_l;
-  }
+    double sq_lm1 = hs::sqrt_k(beta2, Kt, 1.0);
+    double lnC = 0.5 * log1p(-Kt * 1.0 / beta2);
+    for (int li = 2; li <= lmax; ++li) {
+      const double l = (double)li;
+      const double sq_l = hs::sqrt_k(beta2, Kt, l), inv_sq_l = 1.0 / sq_l;
+      double pl[kMaxPerThread];
+#pragma unroll
+      for (int s = 0; s < kMaxPerThread; ++s)
+        pl[s] = hs::step(pt[s], l, beta, inv_sq_l, sq_lm1, sgnK);
+      lnC = hs::ln_c_step(lnC, l, beta2, Kt);
+      const int ei = emit_idx[li];
+      if (ei >= 0) {
+        const double t2f = per_l[ei], lndf = per_l[n_l + ei];
+        const hs::Series c = hs::series(l, beta2, Kt);
+        double acc[3] = {0.0, 0.0, 0.0};
+#pragma unroll
+        for (int s = 0; s < kMaxPerThread; ++s) {
+          if (!valid[s]) continue;
+          const int it = t0 + tid + s * kThreads;
+          const hs::Point& p = pt[s];
+          double pl_e, dp_e, d2p;
+          hs::emitted(p, l, pl[s], sq_l, lnC, lndf, c, beta2, Kt, pl_e, dp_e, d2p);
+          const double cscKgen = sab / (kv * p.sinK);
+          const double cotKgen = cscKgen * p.cosK;
+          const double rad_t2 = t2f / (si * ssqrt2) * cscKgen * cscKgen * pl_e;
+          const double rad_e = 0.25 / (si * ssqrt2) * (
+              absK_over_k2 * d2p + 4.0 * cotKgen * sab_over_k * dp_e
+              - (1.0 + 4.0 * K / k2 - 2.0 * cotKgen * cotKgen) * pl_e);
+          const double rad_b = 0.5 * ssqrt2i / (ssqrt2 * si) * (sab_over_k * dp_e
+                                                                + 2.0 * cotKgen * pl_e);
+          const double wt = Wq[it], wp = Wq[plane + it];
+          acc[0] += wt * rad_t2;
+          acc[1] += wp * rad_e;
+          acc[2] += wp * rad_b;
+        }
+#pragma unroll
+        for (int cc = 0; cc < 3; ++cc) {
+          const double v = warp_sum(acc[cc]);
+          if (lane == 0) red[cc][warp] = v;
+        }
+        __syncthreads();
+        if (warp == 0) {
+#pragma unroll
+          for (int cc = 0; cc < 3; ++cc) {
+            double v = lane < kWarps ? red[cc][lane] : 0.0;
+            v = warp_sum(v);
+            const bool keep = l >= (kv - ng.dk[cc]) * ra_rec;
+            if (lane == 0) {
+              double& o = out[((size_t)ei * 3 + cc) * nq + iq];
+              const double r = keep ? v : 0.0;
+              o = t0 == 0 ? r : o + r;
+            }
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int s = 0; s < kMaxPerThread; ++s) {
+        pt[s].pm2 = pt[s].pm1;
+        pt[s].pm1 = pl[s];
+      }
+      sq_lm1 = sq_l;
+    }
+  }  // tau chunk
 }
 
 }  // namespace
@@ -147,7 +161,7 @@ extern "C" int transfer_tensor_los_curved_launch(const void* W, const void* taus
                                                  double ra_rec, const double* neglect_dk,
                                                  double K, int sgnK, int nq, int ntau, int lmax,
                                                  int n_l, void* out, void* stream) {
-  if (ntau > kThreads * kMaxPerThread || nq <= 0 || ntau <= 0 || n_l <= 0 || sgnK == 0)
+  if (nq <= 0 || ntau <= 0 || n_l <= 0 || sgnK == 0)
     return (int)cudaErrorInvalidValue;
   const Neglect ng{{neglect_dk[0], neglect_dk[1], neglect_dk[2]}};
   transfer_tensor_los_curved_kernel<<<nq, kThreads, 0, (cudaStream_t)stream>>>(

@@ -22,6 +22,7 @@ from .config.precision import PrecisionParams
 from .models.background import BackgroundResult, BgIdx
 from .models.hyrec import HY_PARAMS, HyrecCtx, HyrecTables
 from .models.nonlinear import PkResult
+from .models.numbercounts import CmbNcCrossResult, NumberCountsResult, RowInfo
 from .models.perturbations.equations import NcdmCtx
 from .models.perturbations.solve import PerturbResult
 from .models.perturbations.tensors import TensorResult
@@ -29,6 +30,7 @@ from .models.spectra import SpectraResult
 from .models.thermodynamics import RecfastCtx, ThermoResult
 from .models.transfer import TransferResult
 from .ops.splines import UniformSpline
+from .pipeline import OutputSelection
 
 
 def _t(a, device):
@@ -156,3 +158,39 @@ def recfast_ctx(d: dict) -> RecfastCtx:
     return RecfastCtx(H_of_z=spline(d["H_of_z"], "cpu"),
                       inj=tuple(float(np.asarray(v)) for v in d["inj"]),
                       inj_conv=None if conv is None else spline(conv, "cpu"), **kw)
+
+
+def output_selection(d: dict) -> OutputSelection:
+    """OutputSelection from the JAX OutputSelection fields, the number-count
+    ones included; fields the port does not have (dTk, vTk, the HMcode
+    feedback, ics, gauge, nbody) are dropped."""
+    names = {f.name for f in dataclasses.fields(OutputSelection)}
+    return OutputSelection(**{k: (tuple(v) if isinstance(v, list) else v)
+                              for k, v in d.items() if k in names})
+
+
+def row_info(d: dict, device) -> RowInfo:
+    """RowInfo from a JAX `_RowInfo` dict (the numbercounts rows, windows and
+    tau grids)."""
+    return RowInfo(rows=tuple((str(t), int(b)) for t, b in d["rows"]),
+                   tau_rows=_t(d["tau_rows"], device), W_rows=_t(d["W_rows"], device),
+                   src_cols=tuple(str(c) for c in d["src_cols"]),
+                   kpow=tuple(int(v) for v in d["kpow"]), radial=tuple(int(v) for v in d["radial"]),
+                   lim_switch=tuple(float(v) for v in d["lim_switch"]), tau0=_f(d["tau0"]))
+
+
+def number_counts(d: dict, device) -> NumberCountsResult:
+    """NumberCountsResult from a JAX NumberCountsResult dict."""
+    return NumberCountsResult(ell=torch.as_tensor(np.array(d["ell"]), device=device),
+                              dd=_t(d["dd"], device), ll=_t(d["ll"], device),
+                              dl=_t(d["dl"], device),
+                              dd_pairs=tuple(tuple(int(v) for v in p) for p in d["dd_pairs"]),
+                              dl_pairs=tuple(tuple(int(v) for v in p) for p in d["dl_pairs"]))
+
+
+def nc_cross(d: dict, device) -> CmbNcCrossResult:
+    """CmbNcCrossResult from a JAX CmbNcCrossResult dict."""
+    return CmbNcCrossResult(ell=torch.as_tensor(np.array(d["ell"]), device=device),
+                            pd=_t(d["pd"], device),
+                            td=None if d.get("td") is None else _t(d["td"], device),
+                            tl=None if d.get("tl") is None else _t(d["tl"], device))

@@ -287,8 +287,25 @@ def work_doubles(idx: PtIdx) -> int:
     """Scratch doubles per lane of the kernel (pk::work_doubles; its shared
     memory per block): y, Y, ynew, 6 explicit stage vectors (9 n) and 6
     implicit ones plus the error over the stiff range [0, theta_b], the
-    28-column frame buffer (kFrameCols) and the s_l table."""
-    return 9 * idx.size + 7 * (idx.theta_b + 1) + 28 + sl_count(idx)
+    frame buffer (pk::frame_cols: 10 background columns, 3 per ncdm species,
+    6 thermodynamics columns) and the s_l table."""
+    return 9 * idx.size + 7 * (idx.theta_b + 1) + 16 + 3 * idx.n_ncdm + sl_count(idx)
+
+
+# shared memory one block of the card can hold (H100: 227 KB)
+MAX_LANE_SCRATCH_BYTES = 232448
+
+
+def check_lane_scratch(idx: PtIdx) -> int:
+    """The kernel's lane scratch in bytes; raises when one block cannot hold
+    it (too many ncdm species or momenta for the card's shared memory)."""
+    nbytes = 8 * work_doubles(idx)
+    if nbytes > MAX_LANE_SCRATCH_BYTES:
+        raise ValueError(
+            f"perturb_ark: N_ncdm = {idx.n_ncdm} ({idx.q_size_ncdm} momenta, state {idx.size}) "
+            f"needs {nbytes} bytes of lane scratch, above the {MAX_LANE_SCRATCH_BYTES} bytes "
+            f"(227 KB) of shared memory a block can hold")
+    return nbytes
 
 
 KERNEL_STATUS = {1: "exceeded MAX_ITERATIONS", 2: "produced a non-finite step"}
@@ -326,6 +343,7 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
     for t in ins:
         if t.dtype != torch.float64 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"integrate_sources: every input must be contiguous float64 on {dev}")
+    check_lane_scratch(idx)
     lib = cuda.library()
     S = torch.empty((nl, ntau, SrcIdx.n), dtype=torch.float64, device=dev)
     nsteps = torch.zeros(nl, dtype=torch.long, device=dev)
@@ -373,16 +391,20 @@ def compute_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th
                           l_scalar_max: int = 2500, k_max_for_pk: float = 10.0,
                           has_cls: bool = True, has_pk: bool = True,
                           z_max_pk: float = 5.0, has_lcmb: bool = False,
-                          k_max_cl_extra: float = 0.0, device=None) -> PerturbResult:
-    """Full scalar perturbation stage: grids + schedule + batched solve."""
+                          k_max_cl_extra: float = 0.0, has_nc: bool = False,
+                          device=None) -> PerturbResult:
+    """Full scalar perturbation stage: grids + schedule + batched solve.
+    has_nc (number counts) samples k and tau as C_l's do (solve.py:454-472:
+    the reference's has_cls includes nCl/sCl, perturbations_module.cpp:1700)."""
     if pr.evolver != "imex":
         raise NotImplementedError(
             "only the imex evolver is ported (classpp_public_tpu/ops/ode.py:44 rkck)")
     device = torch.device(device) if device is not None else bg.loga.device
     ks = get_k_list(params, pr, bg, th, l_scalar_max=l_scalar_max,
-                    k_max_for_pk=k_max_for_pk, has_cls=has_cls, has_pk=has_pk,
+                    k_max_for_pk=k_max_for_pk, has_cls=has_cls or has_nc, has_pk=has_pk,
                     k_max_cl_extra=k_max_cl_extra)
-    taus = get_tau_sampling(params, pr, bg, bidx, th, has_cmb=has_cls, z_max_pk=z_max_pk)
+    taus = get_tau_sampling(params, pr, bg, bidx, th, has_cmb=has_cls or has_nc,
+                            z_max_pk=z_max_pk)
     k_max_cmb = pr.k_max_tau0_over_l_max * l_scalar_max / float(bg.tau0) if has_cls else 0.0
     k_max_cmb = max(k_max_cmb, k_max_cl_extra)
     sched = get_k_schedule(ks, pr, bg, bidx, th, tau_first_sample=float(taus[0]),

@@ -150,14 +150,16 @@ class TransferResult(NamedTuple):
     k: torch.Tensor = None   # (nq,) k(q); equals q when flat
 
 
-def _weighted_sources(pert, th, k_of_q: torch.Tensor, K: float = 0.0, sgnK: int = 0):
+def _weighted_sources(pert, th, k_of_q: torch.Tensor, K: float = 0.0, sgnK: int = 0,
+                      k_size: int = None):
     """Sources splined k -> k(q) (transfer_interpolate_sources :1767) with the
     trapezoidal tau weights folded in (transfer_sources :1845), and the lensing
-    window of the lcmb row with its curved sinK form (:1920-1950).
+    window of the lcmb row with its curved sinK form (:1920-1950). The spline
+    runs over the first k_size modes (default: the CMB ones, k_size_cmb).
     Returns W, Sq (5, nq, ntau) and taus."""
     taus = pert.tau
     tau0 = pert.tau0
-    n_k = pert.k_size_cmb
+    n_k = k_size if k_size is not None else pert.k_size_cmb
     k = pert.k[:n_k]
     S = pert.sources[:n_k]
     six = SrcIdx.ix
@@ -269,8 +271,6 @@ def transfer_los(W: torch.Tensor, taus: torch.Tensor, tau0: float, q: torch.Tens
     for name, t in (("W", W), ("taus", taus), ("q", q)):
         if t.dtype != torch.float64 or not t.is_contiguous() or t.device != W.device:
             raise ValueError(f"transfer_los: {name} must be contiguous float64 on {W.device}")
-    if ntau > 1024:
-        raise ValueError(f"transfer_los: ntau = {ntau} > 1024 per q block")
     lib = cuda.library()
     emit_idx, e_fac = _emit_tables(np.asarray(l_emit), W.device)
     late = late_mask.to(device=W.device, dtype=torch.float64).contiguous()
@@ -458,8 +458,6 @@ def _check_los_inputs(name, W, ntt, taus, q, kq):
     for tname, t in (("W", W), ("taus", taus), ("q", q), ("kq", kq)):
         if t.dtype != torch.float64 or not t.is_contiguous() or t.device != W.device:
             raise ValueError(f"{name}: {tname} must be contiguous float64 on {W.device}")
-    if ntau > 1024:
-        raise ValueError(f"{name}: ntau = {ntau} > 1024 per q block")
     return nq, ntau
 
 
@@ -659,8 +657,6 @@ def transfer_tensor_los(W: torch.Tensor, taus: torch.Tensor, tau0: float, q: tor
         if t.dtype != torch.float64 or not t.is_contiguous() or t.device != W.device:
             raise ValueError(f"transfer_tensor_los: {name} must be contiguous float64 on "
                              f"{W.device}")
-    if ntau > 1024:
-        raise ValueError(f"transfer_tensor_los: ntau = {ntau} > 1024 per q block")
     lib = cuda.library()
     emit_idx, t2_fac, lndf, lndf1 = _series_emit_tables(np.asarray(l_emit))
     emit = torch.as_tensor(emit_idx, device=W.device)

@@ -46,6 +46,7 @@ SIGNATURES = {
                                    _P, _P],
     "transfer_tensor_los_curved_launch": [_P, _P, _D, _P, _P, _P, _P, _D, _P, _D, _I, _I, _I, _I,
                                           _I, _P, _P],
+    "nc_scan_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -2,11 +2,14 @@
 
 Counterpart of classpp_public_tpu/pipeline.py (`OutputSelection`, the
 `Cosmology` stages :141-467, the tensor stages :295-313, the curvature
-`curvature_K` and `sgnK` :317-326). Each stage is
+`curvature_K` and `sgnK` :317-326, the number counts `number_counts` and
+`nc_cross` :422-458). Each stage is
 computed once per parameter set; downstream stages pull upstream ones on
 demand. Stage order: background, thermodynamics, perturbations, primordial,
 nonlinear, transfer, tensor_perturbations, tensor_transfer (with tensor
-modes), spectra, lensing.
+modes), spectra, lensing; with nCl/sCl the spectra level also holds
+number_counts and, with nCl and lCl among C_l outputs, nc_cross
+(pipeline.py:601-603).
 
 Every stage takes an explicit torch.device. The background is computed on
 the host and thermodynamics mostly so (its two serial recurrences are kernels
@@ -28,11 +31,6 @@ from .config.precision import PrecisionParams
 LEVELS = ["background", "thermodynamics", "perturbations", "primordial",
           "nonlinear", "transfer", "tensor_perturbations", "tensor_transfer",
           "spectra", "lensing"]
-# first selection bin and l_max of the large-scale-structure spectra (the
-# reference defaults selection_mean = 1.0, l_max_lss = 300): with lCl they set
-# the lensing potential's k reach (perturbations_module.cpp:1726-1733)
-SELECTION_MEAN0 = 1.0
-L_LSS_MAX = 300
 
 
 @dataclass
@@ -51,10 +49,27 @@ class OutputSelection:
     non_linear: str = ""   # "" or "halofit"
     modes: tuple = ("s",)  # "s" scalars, "t" tensors
     l_tensor_max: int = 500
+    # number counts and galaxy lensing (nCl / sCl; pipeline.py:49-72)
+    nCl: bool = False
+    sCl: bool = False
+    selection_mean: tuple = (1.0,)
+    selection_width: tuple = (0.1,)
+    selection_kind: str = "gaussian"
+    l_lss_max: int = 300
+    non_diagonal: int = 0
+    nc_contributions: tuple = ("density",)
+    selection_bias: tuple = (1.0,)
+    magnification_bias: tuple = (0.0,)
+    dndz: str = None          # None, "analytic" or a file path
+    dndz_evo: str = None
 
     @property
     def has_cls(self) -> bool:
         return self.tCl or self.pCl or self.lCl
+
+    @property
+    def has_nc(self) -> bool:
+        return self.nCl or self.sCl
 
     @property
     def has_pk(self) -> bool:
@@ -127,13 +142,15 @@ class Cosmology:
 
             bg, bidx = self.background
             k_max_cl_extra = 0.0
-            if self.out.lCl:
-                # resolve L_LSS_MAX at the comoving distance of the nearest
-                # selection bin
+            if self.out.has_nc or self.out.lCl:
+                # l_lss_max resolved at the comoving distance of the first
+                # selection bin, for the number counts and the lensing
+                # potential (perturbations_module.cpp:1726-1733,
+                # pipeline.py:184-195)
                 from .models.background import tau_of_z
 
-                tau1 = float(tau_of_z(bg, SELECTION_MEAN0))
-                k_max_cl_extra = self.pr.k_max_tau0_over_l_max * L_LSS_MAX \
+                tau1 = float(tau_of_z(bg, float(self.out.selection_mean[0])))
+                k_max_cl_extra = self.pr.k_max_tau0_over_l_max * self.out.l_lss_max \
                     / (float(bg.tau0) - tau1)
             self._cache["pt"] = compute_perturbations(
                 self.params, self.pr, bg, bidx, self.thermodynamics,
@@ -141,7 +158,7 @@ class Cosmology:
                 has_cls=self.out.has_cls, has_pk=self.out.has_pk,
                 z_max_pk=self.out.z_max_pk,
                 has_lcmb=self.out.lCl and self.out.has_cls,
-                k_max_cl_extra=k_max_cl_extra, device=self.device)
+                k_max_cl_extra=k_max_cl_extra, has_nc=self.out.has_nc, device=self.device)
         return self._cache["pt"]
 
     @property
@@ -266,6 +283,42 @@ class Cosmology:
                 q_flat_nu=self.pr.hyper_flat_approximation_nu)
         return self._cache["sp"]
 
+    def _nc_kwargs(self) -> dict:
+        o = self.out
+        return dict(kind=o.selection_kind, l_max=o.l_lss_max, contributions=o.nc_contributions,
+                    selection_bias=o.selection_bias, magnification_bias=o.magnification_bias,
+                    dndz=o.dndz, dndz_evo=o.dndz_evo)
+
+    @property
+    def number_counts(self):
+        """nCl / sCl spectra (pipeline.py:422-438): the linear sources, as the
+        JAX package feeds them (ROADMAP Queue 3: the C++ code applies
+        nl_corr_density)."""
+        if "nc" not in self._cache:
+            from .models.numbercounts import compute_number_counts
+
+            bg, bidx = self.background
+            self._cache["nc"] = compute_number_counts(
+                self.perturbations, bg, bidx, self.primordial, self.pr,
+                self.out.selection_mean, self.out.selection_width,
+                non_diag=self.out.non_diagonal, **self._nc_kwargs())
+        return self._cache["nc"]
+
+    @property
+    def nc_cross(self):
+        """CMB x number-count cross spectra (pipeline.py:440-458): phi-dens,
+        and the T-dens / T-lens extensions."""
+        if "ncx" not in self._cache:
+            from .models.numbercounts import compute_cmb_nc_cross
+
+            bg, bidx = self.background
+            self._cache["ncx"] = compute_cmb_nc_cross(
+                self.perturbations, self.thermodynamics, bg, bidx, self.primordial, self.pr,
+                self.out.selection_mean, self.out.selection_width,
+                want_td=self.out.tCl, want_tl=self.out.tCl and self.out.sCl,
+                **self._nc_kwargs())
+        return self._cache["ncx"]
+
     @property
     def lensing(self):
         if "le" not in self._cache:
@@ -282,6 +335,10 @@ class Cosmology:
         for lv in LEVELS[: want + 1]:
             if lv == "nonlinear" and not self.out.has_pk:
                 continue
+            if lv == "spectra" and self.out.has_nc:
+                out.append("number_counts")
+                if self.out.nCl and self.out.lCl and self.out.has_cls:
+                    out.append("nc_cross")
             if lv in ("transfer", "spectra") and not self.out.has_cls:
                 continue
             if lv in ("tensor_perturbations", "tensor_transfer") \

@@ -23,6 +23,21 @@ three bins, reio_many_tanh with two jumps, l_max 1200). `hyrec_full`
 (THERMO_ONLY): g5_hyrec's cosmology through the two-photon HyRec model, the
 thermodynamics stage alone (no golden holds it).
 
+The number counts and galaxy lensing: `g7_ncl` (GOLDEN_ONLY) and
+`g19_ncl_full`, tests/golden/gen/g7_ncl.ini and g19_ncl_full.ini as
+tests/test_numbercounts.py sets them (output = nCl,sCl, two Gaussian bins at
+z = 0.5 and 1.0 of width 0.1, l_max_lss 300, non_diagonal 1; g19 with every
+contribution, galaxy bias 1.2, 1.5 and magnification bias 0.1, 0.15);
+`g27_pd` (g27_pd.ini: tCl,pCl,lCl,nCl, lensed, l_max 600, every
+contribution: phi-dens and the T-dens extension); `nc_des_y1`: the g1
+cosmology with the five DES Y1 redMaGiC lens bins (tophat, z = 0.225 ... 0.825,
+half-width 0.075; arXiv:1708.01530) at their fiducial galaxy biases (1.45,
+1.55, 1.65, 1.8, 2.0; arXiv:1706.09359), every contribution, every bin pair
+(non_diagonal 4), l_max_lss 1000. And two variants of earlier paths:
+`planck_row2_ss005`, planck_row2 at perturb_sampling_stepsize 0.05 (1179 tau
+samples, a common precision boost), and `ncdm_row3` (bench.py:62-69), three
+massive-neutrino species of 0.021934, 0.023582 and 0.054485 eV.
+
 The output-file keys of the .ini files (headers, format, root, write
 thermodynamics, *_verbose) are left out.
 """
@@ -79,9 +94,34 @@ G11A_REIO_BINS = dict(_G11, reio_parametrization="reio_bins_tanh", binned_reio_n
 G11B_REIO_MANYTANH = dict(_G11, reio_parametrization="reio_many_tanh", many_tanh_num=2,
                           many_tanh_z="3.5,8", many_tanh_xe="-2,-1", many_tanh_width=0.5)
 HYREC_FULL = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe="BBN", recombination="hyrec_full")
+PLANCK_ROW2_SS005 = dict(PLANCK_ROW2, perturb_sampling_stepsize=0.05)
+NCDM_ROW3 = {
+    "h": 0.6736, "omega_b": 0.02237, "omega_cdm": 0.1200,
+    "A_s": 2.0989e-9, "n_s": 0.9649, "tau_reio": 0.0544,
+    "N_ur": 0.00641, "N_ncdm": 3, "m_ncdm": "0.021934, 0.023582, 0.054485",
+    "output": "tCl,pCl,lCl,mPk", "lensing": "yes",
+    "l_max_scalars": 2500, "P_k_max_1/Mpc": 10.0, "z_pk": "0.",
+}
+_NC = dict(_GOLDEN_COSMO, tau_reio=0.05430842, selection="gaussian",
+           selection_mean="0.5, 1.0", selection_width="0.1", l_max_lss=300, non_diagonal=1)
+G7_NCL = dict(_NC, output="nCl,sCl")
+G19_NCL_FULL = dict(G7_NCL, **{"number count contributions": "density, rsd, lensing, gr",
+                               "selection_bias": "1.2, 1.5",
+                               "selection_magnification_bias": "0.1, 0.15"})
+G27_PD = dict(_NC, output="tCl,pCl,lCl,nCl", lensing="yes", l_max_scalars=600,
+              **{"number count contributions": "density, rsd, lensing, gr"})
+NC_DES_Y1 = dict(_GOLDEN_COSMO, tau_reio=0.05430842, output="nCl,sCl", selection="tophat",
+                 selection_mean="0.225, 0.375, 0.525, 0.675, 0.825", selection_width="0.075",
+                 selection_bias="1.45, 1.55, 1.65, 1.8, 2.0", non_diagonal=4, l_max_lss=1000,
+                 **{"number count contributions": "density, rsd, lensing, gr"})
 CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR,
            "g8_curved": G8_CURVED, "g18_closed": G18_CLOSED, "g5_hyrec": G5_HYREC,
            "g16_injection": G16_INJECTION, "g22_injection_bos": G22_INJECTION_BOS,
-           "g11a_reio_bins": G11A_REIO_BINS, "g11b_reio_manytanh": G11B_REIO_MANYTANH}
+           "g11a_reio_bins": G11A_REIO_BINS, "g11b_reio_manytanh": G11B_REIO_MANYTANH,
+           "planck_row2_ss005": PLANCK_ROW2_SS005, "ncdm_row3": NCDM_ROW3,
+           "g19_ncl_full": G19_NCL_FULL, "g27_pd": G27_PD, "nc_des_y1": NC_DES_Y1}
 THERMO_ONLY = {"hyrec_full": HYREC_FULL}
-GOLDEN_ONLY = {"g29_open01": G29_OPEN01, "g30_closed01": G30_CLOSED01}
+GOLDEN_ONLY = {"g29_open01": G29_OPEN01, "g30_closed01": G30_CLOSED01, "g7_ncl": G7_NCL}
+# the row of tests/golden/bench_probe.json that holds each probe-checked path
+PROBE_ROW = {"planck_row2": "planck_row2", "row2_exact": "row2_exact",
+             "planck_row2_ss005": "planck_row2", "ncdm_row3": "ncdm_row3"}

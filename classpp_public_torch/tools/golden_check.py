@@ -10,7 +10,10 @@ g8_curved (tests/test_curved.py:176-196), g18_closed
 (tests/test_curved.py:112-157), g29_open01 and g30_closed01
 (tests/test_curved_large.py:43-102), g5_hyrec (tests/test_hyrec.py),
 g16_injection and g22_injection_bos (tests/test_injection.py:40-66,
-:121-147), g11a_reio_bins and g11b_reio_manytanh (tests/test_reio.py:51-90).
+:121-147), g11a_reio_bins and g11b_reio_manytanh (tests/test_reio.py:51-90),
+and the number counts g7_ncl, g19_ncl_full and g27_pd (tests/test_numbercounts.py:
+the autos against the golden, the crosses that pass through small values or
+zero against the sqrt(auto x auto) envelope of the golden).
 chip_smoke.py uses it for its golden paths.
 
 Run as a script it drives configurations through Class(device="cuda") and
@@ -19,6 +22,7 @@ error; it exits 1 if any is out of its contract.
 
 Usage (from the repository root, needs one card and nvcc):
     python3 -m classpp_public_torch.tools.golden_check g29_open01 g30_closed01
+    python3 -m classpp_public_torch.tools.golden_check g7_ncl g19_ncl_full g27_pd
 """
 
 import json
@@ -90,6 +94,67 @@ class Golden:
         return float(err.max()), float(zr[sel][err.argmax()])
 
 
+    def nc_rel(self, key, mine, tol, env=None, lmax=300):
+        """The measure of tests/test_numbercounts.py for the C_l `key` (a
+        raw_cl key; its golden column contains it) at the golden's rows
+        2 <= l <= lmax: |D_l(mine) / D_l(golden) - 1|, or with env = (key1,
+        key2) |D_l(mine) - D_l(golden)| / sqrt(D_l^key1 D_l^key2) of the
+        golden. Returns (max, tol, its l)."""
+        cols = [str(c) for c in self.g["cl__cols"]]
+        T = self.g["cl"]
+        lr = T[:, 0].astype(int)
+        m = (lr >= 2) & (lr <= lmax)
+        ell = lr[m]
+
+        def column(name):
+            idx = [i for i, c in enumerate(cols) if name in c]
+            if len(idx) != 1:
+                raise KeyError(f"{name}: {len(idx)} golden columns match")
+            return T[m, idx[0]]
+
+        mine_dl = ell * (ell + 1) / (2 * np.pi) * np.asarray(mine)[ell]
+        if env is None:
+            err = np.abs(mine_dl / column(key) - 1)
+        else:
+            err = np.abs(mine_dl - column(key)) / np.sqrt(column(env[0]) * column(env[1]))
+        return float(err.max()), tol, int(ell[err.argmax()])
+
+
+def nc_golden_check(name, raw):
+    """The contracts of tests/test_numbercounts.py for g7_ncl, g19_ncl_full
+    and g27_pd: {measure: (error, limit, l)}. raw: the raw_cl dict to l >= 300."""
+    g = Golden(name)
+    rel = {}
+    dd = ("dens[1]-dens[1]", "dens[2]-dens[2]")
+    if name in ("g7_ncl", "g19_ncl_full"):
+        for k in dd:
+            rel[k] = g.nc_rel(k, raw[k], 1e-2)
+        rel["dens[1]-dens[2]"] = g.nc_rel("dens[1]-dens[2]", raw["dens[1]-dens[2]"], 1e-2, dd)
+    if name == "g7_ncl":
+        for k in ("lens[1]-lens[1]", "lens[1]-lens[2]", "lens[2]-lens[2]"):
+            rel[k] = g.nc_rel(k, raw[k], 2.5e-2)
+        for k in ("dens[1]-lens[1]", "dens[1]-lens[2]", "dens[2]-lens[2]"):
+            rel[k] = g.nc_rel(k, raw[k], 2e-2)
+        rel["dens[2]-lens[1]"] = g.nc_rel("dens[2]-lens[1]", raw["dens[2]-lens[1]"], 1e-2,
+                                          ("dens[2]-dens[2]", "lens[1]-lens[1]"))
+    elif name == "g19_ncl_full":
+        for k in ("dens[1]-lens[1]", "dens[1]-lens[2]", "dens[2]-lens[2]"):
+            rel[k] = g.nc_rel(k, raw[k], 1e-2, (f"dens[{k[5]}]-dens[{k[5]}]",
+                                                 f"lens[{k[-2]}]-lens[{k[-2]}]"))
+    elif name == "g27_pd":
+        for b in (1, 2):
+            rel[f"phi-dens[{b}]"] = g.nc_rel(f"phi-dens[{b}]", raw[f"phi-dens[{b}]"], 1e-2,
+                                             ("phiphi", f"dens[{b}]-dens[{b}]"))
+            # the T-dens extension within 1.05 of the Cauchy-Schwarz envelope
+            ell = np.arange(2, 301)
+            td, tt = raw[f"T-dens[{b}]"][ell], raw["tt"][ell]
+            ratio = np.abs(td) / np.sqrt(tt * raw[f"dens[{b}]-dens[{b}]"][ell])
+            rel[f"T-dens[{b}]_envelope"] = (float(ratio.max()), 1.05, int(ell[ratio.argmax()]))
+        if "T-lens[1]" in raw:
+            raise RuntimeError("g27_pd: T-lens present without sCl")
+    return rel
+
+
 # the thermodynamics variants: (golden file, table prefix, x_e table, x_e
 # window and limit, reference tau_reio or None)
 VARIANTS = {
@@ -109,6 +174,8 @@ def golden_check(name, raw, lensed, pk_lin, h, thermo=None):
     def item(measure, tol):
         return (measure[0], tol, measure[1])
 
+    if name in ("g7_ncl", "g19_ncl_full", "g27_pd"):
+        return nc_golden_check(name, raw)
     if name in VARIANTS:
         fname, pre, xe_table, (zmin, zmax), xe_tol, tau_ref = VARIANTS[name]
         g = Golden(fname)
@@ -179,7 +246,9 @@ def main():
         c = cpt.Class(device="cuda")
         c.set(dict({**CONFIGS, **GOLDEN_ONLY}[name]))
         c.compute(["lensing"])
-        raw, lensed = c.raw_cl(2500), c.lensed_cl(2500)
+        out = c.cosmo.out
+        raw = c.raw_cl(2500 if out.has_cls else out.l_lss_max)
+        lensed = c.lensed_cl(2500) if out.lensing else None
         torch.cuda.synchronize()
         rel = golden_check(name, raw, lensed, c.pk_lin, c.cosmo.params.h,
                            c.cosmo.thermodynamics)

@@ -4,7 +4,9 @@ inputs: the JAX background and thermodynamics tables moved across with
 classpp_public_torch.interop, the JAX tau sampling and switch schedule, 8 k
 modes from 1e-4 to 0.2/Mpc at rtol 1e-4 (the _small_setup precision), without
 and with one 0.06 eV massive-neutrino species (16 momenta x 18 multipoles,
-state 46 -> 334; its modes stop at 0.1/Mpc).
+state 46 -> 334; its modes stop at 0.1/Mpc), and with five species of 0.02 to
+0.1 eV (state 1486; modes to 0.05/Mpc), whose frame buffer the kernel sizes
+from the layout.
 
 Tolerance: 10 rtol of each source type's maximum, step counts within 2%. Both
 integrators take the same adaptive steps up to round-off; a step decided
@@ -42,8 +44,10 @@ from test_torch_common import asdict, one_torch_thread  # noqa: F401
 
 RTOL = 1e-4
 PR = dict(background_Nloga=1024, recfast_Nz0=4000, perturb_sampling_stepsize=1.0)
-CASES = {"lcdm": {}, "ncdm": dict(m_ncdm=(0.06,), N_ur=2.0328)}
-K_MAX = {"lcdm": 0.2, "ncdm": 0.1}   # 1/Mpc; the wider state steps slower here
+CASES = {"lcdm": {}, "ncdm": dict(m_ncdm=(0.06,), N_ur=2.0328),
+         "ncdm5": dict(m_ncdm=(0.02, 0.04, 0.06, 0.08, 0.1), N_ur=0.00641)}
+# 1/Mpc; the wider states step slower here
+K_MAX = {"lcdm": 0.2, "ncdm": 0.1, "ncdm5": 0.05}
 
 
 def t64(a):
@@ -209,7 +213,11 @@ def test_kernel_lane_program_on_host(setup, torch_sources, tmp_path):
     P, I, D, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
     lib.perturb_ark_host.argtypes = [P, P, P, P, P, D, D, I, P, P, D, D, I, P, P, P, D, L, I, I,
                                      P, P, P, P]
+    lib.perturb_ark_host_work_doubles.argtypes = [P]
+    lib.perturb_ark_host_work_doubles.restype = L
     idx, tb = setup.tidx, setup.tables
+    layout = (ctypes.c_int * 21)(*tsolve._layout_ints(idx))
+    assert lib.perturb_ark_host_work_doubles(layout) == tsolve.work_doubles(idx)
     nl, ntau = 8, len(setup.taus)
     lane_tab = torch.stack(list(setup.lanes)).contiguous()
     taus = t64(setup.taus)
@@ -218,7 +226,6 @@ def test_kernel_lane_program_on_host(setup, torch_sources, tmp_path):
     S = torch.empty((nl, ntau, SrcIdx.n), dtype=torch.float64)
     nsteps = torch.zeros(nl, dtype=torch.long)
     status = torch.ones(nl, dtype=torch.int32)
-    layout = (ctypes.c_int * 21)(*tsolve._layout_ints(idx))
     rc = lib.perturb_ark_host(
         layout, lane_tab.data_ptr(), taus.data_ptr(), tb.bg.y.data_ptr(), tb.bg.y2.data_ptr(),
         tb.bg.x0, tb.bg.dx, tb.bg.n, tb.th.y.data_ptr(), tb.th.y2.data_ptr(), tb.th.x0, tb.th.dx,
@@ -248,3 +255,15 @@ def test_state_layout_matches_jax():
     assert tsolve._layout_ints(t)[0] == t.size and len(tsolve._layout_ints(t)) == 21
     with pytest.raises(NotImplementedError):
         TIdx(has_fld=True)
+
+
+def test_lane_scratch_limit():
+    """The kernel's lane scratch is sized from the layout: five species fit
+    one block's shared memory; a layout past 227 KB is refused by name before
+    any launch, with N_ncdm, the scratch size and the limit in the message."""
+    assert tsolve.check_lane_scratch(TIdx(n_ncdm=5)) == 8 * tsolve.work_doubles(TIdx(n_ncdm=5))
+    big = TIdx(n_ncdm=12)
+    need = 8 * tsolve.work_doubles(big)
+    assert need > tsolve.MAX_LANE_SCRATCH_BYTES
+    with pytest.raises(ValueError, match=rf"N_ncdm = 12 .*needs {need} bytes.*232448 bytes"):
+        tsolve.check_lane_scratch(big)
