@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card.
 
-Runs ten configurations through `classpp_public_torch.Class(device="cuda")`,
-stage by stage, at full width and depth, and the thermodynamics of an
-eleventh:
+Runs sixteen configurations through `classpp_public_torch.Class(device="cuda")`,
+stage by stage, at full width and depth, the thermodynamics of a seventeenth
+and the tensor stage of an eighteenth:
 
 - `planck_row2`: flat LambdaCDM with massless neutrinos, lensed TT/TE/EE/phiphi
   to l = 2500 plus P(k) to k = 10/Mpc;
@@ -29,13 +29,20 @@ eleventh:
   bins, every contribution, galaxy and magnification bias), `g27_pd` (CMB x
   number counts: phi-dens and T-dens) and `nc_des_y1` (the five DES Y1
   redMaGiC lens bins, every contribution and bin pair, l_max_lss 1000);
+- `g32_texact`: tests/golden/gen/g32_texact.ini, tensor method exact with one
+  0.06 eV ncdm species (its Psi_l(q) hierarchy in the tensor integrator),
+  lensed TT/EE/BB, l_max_scalars 1200, l_max_tensors 500;
+- `texact_ncdm3`: g32_texact with ncdm_row3's three species, the tensor stage
+  alone (a 896-wide tensor state: 65 KB of shared memory a lane, above the
+  48 KB a launch gets by default);
 
 and checks:
 
 1. the hand-written CUDA kernels (csrc/*.cu) build with nvcc for sm_90a;
-2. each path launched each kernel it runs, and a curved path none of the flat
-   scans (and a flat one none of the curved scans), a HyRec path
-   hyrec_history and not recfast_history (and a RECFAST path the reverse):
+2. each path launched each kernel it runs (the growth march on every path),
+   and a curved path none of the flat scans (and a flat one none of the
+   curved scans), a HyRec path hyrec_history and not recfast_history (and a
+   RECFAST path the reverse):
    launch counters, set to 0 just before the path and read just after;
 3. each result against the reference C++ build: the probe
    tests/golden/bench_probe.json for planck_row2 (and planck_row2_ss005),
@@ -46,23 +53,24 @@ and checks:
    tests/test_extended.py:58-92; g8_curved: tests/test_curved.py:176-196;
    g18_closed: tests/test_curved.py:112-157; g5_hyrec: tests/test_hyrec.py;
    g16/g22: tests/test_injection.py; g11a/g11b: tests/test_reio.py, tau_reio
-   included; g19_ncl_full, g27_pd: tests/test_numbercounts.py), and for
-   nc_des_y1 positive autos and every cross inside the Cauchy-Schwarz envelope
-   of its autos;
+   included; g19_ncl_full, g27_pd: tests/test_numbercounts.py; g32_texact:
+   tests/test_tensor_method.py), and for nc_des_y1 positive autos and every
+   cross inside the Cauchy-Schwarz envelope of its autos;
 4. each kernel against its plain PyTorch version on the very tensors each
    path fed it (hyrec_history in both models, recfast_history with and
-   without injection, tb_march through every reionization profile), with
-   both timed on the card (CUDA events: the
+   without injection, tb_march through every reionization profile,
+   growth_march on every path), with both timed on the card (CUDA events: the
    kernels the median of 3 after a warm-up; the plain versions one call, the
    integrators on a stride of the lanes, or on 8 scalar and 4 tensor lanes
-   of a curved path, the lowest and highest k among them), beside the least
-   time the card could take for the same work (`bound_ms`);
+   of a curved path, the lowest and highest k among them, or on texact_ncdm3
+   its two lowest-k, its slowest and its highest-k tensor lanes), beside the
+   least time the card could take for the same work (`bound_ms`);
 5. the three LOS scans that no path above runs past 1024 tau samples
    (transfer_tensor_los, transfer_los_curved, transfer_tensor_los_curved) on
    g3_tensor's and g8_curved's captured inputs refined fourfold in tau
    (> 2048 samples, by a cubic spline of the sources in tau), against their
    plain versions; and the scaled errors of the paths that ran at commit
-   f721a22 beside those printed there (`PRIOR_SCALED_ERR`).
+   5099a0e beside those printed there (`PRIOR_SCALED_ERR`).
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one card)
 
@@ -79,7 +87,6 @@ import time
 
 T_START = time.time()
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PROBE = os.path.join(ROOT, "tests", "golden", "bench_probe.json")
 
 CL_TOL, PK_TOL = 3e-3, 1e-2
 # kernel vs plain version: max |kernel - plain| over each output column,
@@ -96,7 +103,9 @@ CL_TOL, PK_TOL = 3e-3, 1e-2
 # contraction its only difference: 1e-10 of each column's scale.
 # The curved scans run the hyperspherical recurrence through the same kind of
 # band (beta sin_K < l < beta sin_K + 6 (beta sin_K)^(1/3) + 2): the same
-# limit.
+# limit. The growth march is 8190 dependent RK4 sub-steps of a linear
+# right-hand side whose table values both versions compute alike; FMA
+# contraction is its only difference: 1e-12 of D and of f, per node.
 # The selection-window scan runs the same recurrence through the same band
 # (each row's x = k (tau0 - tau)); held per row of its output relative to the
 # row's max |plain|. Its limit is about 100 times its own measurement on the
@@ -104,9 +113,11 @@ CL_TOL, PK_TOL = 3e-3, 1e-2
 # H100 80GB HBM3 at 700 W): a dropped series term or a float32 intermediate
 # shows, the last-bit spread of the band does not.
 NC_SCAN_TOL = 6e-7
+GROWTH_TOL = 1e-12
 KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-11,
               "transfer_tensor_los": 1e-6, "tb_march": 1e-10, "transfer_los_curved": 1e-6,
-              "transfer_tensor_los_curved": 1e-6, "nc_scan": NC_SCAN_TOL}
+              "transfer_tensor_los_curved": 1e-6, "nc_scan": NC_SCAN_TOL,
+              "growth_march": GROWTH_TOL}
 # recfast_history, per row and column relative to the plain loop: libm's and
 # the card's exp/pow differ in the last bit, which the explicit RK4 through
 # the stiff HeI equation amplifies (measured against the JAX package's XLA
@@ -126,6 +137,10 @@ HYREC_TOL = 1e-11
 # the threshold may go the other way), step counts within PERTURB_STEPS_TOL.
 TENSOR_TOL_FACTOR = 10.0
 TENSOR_STRIDE = 40    # lanes of the plain comparison: every 40th and the last
+# the tensor-only phase of three exact ncdm species compares its two lowest-k
+# lanes, its slowest lane and its highest-k lane (the plain integrator steps its
+# lanes in lockstep on an 896-wide state, so the slowest lane sets its time)
+TENSOR_FEW_LANES = {"texact_ncdm3": 2}
 # a curved path compares this many lanes, spread evenly in index from the
 # lowest k (nu = 3 when closed) to the highest
 CURVED_LANES = {"perturb_ark": 8, "tensor_rkck": 4}
@@ -182,20 +197,12 @@ def phase(name, t0):
 
 
 def probe_check(row, cl, pk):
-    """The bench.py rule (bench.py:91-118) against the probe row `row`."""
-    with open(PROBE) as f:
-        ref = json.load(f)[row]
-    worst = {}
-    for spec in ("tt", "ee", "te"):
-        errs = []
-        for l_str, want in ref[spec].items():
-            got = float(cl[spec][int(l_str)])
-            den = abs(want) if spec != "te" else max(abs(want), 1e-3 * abs(ref["tt"][l_str]))
-            errs.append(abs(got - want) / den)
-        worst[f"rel_{spec}"] = max(errs)
-    worst["rel_pk"] = abs(pk - ref["pk_0.1"]) / abs(ref["pk_0.1"])
-    ok = max(worst[f"rel_{s}"] for s in ("tt", "ee", "te")) <= CL_TOL \
-        and worst["rel_pk"] <= PK_TOL
+    """The bench.py rule (bench.py:91-118) against the probe row `row`
+    (golden_check.probe_rel)."""
+    from classpp_public_torch.tools.golden_check import probe_rel
+
+    worst = probe_rel(row, cl, pk)
+    ok = all(v <= (PK_TOL if k == "rel_pk" else CL_TOL) for k, v in worst.items())
     return ok, worst
 
 
@@ -282,15 +289,19 @@ def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(
     `recombination` must launch, those it must not launch): a curved path
     runs the hyperspherical scans and not the flat ones, a flat path the
     reverse; a HyRec path hyrec_history and not recfast_history, a RECFAST
-    path the reverse. A path that stops after the thermodynamics (`last`)
-    launches its recombination kernel and tb_march, and none else of
-    `every`."""
+    path the reverse. Every path launches growth_march. A path that stops
+    after the thermodynamics (`last`) launches its recombination kernel,
+    tb_march and growth_march, and none else of `every`; one that runs the
+    tensor perturbations alone, those and tensor_rkck."""
     hyrec = recombination in ("hyrec", "hyrec_full")
     reco = {"hyrec_history"} if hyrec else {"recfast_history"}
     other_reco = {"recfast_history"} if hyrec else {"hyrec_history"}
+    early = reco | {"tb_march", "growth_march"}
     if last == "thermodynamics":
-        return reco | {"tb_march"}, set(every) - reco - {"tb_march"}
-    names = reco | {"tb_march", "perturb_ark"}
+        return early, set(every) - early
+    if last == "tensor_perturbations":
+        return early | {"tensor_rkck"}, set(every) - early - {"tensor_rkck"}
+    names = early | {"perturb_ark"}
     scans = set()
     if out.has_cls:
         scans = {"transfer_los"} | ({"transfer_tensor_los"} if "t" in out.modes else set())
@@ -313,8 +324,10 @@ def run_config(name, params, kernels, last="lensing"):
     stage up to `last` with every launch counter set to 0 just before and
     read just after; checks the kernels launched, shapes, finiteness and the
     reference (probe or golden), or for a path that stops after the
-    thermodynamics that its x_e and T_b tables are finite. Returns (launch
-    counts, captured kernel arguments, stage seconds)."""
+    thermodynamics that its x_e and T_b tables are finite (for one that runs
+    the tensor perturbations alone, last = "tensor_perturbations", that its
+    tensor sources are). Returns (launch counts, captured kernel arguments,
+    stage seconds)."""
     import numpy as np
     import torch
 
@@ -329,22 +342,34 @@ def run_config(name, params, kernels, last="lensing"):
         setattr(k.module, k.counter, 0)
     t_all = time.time()
     stage_s = {}
-    for st in cosmo.stages(last):
+    stage_names = ["background", "thermodynamics", "tensor_perturbations"] \
+        if last == "tensor_perturbations" else cosmo.stages(last)
+    for st in stage_names:
         t0 = time.time()
         getattr(cosmo, st)
         torch.cuda.synchronize()
         stage_s[st] = time.time() - t0
         phase(f"{name} stage {st}", t0)
-    if last == "thermodynamics":
+    if last in ("thermodynamics", "tensor_perturbations"):
         phase(f"{name} total", t_all)
         counts = read_counts(name, kernels, originals)
         check_launches(name, counts, *expected_kernels(
             cosmo.out, cosmo.sgnK, cosmo.params.recombination, last, counts))
-        th = cosmo.thermodynamics
-        if not (bool(torch.isfinite(th.xe_of_z).all()) and bool(torch.isfinite(th.Tb_of_z).all())):
-            raise RuntimeError(f"{name}: non-finite thermodynamics tables")
-        print(f"[thermo] {name} tau_reio {th.tau_reio:.6f} z_reio {th.z_reio:.4f} z_star "
-              f"{th.z_star:.4f} z_d {th.z_d:.4f} rs_d {th.rs_d:.4f}", flush=True)
+        if last == "thermodynamics":
+            th = cosmo.thermodynamics
+            if not (bool(torch.isfinite(th.xe_of_z).all())
+                    and bool(torch.isfinite(th.Tb_of_z).all())):
+                raise RuntimeError(f"{name}: non-finite thermodynamics tables")
+            print(f"[thermo] {name} tau_reio {th.tau_reio:.6f} z_reio {th.z_reio:.4f} z_star "
+                  f"{th.z_star:.4f} z_d {th.z_d:.4f} rs_d {th.rs_d:.4f}", flush=True)
+        else:
+            tp = cosmo.tensor_perturbations
+            if not bool(torch.isfinite(tp.sources).all()):
+                raise RuntimeError(f"{name}: non-finite tensor sources")
+            print(f"[shapes] {name} tensor k {tuple(tp.k.shape)} tau {tuple(tp.tau.shape)} "
+                  f"sources {tuple(tp.sources.shape)} steps max {int(tp.stats_steps.max())} mean "
+                  f"{float(tp.stats_steps.float().mean()):.1f} m_ncdm {cosmo.params.m_ncdm}",
+                  flush=True)
         print(f"[stages] {name} " + " ".join(f"{k}={v:.3f}s" for k, v in stage_s.items()),
               flush=True)
         return counts, captured, stage_s
@@ -397,7 +422,7 @@ def run_config(name, params, kernels, last="lensing"):
     elif name not in PROBE_ROW:
         from classpp_public_torch.tools.golden_check import golden_check
 
-        rel = golden_check(name, raw, cl, c.pk_lin, cosmo.params.h, cosmo.thermodynamics)
+        rel = golden_check(name, raw, cl, c.pk_lin, cosmo.params.h, cosmo.thermodynamics, c)
         print(f"[golden] {name} " + json.dumps({k: {"rel": v, "tol": t, "at": at}
                                                 for k, (v, t, at) in rel.items()}), flush=True)
         bad = {k: v for k, (v, t, _) in rel.items() if not v <= t}
@@ -697,14 +722,20 @@ def check_hyrec(hyrec, args, tag):
 def check_tensor_rkck(tensors, args, tag, curved=False):
     """The tensor integrator kernel against its plain version on every
     TENSOR_STRIDE-th lane and the last, or on a curved path on CURVED_LANES
-    lanes from the lowest k to the highest, per lane and source column."""
+    lanes from the lowest k to the highest, or on the paths of
+    TENSOR_FEW_LANES on that many lowest-k lanes, the slowest lane and the
+    highest-k lane, per lane and source column."""
     import torch
 
     lanes, taus, tables, rtol = args
-    nl, n = lanes.k.shape[0], tables.idx.size
+    idx = tables.idx
+    nl, n = lanes.k.shape[0], idx.size
     ms, (S, nsteps) = timed(lambda: tensors.tensor_rkck(lanes, taus, tables, rtol))
-    sel = torch.as_tensor(compared_lanes(nl, TENSOR_STRIDE, curved, "tensor_rkck"),
-                          device=taus.device)
+    if tag in TENSOR_FEW_LANES:
+        picked = sorted(set(range(TENSOR_FEW_LANES[tag])) | {int(nsteps.argmax()), nl - 1})
+    else:
+        picked = compared_lanes(nl, TENSOR_STRIDE, curved, "tensor_rkck")
+    sel = torch.as_tensor(picked, device=taus.device)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     Sp, np_ = tensors.tensor_rkck_plain(lanes.take(sel), taus, tables, rtol)
@@ -720,8 +751,13 @@ def check_tensor_rkck(tensors, args, tag, curved=False):
     ratio = torch.where(lim > 0, err / lim, (err > 0).to(err.dtype))
     dn = (nsteps[sel] - np_).abs()
     dn_rel = float((dn / np_).max())
-    if curved:
+    if curved or idx.n_exact:
         print_lane_steps("tensor_rkck", tag, lanes.k[sel], nsteps[sel], np_)
+    slow = int(nsteps.argmax())
+    scratch = tensors.check_lane_scratch(idx)
+    print(f"[tensor_rkck] {tag}: method {idx.method}, {idx.n_exact} exact ncdm species, lane "
+          f"scratch {scratch} bytes; slowest lane k = "
+          f"{float(lanes.k[slow]):.5g}/Mpc, {int(nsteps[slow])} steps", flush=True)
     print(f"[tensor_rkck] {tag}: {len(sel)} of {nl} lanes compared, state {n}; worst "
           f"{float(ratio.max()):.3e} of the limit {TENSOR_TOL_FACTOR} rtol scale (columns S_T2, "
           f"S_P: {[round(float(v), 6) for v in ratio.amax(dim=0)]}); max |nsteps_kernel - "
@@ -735,15 +771,45 @@ def check_tensor_rkck(tensors, args, tag, curved=False):
     if not dn_rel <= PERTURB_STEPS_TOL:
         raise RuntimeError(f"tensor_rkck ({tag}): step counts {dn_rel:.3e} apart")
     # least work per attempted step: six right-hand sides (~12 operations per
-    # component and ~60 for the scalars and table reads), the stage
-    # combinations (~21 per component) and the solution and error (~14)
-    flops = float(nsteps.sum()) * (6 * (12 * n + 60) + 35 * n)
+    # component and ~60 for the scalars and table reads; per exact ncdm
+    # (species, q) ~20 for its eps = sqrt(q^2 + (a m/T0)^2) and qk/eps, which
+    # the kernel recomputes per entry but the function needs once, and ~25 for
+    # the stress sum), the stage combinations (~21 per component) and the
+    # solution and error (~14)
+    n_sq = idx.n_exact * idx.q_size_ncdm
+    flops = float(nsteps.sum()) * (6 * (12 * n + 60 + 45 * n_sq) + 35 * n)
     bms, bby = bound(nbytes(S, taus, tables.bg.y, tables.bg.y2, tables.th.y, tables.th.y2)
                      + 4 * 8 * nl, flops)
     return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, plain_lanes=len(sel),
-                kernel_lanes=nl, nsteps_max=int(nsteps.max()),
+                kernel_lanes=nl, state=n, lane_scratch_bytes=scratch,
+                nsteps_max=int(nsteps.max()), nsteps_max_k=float(lanes.k[slow]),
                 nsteps_mean=float(nsteps.float().mean()), nsteps_max_diff=int(dn.max()),
                 bound_ms=bms, bound_by=bby, scaled_err=float(ratio.max()))
+
+
+def check_growth(background, args, tag):
+    """growth_march against its plain loop: D and f per node, relative."""
+    import torch
+
+    spl, ts, aH, y0 = args
+    ms, (D, f) = timed(lambda: background.growth_march(spl, ts, aH, y0))
+    plain_ms, (Dp, fp) = host_timed(lambda: background.growth_march_plain(spl, ts, aH, y0))
+    kout, pout = torch.stack([D, f]).cpu(), torch.stack([Dp, fp])
+    if kout.shape != pout.shape or not bool(torch.isfinite(kout).all()):
+        raise RuntimeError(f"growth_march ({tag}): shape {tuple(kout.shape)} or non-finite")
+    rel = ((kout - pout).abs() / pout.abs().clamp_min(1e-300)).amax(dim=1)
+    n = int(ts.shape[0])
+    nsub = (n - 1) * background.GROWTH_SUBSTEPS
+    # the spline at 3 times a sub-step (~25 operations a column with its two
+    # pow) and the coefficients (~10), then ~40 a sub-step for its four
+    # right-hand sides and the update; each input read and D, f written once
+    bms, bby = bound(nbytes(spl.y, spl.y2, ts, aH) + 2 * 8 * n, nsub * (3 * 85.0 + 40.0))
+    print(f"[growth_march] {tag}: {n} nodes, {nsub} sub-steps; worst relative difference D "
+          f"{float(rel[0]):.3e}, f {float(rel[1]):.3e} (limit {GROWTH_TOL}); D(a_ini) "
+          f"{float(D[0]):.6e}, f today {float(f[-1]):.6f}", flush=True)
+    return dict(max_abs_err=float((kout - pout).abs().max()), max_rel_err=float(rel.max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, nodes=n,
+                scaled_err=float(rel.max()))
 
 
 def scan_work(q, taus, tau0, l_emit, curved):
@@ -853,6 +919,8 @@ def check_kernels(tag, captured, mods, curved):
         out["tb_march"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                                **columns("tb_march", kout, pout, 0))
 
+    if "growth_march" in captured:
+        out["growth_march"] = check_growth(mods["growth_march"], captured["growth_march"][0], tag)
     if "tensor_rkck" in captured:
         out["tensor_rkck"] = check_tensor_rkck(mods["tensor_rkck"],
                                                captured["tensor_rkck"][0], tag, curved)
@@ -944,10 +1012,10 @@ def check_refined_tau(captured, transfer):
 
 
 # The scaled errors (kernel vs plain) that chip_smoke.py printed at commit
-# f721a22, before the LOS scans ran the tau axis in chunks and perturb_ark read
-# its frame buffer in place, for the paths it drove (NVIDIA H100 80GB HBM3,
-# 700 W): those paths run one tau chunk (ntau <= 1024) and at most one ncdm
-# species, the same arithmetic, so each should print the same error again.
+# 5099a0e for the paths it drove (NVIDIA H100 80GB HBM3, 700 W): the exact
+# ncdm block and the growth march add code that those paths do not run
+# (tensor_rkck with no exact species runs the arithmetic it ran; D and f feed
+# no other stage), so each should print the same error again.
 PRIOR_SCALED_ERR = {
     "planck_row2": {"perturb_ark": 0.5618799667387414, "halofit_sigma": 1.8478273803406114e-16,
         "transfer_los": 4.4437836747931904e-08, "lensing_wigner": 1.0221964890521095e-12,
@@ -982,20 +1050,34 @@ PRIOR_SCALED_ERR = {
     "g11b_reio_manytanh": {"perturb_ark": 1.1530214980152129e-09,
         "transfer_los": 5.0203211734954065e-08, "lensing_wigner": 1.0918470304619696e-12,
         "recfast_history": 0.02217806901964524, "tb_march": 7.238316065464541e-16},
+    "planck_row2_ss005": {"perturb_ark": 0.5975413179200423,
+        "halofit_sigma": 2.3239407699957674e-16, "transfer_los": 4.716831185786212e-08,
+        "lensing_wigner": 1.0267924229106014e-12, "recfast_history": 0.05939776493160124,
+        "tb_march": 7.9324953437532275e-16},
+    "ncdm_row3": {"perturb_ark": 1.096137864220525e-09, "halofit_sigma": 1.932804585615471e-16,
+        "transfer_los": 4.824569866179129e-08, "lensing_wigner": 1.012234581257675e-12,
+        "recfast_history": 0.02232957887283823, "tb_march": 7.916140485037109e-16},
+    "g19_ncl_full": {"perturb_ark": 1.1530214980152129e-09, "nc_scan": 3.219394003757003e-09,
+        "recfast_history": 0.02217806901964524, "tb_march": 7.954893429391944e-16},
+    "g27_pd": {"perturb_ark": 1.3050447557740227e-09, "transfer_los": 4.018858338393332e-08,
+        "nc_scan": 3.219394003757003e-09, "lensing_wigner": 1.015216790636024e-12,
+        "recfast_history": 0.02217806901964524, "tb_march": 7.954893429391944e-16},
+    "nc_des_y1": {"perturb_ark": 5.036052639094108e-05, "nc_scan": 5.8245299606316415e-09,
+        "recfast_history": 0.02217806901964524, "tb_march": 7.954893429391944e-16},
     "hyrec_full": {"hyrec_history": 0.0008261464041298425, "tb_march": 6.628786035995634e-16},
 }
 SCALED = {}   # this run's scaled errors, by path and kernel (check_kernels)
 
 
 def compare_prior():
-    """Each (path, kernel) scaled error beside the one printed at f721a22."""
+    """Each (path, kernel) scaled error beside the one printed at 5099a0e."""
     same, diff = [], []
     for tag, kerr in PRIOR_SCALED_ERR.items():
         for kname, old in kerr.items():
             new = SCALED.get(tag, {}).get(kname)
             (same if new == old else diff).append(f"{tag}/{kname}: now {new!r}, then {old!r}")
     print(f"[unchanged] {len(same)} of {len(same) + len(diff)} scaled errors equal to those "
-          f"printed at f721a22"
+          f"printed at 5099a0e"
           + ("; differing: " + "; ".join(diff) if diff else ""), flush=True)
 
 
@@ -1007,11 +1089,11 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from classpp_public_torch.models import (hyrec, lensing, nonlinear, numbercounts,
-                                             thermodynamics, transfer)
+    from classpp_public_torch.models import (background, hyrec, lensing, nonlinear,
+                                             numbercounts, thermodynamics, transfer)
     from classpp_public_torch.models.perturbations import solve, tensors
     from classpp_public_torch.ops import cuda
-    from classpp_public_torch.tools.configs import CONFIGS, THERMO_ONLY
+    from classpp_public_torch.tools.configs import CONFIGS, TENSOR_ONLY, THERMO_ONLY
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1052,6 +1134,8 @@ def main():
                tpu + "hyrec.py:781"),
         Kernel("nc_scan", numbercounts, "launches", "nc_scan", src + "nc_scan.cu",
                tpu + "numbercounts.py:629", size=lambda a: a[0].numel()),
+        Kernel("growth_march", background, "growth_launches", "growth_march",
+               src + "growth_march.cu", "classpp_public_tpu/ops/ode.py:305"),
     ]
     mods = {k.name: k.module for k in kernels}
 
@@ -1061,7 +1145,9 @@ def main():
         counts[tag], captured[tag], _ = run_config(tag, params, kernels)
     for tag, params in THERMO_ONLY.items():
         counts[tag], captured[tag], _ = run_config(tag, params, kernels, "thermodynamics")
-    paths = {**CONFIGS, **THERMO_ONLY}
+    for tag, params in TENSOR_ONLY.items():
+        counts[tag], captured[tag], _ = run_config(tag, params, kernels, "tensor_perturbations")
+    paths = {**CONFIGS, **THERMO_ONLY, **TENSOR_ONLY}
 
     # --- each kernel against its plain version, on the tensors of each path
     results = {}

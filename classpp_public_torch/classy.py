@@ -514,6 +514,21 @@ class Class:
             return self._pk_nl(k, z, self.cosmo.nonlinear.pk_cb_nl)
         return self.pk_cb_lin(k, z)
 
+    def _background_at(self, name, z):
+        """Column `name` of the background table at redshift(s) z, linear in
+        ln a (the JAX classy's np.interp on the ln a grid)."""
+        bg, bidx = self.cosmo.background
+        loga = -np.log1p(np.asarray(z, dtype=float))
+        return np.interp(loga, bg.loga.cpu().numpy(), bg.table[:, bidx[name]].cpu().numpy())
+
+    def scale_independent_growth_factor(self, z):
+        """D(z), normalised to 1 today (classy.py:1141)."""
+        return self._background_at("D", z)
+
+    def scale_independent_growth_factor_f(self, z):
+        """f(z) = dln D/dln a (classy.py:1146)."""
+        return self._background_at("f", z)
+
     def Omega0_k(self):
         """The curvature density today (classy.pyx Omega0_k :1771)."""
         return float(self.cosmo.params.Omega_k)

@@ -16,8 +16,18 @@
 // Counterparts, line by line: classpp_public_torch/models/perturbations/
 // tensors.py (rhs_full, tensor_ic, remap_tca_off, remap_rsa_on,
 // tensor_rkck_plain) and ops/ode.py (rkck_step). Open, flat or closed
-// universe; photons, polarization and (unless the method is `photons`) one
-// massless-neutrino hierarchy driven by rho_ur + 3 sum p_ncdm.
+// universe; photons, polarization, (unless the method is `photons`) one
+// massless-neutrino hierarchy driven by rho_ur + 3 sum p_ncdm (or rho_ur
+// alone under `exact`) and (method `exact`) the Psi_l(q) hierarchy of every
+// massive species: nq x nl entries a species, strided over the team like
+// every other component, and its anisotropic stress in gw'', a sum over q
+// per species reduced over the team in a fixed order (team_sum). The
+// momentum data (q, weights, dln f0/dln q, m/T0, the normalisation) are read
+// in place from one small device array. The lane program is a template on
+// kExact: the launchers take integrate_lane<true> when nsx > 0, and in
+// integrate_lane<false> every line of the block is a constant-false branch
+// that folds away, so a path without exact species runs the arithmetic it
+// ran before the block existed.
 //
 // Curvature K (sign sgnK) enters through s_l = sqrt(max(1 - K (l^2 - 1)/k^2,
 // 0)), computed once per lane into its table `sl` in shared memory (the clamp
@@ -74,10 +84,13 @@ struct Layout {
   int G, nG;      // photon polarization
   int U, nU;      // massless neutrinos (nU = 0: method photons)
   int ns;         // ncdm species whose 3 p_ncdm drive the neutrino hierarchy
+  int nc;         // first Psi_l(q) entry (method exact): species, then q, then l
+  int nsx, nq, nl;  // exact ncdm species, momenta, multipoles l = 0..nl-1
 };
-constexpr int kLayoutInts = 8;
+constexpr int kLayoutInts = 12;
 
-// The two table splines over ln(tau).
+// The two table splines over ln(tau), and the exact species' momentum data:
+// q (nq) shared, w and dlnf0 (nsx, nq), x_fac = m/T0 and pref (nsx).
 struct Tables {
   const double* bg_y;
   const double* bg_y2;
@@ -87,13 +100,26 @@ struct Tables {
   const double* th_y2;
   double th_x0, th_dx;
   int th_n;
+  const double *q, *w, *dlnf0, *x_fac, *pref;
 };
+
+// Point T's momentum pointers into `ncdm` (q, w, dlnf0, x_fac, pref packed in
+// this order, tensors.py ncdm_pack); null without exact species.
+TK_HOST_FN void set_ncdm(Tables& T, const Layout& L, const double* ncdm) {
+  const long nsq = (long)L.nsx * L.nq;
+  T.q = ncdm;
+  T.w = ncdm ? ncdm + L.nq : nullptr;
+  T.dlnf0 = ncdm ? T.w + nsq : nullptr;
+  T.x_fac = ncdm ? T.dlnf0 + nsq : nullptr;
+  T.pref = ncdm ? T.x_fac + L.nsx : nullptr;
+}
 
 typedef double* Vec;
 
 // The threads that share a lane (team.cuh): one warp per lane on the card.
 using team::Team;
 using team::team_max;
+using team::team_sum;
 using team::team_sync;
 
 struct Frame {
@@ -113,6 +139,7 @@ TK_HOST_FN int sl_count(const Layout& L) {
   int c = L.nF;
   if (L.nG > c) c = L.nG;
   if (L.nU > c) c = L.nU;
+  if (L.nsx && L.nl > c) c = L.nl;
   return c + 1;
 }
 
@@ -163,9 +190,35 @@ TK_FN double P2_of(const Layout& L, const Vec y) {
                             - 3.0 / 5.0 * G[0] + 6.0 / 7.0 * G[2] - 3.0 / 70.0 * G[4]);
 }
 
-// dy/dtau into dy (tensors.py rhs_full); ends with team_sync().
-TK_FN void rhs(const Layout& L, const Team& tm, const Frame& fr, const Lane& ln, bool tca,
-               bool rsa, const Vec y, Vec dy) {
+// The anisotropic stress of the exact ncdm species in gw'' (tensors.py
+// rhs_full): -sqrt(6) 4 a^2 sum_s pref_s/a^4 sum_q w q^4/eps (Psi0/15 +
+// 2/21 Psi2 + Psi4/35), each species' q sum reduced over the team; the same
+// in every thread.
+TK_FN double gw_source_ncdm(const Layout& L, const Tables& T, const Team& tm, double a,
+                            const Vec y) {
+  const int nq = L.nq, nl = L.nl;
+  const double a2 = a * a;
+  double src = 0.0;
+  for (int s = 0; s < L.nsx; ++s) {
+    const double ax = a * T.x_fac[s];
+    double part = 0.0;
+    for (int iq = tm.tid; iq < nq; iq += tm.nt) {
+      const double q = T.q[iq];
+      const double eps = sqrt(q * q + ax * ax);
+      const double qw = T.w[s * nq + iq] * (q * q);
+      const double* P = y + L.nc + (s * nq + iq) * nl;
+      part = part + qw * (q * q) / eps * (P[0] / 15.0 + 2.0 / 21.0 * P[2] + P[4] / 35.0);
+    }
+    src = src + T.pref[s] / (a2 * a2) * team_sum(tm, part);
+  }
+  return -kSqrt6 * 4.0 * a2 * src;
+}
+
+// dy/dtau into dy (tensors.py rhs_full); ends with team_sync(). kExact: the
+// state carries the Psi_l(q) block (L.nsx > 0).
+template <bool kExact>
+TK_FN void rhs(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
+               const Lane& ln, bool tca, bool rsa, const Vec y, Vec dy) {
   const double k = ln.k, k2 = k * k, K = ln.K;
   const double a = fr.a, aH = a * fr.H, a2 = a * a, kap = fr.kap;
   const bool hier_on = !tca && !rsa;
@@ -188,6 +241,8 @@ TK_FN void rhs(const Layout& L, const Team& tm, const Frame& fr, const Lane& ln,
   const double gw_src_ur =
       L.nU ? -kSqrt6 * 4.0 * a2 * fr.rho_rel * (U[0] / 15.0 + 4.0 / 21.0 * U[2] + U[4] / 35.0)
            : 0.0;
+  double gw_src_nc = 0.0;
+  if (kExact) gw_src_nc = gw_source_ncdm(L, T, tm, a, y);
   const double P2 = P2_of(L, y);
   for (int c = tm.tid; c < L.n; c += tm.nt) {
     double d;
@@ -195,6 +250,7 @@ TK_FN void rhs(const Layout& L, const Team& tm, const Frame& fr, const Lane& ln,
       d = gwdot;
     } else if (c == 1) {
       d = -2.0 * aH * gwdot - (k2 + 2.0 * K) * y[0] + gw_src_g + gw_src_ur;
+      if (kExact) d = d + gw_src_nc;
     } else if (c < L.G) {                     // photon temperature
       const int l = c - L.F;
       if (!hier_on) d = 0.0;
@@ -208,6 +264,16 @@ TK_FN void rhs(const Layout& L, const Team& tm, const Frame& fr, const Lane& ln,
       if (!hier_on) d = 0.0;
       else if (l == 0) d = -k * G[1] - kap * (G[0] - kSqrt6 * P2);
       else d = hier(G, l, L.nG, k, ck, sl, kap);
+    } else if (kExact && c >= L.nc) {         // exact ncdm Psi_l(q)
+      const int nl = L.nl, e = c - L.nc, per = L.nq * nl;
+      const int s = e / per, r = e - s * per, iq = r / nl, l = r - iq * nl;
+      const double q = T.q[iq], ax = a * T.x_fac[s];
+      const double qke = k * q / sqrt(q * q + ax * ax);
+      const double* P = y + L.nc + (s * L.nq + iq) * nl;
+      if (l == 0) d = -qke * P[1] - 0.25 * kSqrt6 * gwdot * T.dlnf0[s * L.nq + iq];
+      else if (l == nl - 1) d = qke * P[l - 1] - (double)nl * k * ck * P[l];
+      else d = qke / (2.0 * l + 1.0) * ((double)l * sl[l] * P[l - 1]
+                                        - (l + 1.0) * sl[l + 1] * P[l + 1]);
     } else {                                  // massless neutrinos
       const int l = c - L.U;
       if (l == 0) d = -4.0 / 3.0 * U[1] + kSqrt6 * gwdot;
@@ -238,6 +304,7 @@ TK_HOST_FN long work_doubles(const Layout& L) { return 9L * L.n + kFrameCols + s
 // tensor_rkck_plain / solve_one_k), writing its (S_T2, S_P) rows to S
 // (ntau, 2). ln.sl is set to the lane's s_l table in `work`. Every thread
 // returns the same status word and step count.
+template <bool kExact>
 TK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane ln,
                          double tau_ini, const double* taus, int ntau, double rtol,
                          long max_interval_steps, const Vec work, double* S,
@@ -282,7 +349,7 @@ TK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
             team_sync(tm);
           }
           frame_at(T, tm, t + kC[i] * h_eff, fbuf, fr);
-          rhs(L, tm, fr, ln, tca, rsa, Ys, K + (long)i * n);
+          rhs<kExact>(L, T, tm, fr, ln, tca, rsa, Ys, K + (long)i * n);
         }
         // --- solution, embedded error and the error ratio
         double ratio = 0.0, bad = 0.0;

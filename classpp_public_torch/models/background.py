@@ -5,13 +5,17 @@ Counterpart of classpp_public_tpu/models/background.py
 (`_compute_background_impl` :364, the ncdm momentum integrals :113-262,
 `tau_of_z` :944). Every density has a closed form on a fixed uniform ln(a)
 grid (ncdm through fixed-node momentum sums), the time-like integrals (tau, t,
-r_s) are exact cumulative spline integrals, and the growth factor is an RK4
-march. Runtime queries go through a uniform-in-ln(tau) respline.
+r_s) are exact cumulative spline integrals, and the growth factor D(a), f(a)
+is an RK4 march. Runtime queries go through a uniform-in-ln(tau) respline.
 
-Placement: this stage runs on the host, always. It is a chain of small
-float64 vector ops plus a 4096-interval sequential RK4 march, which on a card
-would be kernel-launch latency and nothing else. The finished tables move to
-the requested device once, at the end.
+Placement: the tables are built on the host, a chain of small float64
+vector ops. The growth march (`growth_march`, ops/ode.py `rk4_fixed` in the
+JAX package, a lax.scan program) runs where the stage is asked to run: on a
+CUDA device it is one launch of the hand-written kernel
+csrc/growth_march.cu (the spline of (rho_m, a, H) moved to the card, D and f
+read back into the table), on the CPU its plain version, the host loop
+`growth_march_plain`. The finished tables move to the requested device once,
+at the end.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from .. import constants as const
 from ..config.params import CosmoParams, check_lcdm
 from ..config.precision import PrecisionParams
+from ..ops import cuda
 from ..ops.ode import rk4_fixed
 from ..ops.quadrature import trapz_weights_np
 from ..ops.splines import (UniformSpline, interp, spline_d2, spline_eval,
@@ -177,18 +182,78 @@ def _scalar_spline(spl: UniformSpline):
     return ev
 
 
+GROWTH_SUBSTEPS = 2   # RK4 sub-steps per ln a interval (background.py:818-835)
+
+growth_launches = 0  # growth_march kernel launches (growth_march on CUDA tensors)
+
+
+def growth_march_plain(spl: UniformSpline, ts: torch.Tensor, aH: torch.Tensor, y0: tuple,
+                       substeps: int = GROWTH_SUBSTEPS) -> tuple:
+    """Plain version of `growth_march`: the host RK4 loop (ops/ode.py
+    rk4_fixed) on the scalar spline evaluator, y = (D, D' = dD/dtau) in ln a.
+    Returns (D normalised to 1 today, f = D'/(D a H)) as CPU tensors, whatever
+    the device of the inputs."""
+    ev = _scalar_spline(spl.to("cpu"))
+
+    def growth_rhs(lga, y, _):
+        rm, aa, hh = ev(lga)
+        D, Dp = y
+        inv = 1.0 / (aa * hh)
+        return np.array([Dp * inv, (-aa * hh * Dp + 1.5 * aa * aa * rm * D) * inv])
+
+    Dys = torch.from_numpy(rk4_fixed(growth_rhs, np.array(y0, dtype=np.float64),
+                                     ts.cpu().numpy(), None, substeps=substeps))
+    aH = aH.cpu()
+    return Dys[:, 0] / Dys[-1, 0], Dys[:, 1] / (Dys[:, 0] * aH)
+
+
+def growth_march(spl: UniformSpline, ts: torch.Tensor, aH: torch.Tensor, y0: tuple,
+                 substeps: int = GROWTH_SUBSTEPS) -> tuple:
+    """The growth factor D (normalised to 1 at ts[-1]) and rate f = D'/(D a H)
+    at the nodes ts (ln a) from y0 = (D, dD/dtau) at ts[0], by RK4 with
+    `substeps` sub-steps per interval on the spline `spl` of (rho_m, a, H)
+    over ln a. CUDA tensors: one launch of the growth_march kernel (D and f
+    on the card); CPU tensors: the plain version."""
+    global growth_launches
+    dev = ts.device
+    if dev.type == "cpu":
+        return growth_march_plain(spl, ts, aH, y0, substeps)
+    if dev.type != "cuda":
+        raise ValueError(f"growth_march: unsupported device {dev}")
+    n = ts.shape[0]
+    if spl.y.shape[1] != 3 or aH.shape != ts.shape:
+        raise ValueError(f"growth_march: bad shapes spline {tuple(spl.y.shape)} ts "
+                         f"{tuple(ts.shape)} aH {tuple(aH.shape)}")
+    for t in (spl.y, spl.y2, ts, aH):
+        if t.dtype != torch.float64 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"growth_march: every input must be contiguous float64 on {dev}")
+    lib = cuda.library()
+    # gm::coef_doubles: three coefficients at three times of every sub-step
+    coef = torch.empty((n - 1) * substeps * 9, dtype=torch.float64, device=dev)
+    Y = torch.empty((n, 2), dtype=torch.float64, device=dev)
+    out = torch.empty((2, n), dtype=torch.float64, device=dev)
+    err = lib.growth_march_launch(spl.y.data_ptr(), spl.y2.data_ptr(), float(spl.x0),
+                                  float(spl.dx), int(spl.n), ts.data_ptr(), aH.data_ptr(), n,
+                                  substeps, float(y0[0]), float(y0[1]), coef.data_ptr(),
+                                  Y.data_ptr(), out.data_ptr(), cuda.stream_ptr(dev))
+    cuda.check(err, "growth_march")
+    growth_launches += 1
+    return out[0], out[1]
+
+
 def compute_background(params: CosmoParams, pr: PrecisionParams,
                        device="cuda") -> tuple:
-    """Build all background tables on the host; return them on `device`."""
+    """Build all background tables on the host, the growth march on `device`;
+    return them on `device`."""
     from ..pipeline import resolve_device
 
     device = resolve_device(device)
     check_lcdm(params)
-    bg, idx = _compute_background_impl(params, pr)
+    bg, idx = _compute_background_impl(params, pr, device)
     return bg.to(device), idx
 
 
-def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
+def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="cpu"):
     N = pr.background_Nloga
     f64 = torch.float64
     H0 = params.H0
@@ -267,23 +332,14 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams):
     ang_distance = r * a
     lum_distance = r / a
 
-    # --- growth factor (background_module.cpp:1975-1983): host RK4 march
+    # --- growth factor (background_module.cpp:1975-1983): the RK4 march on
+    # `device` (growth_march), D and f read back into the host table
     rho_m = rho_b + rho_cdm
     dloga = float(loga[1] - loga[0])
-    rho_m_spl = _scalar_spline(UniformSpline.build(
-        float(loga[0]), dloga, torch.stack([rho_m, a, H], dim=1)))
-
-    def growth_rhs(lga, y, _):
-        rm, aa, hh = rho_m_spl(lga)
-        D, Dp = y
-        inv = 1.0 / (aa * hh)
-        return np.array([Dp * inv, (-aa * hh * Dp + 1.5 * aa * aa * rm * D) * inv])
-
+    growth_spl = UniformSpline.build(float(loga[0]), dloga, torch.stack([rho_m, a, H], dim=1))
     a0, aH0 = float(a[0]), float(aH[0])
-    Dys = torch.from_numpy(rk4_fixed(growth_rhs, np.array([a0, a0 * 2.0 * aH0]),
-                                     loga.numpy(), None, substeps=2))
-    D = Dys[:, 0] / Dys[-1, 0]
-    f = Dys[:, 1] / (Dys[:, 0] * aH)
+    D, f = (v.cpu() for v in growth_march(growth_spl.to(device), loga.to(device), aH.to(device),
+                                          (a0, a0 * 2.0 * aH0)))
 
     # --- z_eq (radiation-matter equality)
     rho_r_tot = rho_g + rho_ur

@@ -39,14 +39,15 @@ SIGNATURES = {
     "recfast_history_launch": [_P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _I, _P, _P],
     "hyrec_history_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
     "tb_march_launch": [_P, _P, _P, _P, _P, _P, _I, _D, _I, _P, _P, _P],
-    "tensor_rkck_launch": [_P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _D, _D, _I, _L,
-                           _I, _I, _P, _P, _P, _P],
+    "tensor_rkck_launch": [_P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _P, _D, _D, _I,
+                           _L, _I, _I, _P, _P, _P, _P],
     "transfer_tensor_los_launch": [_P, _P, _D, _P, _P, _P, _D, _P, _I, _I, _I, _I, _P, _P],
     "transfer_los_curved_launch": [_P, _P, _D, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _I,
                                    _P, _P],
     "transfer_tensor_los_curved_launch": [_P, _P, _D, _P, _P, _P, _P, _D, _P, _D, _I, _I, _I, _I,
                                           _I, _P, _P],
     "nc_scan_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "growth_march_launch": [_P, _P, _D, _D, _I, _P, _P, _I, _I, _D, _D, _P, _P, _P, _P],
 }
 
 

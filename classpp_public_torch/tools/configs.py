@@ -38,6 +38,23 @@ half-width 0.075; arXiv:1708.01530) at their fiducial galaxy biases (1.45,
 samples, a common precision boost), and `ncdm_row3` (bench.py:62-69), three
 massive-neutrino species of 0.021934, 0.023582 and 0.054485 eV.
 
+Tensor method `exact` with massive neutrinos: `g32_texact`
+(tests/golden/gen/g32_texact.ini: one 0.06 eV ncdm species, N_ur = 2.0328,
+r = 0.1, n_t = scc, lensed TT/EE/BB, l_max_scalars 1200, l_max_tensors 500),
+and `texact_ncdm3` (TENSOR_ONLY): its tensor stage with ncdm_row3's three
+species, whose Psi_l(q) block (state 896) needs 65 KB of lane scratch.
+
+Held only by `golden_check` (GOLDEN_ONLY), each as its golden's JAX test
+sets it: `g33_tphotons` (g32 with tensor method photons,
+tests/test_tensor_method.py), `g1_lcdm` (g1_lcdm.ini: the g1 cosmology,
+lensed C_l to 2500, P(k) to 10/Mpc at z = 0, 1, 3), `g1_lcdm_halofit` (the
+same with halofit on, as tests/test_endtoend.py runs it against the g1_lcdm
+golden, which was made without), `g1h_halofit` (g1h_halofit.ini: mPk only,
+halofit at z = 0, 1, 3), `g2_ncdm`
+(tests/test_ncdm.py: three species), `g8s_curved` (g8s_curved_scalar.ini:
+scalars, Omega_k = 0.01) and `lcdm_row1` (bench.py:142-152: the default
+cosmology, tCl and mPk, l_max 2500, P(k) to 1/Mpc; its probe row).
+
 The output-file keys of the .ini files (headers, format, root, write
 thermodynamics, *_verbose) are left out.
 """
@@ -114,14 +131,40 @@ NC_DES_Y1 = dict(_GOLDEN_COSMO, tau_reio=0.05430842, output="nCl,sCl", selection
                  selection_mean="0.225, 0.375, 0.525, 0.675, 0.825", selection_width="0.075",
                  selection_bias="1.45, 1.55, 1.65, 1.8, 2.0", non_diagonal=4, l_max_lss=1000,
                  **{"number count contributions": "density, rsd, lensing, gr"})
+G32_TEXACT = dict(_GOLDEN_COSMO, N_ur=2.0328, N_ncdm=1, m_ncdm=0.06, tau_reio=0.05430842,
+                  YHe="BBN", recombination="RECFAST", modes="s,t", r=0.1, n_t="scc",
+                  l_max_tensors=500, output="tCl,pCl,lCl", lensing="yes", l_max_scalars=1200,
+                  **{"tensor method": "exact"})
+G33_TPHOTONS = dict(G32_TEXACT, **{"tensor method": "photons"})
+TEXACT_NCDM3 = dict(G32_TEXACT, N_ur=0.00641, N_ncdm=3, m_ncdm="0.021934, 0.023582, 0.054485")
+G1_LCDM = dict(_GOLDEN_COSMO, Omega_k=0.0, tau_reio=0.05430842, YHe="BBN",
+               recombination="RECFAST", reio_parametrization="reio_camb",
+               output="tCl,pCl,lCl,mPk", lensing="yes", gauge="synchronous",
+               l_max_scalars=2500, z_pk="0, 1, 3", **{"P_k_max_1/Mpc": 10.0})
+G1_LCDM_HALOFIT = dict(G1_LCDM, **{"non linear": "halofit"})
+G1H_HALOFIT = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe="BBN", recombination="RECFAST",
+                   output="mPk", gauge="synchronous", z_pk="0, 1, 3",
+                   **{"P_k_max_1/Mpc": 10.0, "non linear": "halofit"})
+G2_NCDM = dict(_GOLDEN_COSMO, N_ur=0.00641, N_ncdm=3, m_ncdm="0.021934, 0.023582, 0.054485",
+               tau_reio=0.05430842, YHe="BBN", output="tCl,pCl,lCl,mPk", lensing="yes",
+               l_max_scalars=2500, z_pk="0.", **{"P_k_max_1/Mpc": 10.0})
+G8S_CURVED = dict(_GOLDEN_COSMO, tau_reio=0.05430842, Omega_k=0.01, output="tCl,pCl,lCl,mPk",
+                  lensing="yes", l_max_scalars=2500, z_pk="0.", **{"P_k_max_1/Mpc": 1.0})
+LCDM_ROW1 = {"output": "tCl,mPk", "l_max_scalars": 2500, "P_k_max_1/Mpc": 1.0, "z_pk": "0."}
 CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR,
            "g8_curved": G8_CURVED, "g18_closed": G18_CLOSED, "g5_hyrec": G5_HYREC,
            "g16_injection": G16_INJECTION, "g22_injection_bos": G22_INJECTION_BOS,
            "g11a_reio_bins": G11A_REIO_BINS, "g11b_reio_manytanh": G11B_REIO_MANYTANH,
            "planck_row2_ss005": PLANCK_ROW2_SS005, "ncdm_row3": NCDM_ROW3,
-           "g19_ncl_full": G19_NCL_FULL, "g27_pd": G27_PD, "nc_des_y1": NC_DES_Y1}
+           "g19_ncl_full": G19_NCL_FULL, "g27_pd": G27_PD, "nc_des_y1": NC_DES_Y1,
+           "g32_texact": G32_TEXACT}
 THERMO_ONLY = {"hyrec_full": HYREC_FULL}
-GOLDEN_ONLY = {"g29_open01": G29_OPEN01, "g30_closed01": G30_CLOSED01, "g7_ncl": G7_NCL}
+TENSOR_ONLY = {"texact_ncdm3": TEXACT_NCDM3}
+GOLDEN_ONLY = {"g29_open01": G29_OPEN01, "g30_closed01": G30_CLOSED01, "g7_ncl": G7_NCL,
+               "g33_tphotons": G33_TPHOTONS, "g1_lcdm": G1_LCDM, "g1_lcdm_halofit": G1_LCDM_HALOFIT,
+               "g1h_halofit": G1H_HALOFIT,
+               "g2_ncdm": G2_NCDM, "g8s_curved": G8S_CURVED, "lcdm_row1": LCDM_ROW1}
 # the row of tests/golden/bench_probe.json that holds each probe-checked path
 PROBE_ROW = {"planck_row2": "planck_row2", "row2_exact": "row2_exact",
-             "planck_row2_ss005": "planck_row2", "ncdm_row3": "ncdm_row3"}
+             "planck_row2_ss005": "planck_row2", "ncdm_row3": "ncdm_row3",
+             "lcdm_row1": "lcdm_row1"}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The reference goldens' contracts, and a check of configurations against them.
 
-`golden_check(name, raw, lensed, pk_lin, h, thermo)` holds the spectra (and
+`golden_check(name, raw, lensed, pk_lin, h, thermo, cls)` holds the spectra (and
 for the thermodynamics variants the x_e history and tau_reio) of a run of the
 configuration `name` to its golden (tests/golden/<name>.npz, built by the
 reference C++ code; g11a/g11b share g11_reio.npz) under the contract of the
@@ -11,10 +11,16 @@ g8_curved (tests/test_curved.py:176-196), g18_closed
 (tests/test_curved_large.py:43-102), g5_hyrec (tests/test_hyrec.py),
 g16_injection and g22_injection_bos (tests/test_injection.py:40-66,
 :121-147), g11a_reio_bins and g11b_reio_manytanh (tests/test_reio.py:51-90),
-and the number counts g7_ncl, g19_ncl_full and g27_pd (tests/test_numbercounts.py:
+the number counts g7_ncl, g19_ncl_full and g27_pd (tests/test_numbercounts.py:
 the autos against the golden, the crosses that pass through small values or
-zero against the sqrt(auto x auto) envelope of the golden).
-chip_smoke.py uses it for its golden paths.
+zero against the sqrt(auto x auto) envelope of the golden), g32_texact and
+g33_tphotons (tests/test_tensor_method.py), g1_lcdm (tests/test_endtoend.py:37-80
+and the growth factor of tests/test_background.py:77-92; g1_lcdm_halofit is the
+same configuration with halofit on, as test_endtoend.py runs it), g1h_halofit
+(tests/test_endtoend.py:83-100), g2_ncdm (tests/test_ncdm.py:39-97) and
+g8s_curved (tests/test_curved.py:39-89); and the probe rows of
+tests/golden/bench_probe.json (`probe_rel`; lcdm_row1 here, the others in
+chip_smoke.py, which uses this module for its golden paths).
 
 Run as a script it drives configurations through Class(device="cuda") and
 prints each measure against its limit with the multipole of the largest
@@ -23,6 +29,8 @@ error; it exits 1 if any is out of its contract.
 Usage (from the repository root, needs one card and nvcc):
     python3 -m classpp_public_torch.tools.golden_check g29_open01 g30_closed01
     python3 -m classpp_public_torch.tools.golden_check g7_ncl g19_ncl_full g27_pd
+    python3 -m classpp_public_torch.tools.golden_check g32_texact g33_tphotons g1_lcdm \
+        g1_lcdm_halofit g1h_halofit g2_ncdm g8s_curved lcdm_row1
 """
 
 import json
@@ -34,7 +42,27 @@ import numpy as np
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "tests",
                           "golden")
+PROBE = os.path.join(GOLDEN_DIR, "bench_probe.json")
 CL_TOL, PK_TOL = 3e-3, 1e-2
+
+
+def probe_rel(row, cl, pk, specs=("tt", "ee", "te")):
+    """The bench.py rule (bench.py:91-118) against the probe row `row` of
+    tests/golden/bench_probe.json: {rel_<spec>: worst relative error over the
+    row's multipoles (TE against max(|TE|, 1e-3 TT))} for each of `specs`,
+    which the row must hold, and rel_pk of P(k = 0.1/Mpc, z = 0)."""
+    with open(PROBE) as f:
+        ref = json.load(f)[row]
+    worst = {}
+    for spec in specs:
+        errs = []
+        for l_str, want in ref[spec].items():
+            got = float(cl[spec][int(l_str)])
+            den = abs(want) if spec != "te" else max(abs(want), 1e-3 * abs(ref["tt"][l_str]))
+            errs.append(abs(got - want) / den)
+        worst[f"rel_{spec}"] = max(errs)
+    worst["rel_pk"] = abs(pk - ref["pk_0.1"]) / abs(ref["pk_0.1"])
+    return worst
 
 
 class Golden:
@@ -67,16 +95,33 @@ class Golden:
                      - np.interp(ell, lr, te)) / den
         return float(err.max()), int(ell[err.argmax()])
 
-    def rel_pk(self, pk_lin, h, k_max=0.9):
-        """(max relative error, its k in 1/Mpc) of P(k, z = 0) against the
-        table pk (every 5th k in 1e-3 < k < k_max/Mpc, k and P in h units), as
-        the JAX tests read it."""
-        T = self.g["pk"]
+    def rel_pk(self, pk_lin, h, k_max=0.9, table="pk", z=0.0, k_min=1e-3, every=5):
+        """(max relative error, its k in 1/Mpc) of P(k, z) against the golden
+        table (every `every`-th k in k_min < k < k_max/Mpc, k and P in h
+        units), as the JAX tests read it."""
+        T = self.g[table]
         ks = T[:, 0] * h
-        sel = (ks > 1e-3) & (ks < k_max)
-        mine = np.array([pk_lin(k, 0.0) for k in ks[sel][::5]])
-        err = np.abs(mine / (T[sel, 1][::5] / h**3) - 1)
-        return float(err.max()), float(ks[sel][::5][err.argmax()])
+        sel = (ks > k_min) & (ks < k_max)
+        mine = np.array([pk_lin(k, z) for k in ks[sel][::every]])
+        err = np.abs(mine / (T[sel, 1][::every] / h**3) - 1)
+        return float(err.max()), float(ks[sel][::every][err.argmax()])
+
+    def rel_growth(self, bg, bidx, zq):
+        """(max of |D / D_golden - 1| and |f / f_golden - 1|, its z) at the
+        background nodes nearest z = zq, the golden interpolated in ln a, as
+        tests/test_background.py:77-92 reads it."""
+        z_ref = self.col("background", "z")[1]
+        loga_ref = -np.log1p(z_ref)
+        order = np.argsort(loga_ref)
+        loga, table = bg.loga.cpu().numpy(), bg.table.cpu().numpy()
+        worst = (0.0, 0.0)
+        for z in zq:
+            i = int(np.argmin(np.abs(loga + np.log1p(z))))
+            la = np.log(table[i, bidx["a"]])
+            for name, col in (("gr.fac. D", "D"), ("gr.fac. f", "f")):
+                ref = np.interp(la, loga_ref[order], self.col("background", name)[1][order])
+                worst = max(worst, (abs(table[i, bidx[col]] - ref) / ref, z))
+        return worst
 
 
     def rel_xe(self, table, thermo, zmin, zmax, log=False):
@@ -165,14 +210,20 @@ VARIANTS = {
 }
 
 
-def golden_check(name, raw, lensed, pk_lin, h, thermo=None):
+def golden_check(name, raw, lensed, pk_lin, h, thermo=None, cls=None):
     """The contract of the golden `name`: {measure: (relative error, limit,
     where)}, where is the multipole (or k, or z) of the largest error. raw
     and lensed: C_l dicts indexed by l to 2500; pk_lin(k, z): the linear
-    P(k); thermo: the ThermoResult (the thermodynamics variants)."""
+    P(k); thermo: the ThermoResult (the thermodynamics variants); cls: the
+    Class (g1_lcdm's growth factor, g1h_halofit's nonlinear P(k), g2_ncdm's
+    background and P_cb)."""
 
     def item(measure, tol):
         return (measure[0], tol, measure[1])
+
+    if name == "lcdm_row1":
+        return {k: (v, PK_TOL if k == "rel_pk" else CL_TOL, "probe")
+                for k, v in probe_rel(name, raw, pk_lin(0.1, 0.0), specs=("tt",)).items()}
 
     if name in ("g7_ncl", "g19_ncl_full", "g27_pd"):
         return nc_golden_check(name, raw)
@@ -186,7 +237,7 @@ def golden_check(name, raw, lensed, pk_lin, h, thermo=None):
             rel[f"lensed_{n}"] = item(g.rel(pre + "cl_lensed", n.upper(), lensed[n], 2, 1100),
                                       CL_TOL)
         return rel
-    g = Golden(name)
+    g = Golden("g1_lcdm" if name == "g1_lcdm_halofit" else name)
     if name == "g5_hyrec":
         # x_e through recombination (log interpolation), raw and lensed
         # TT/EE, P(k) to 9/Mpc
@@ -214,6 +265,54 @@ def golden_check(name, raw, lensed, pk_lin, h, thermo=None):
         # tensor BB (clt) at l = 2-500 within 1e-2, total TT at l <= 500
         return {"tensor_bb": item(g.rel("clt", "BB", raw["bb"], 2, 500), 1e-2),
                 "raw_tt": item(g.rel("cl", "TT", raw["tt"], 2, 500), CL_TOL)}
+    if name in ("g32_texact", "g33_tphotons"):
+        # raw TT/EE to l = 1200, the (pure tensor) raw BB to l = 400
+        return {"raw_tt": item(g.rel("cl", "TT", raw["tt"], 2, 1200), CL_TOL),
+                "raw_ee": item(g.rel("cl", "EE", raw["ee"], 2, 1200), CL_TOL),
+                "raw_bb": item(g.rel("cl", "BB", raw["bb"], 2, 400), 1e-2)}
+    if name == "g1h_halofit":
+        # halofit P(k) at z = 0, 1, 3 for 1e-2 < k < 9/Mpc
+        return {f"pk_nl_z{z:g}": item(g.rel_pk(cls.pk, h, 9.0, tab, z, 1e-2, 1), 2.5e-2)
+                for tab, z in (("z1_pk_nl", 0.0), ("z2_pk_nl", 1.0), ("z3_pk_nl", 3.0))}
+    if name in ("g1_lcdm", "g1_lcdm_halofit"):
+        rel = {"raw_tt": item(g.rel("cl", "TT", raw["tt"], 2, 2500), CL_TOL),
+               "raw_ee": item(g.rel("cl", "EE", raw["ee"], 2, 2500), CL_TOL),
+               "raw_pp": item(g.rel("cl", "phiphi", raw["pp"], 2, 2500), 1e-2),
+               "raw_te": item(g.rel_te("cl", raw["te"], 2500), CL_TOL)}
+        for n in ("tt", "ee", "bb"):
+            rel[f"lensed_{n}"] = item(g.rel("cl_lensed", n.upper(), lensed[n], 2, 2500), CL_TOL)
+        for tab, z in (("z1_pk", 0.0), ("z2_pk", 1.0), ("z3_pk", 3.0)):
+            rel[f"pk_z{z:g}"] = item(g.rel_pk(pk_lin, h, 9.0, tab, z, 2e-4, 7), PK_TOL)
+        bg, bidx = cls.cosmo.background
+        rel["growth_D_f"] = item(g.rel_growth(bg, bidx, (0.0, 0.5, 2.0, 10.0)), 2e-3)
+        return rel
+    if name == "g2_ncdm":
+        # rho_ncdm at z = 100, raw TT/EE/phiphi, lensed TT/EE/BB, P and P_cb
+        bg, bidx = cls.cosmo.background
+        zb = g.col("background", "z")[1]
+        ref = sum(g.col("background", f"(.)rho_ncdm[{i}]")[1] for i in range(3))
+        table = bg.table.cpu().numpy()
+        z_mine = 1.0 / table[:, bidx["a"]] - 1.0
+        mine = sum(np.interp(100.0, z_mine[::-1], table[::-1, bidx[f"rho_ncdm{i}"]])
+                   for i in range(3))
+        rel = {"rho_ncdm_z100": (abs(mine / np.interp(100.0, zb[::-1], ref[::-1]) - 1), 1e-3,
+                                 100.0)}
+        for n, col, tol in (("tt", "TT", CL_TOL), ("ee", "EE", CL_TOL), ("pp", "phiphi", 1e-2)):
+            rel[f"raw_{n}"] = item(g.rel("cl", col, raw[n], 2, 2500), tol)
+        for n in ("tt", "ee", "bb"):
+            rel[f"lensed_{n}"] = item(g.rel("cl_lensed", n.upper(), lensed[n], 2, 2498), CL_TOL)
+        rel["pk"] = item(g.rel_pk(pk_lin, h, 9.0, "pk", 0.0, 2e-4, 9), PK_TOL)
+        rel["pk_cb"] = item(g.rel_pk(cls.pk_cb_lin, h, 9.0, "pk_cb", 0.0, 2e-4, 9), PK_TOL)
+        return rel
+    if name == "g8s_curved":
+        # raw TT/EE to 2500, phiphi 3e-2 to 2000, TE, lensed TT/EE to 2400, P(k)
+        return {"raw_tt": item(g.rel("cl", "TT", raw["tt"], 2, 2500), CL_TOL),
+                "raw_ee": item(g.rel("cl", "EE", raw["ee"], 2, 2500), CL_TOL),
+                "raw_pp": item(g.rel("cl", "phiphi", raw["pp"], 2, 2000), 3e-2),
+                "raw_te": item(g.rel_te("cl", raw["te"], 2500), CL_TOL),
+                "lensed_tt": item(g.rel("cl_lensed", "TT", lensed["tt"], 2, 2400), CL_TOL),
+                "lensed_ee": item(g.rel("cl_lensed", "EE", lensed["ee"], 2, 2400), CL_TOL),
+                "pk": item(g.rel_pk(pk_lin, h), PK_TOL)}
     rel = {"raw_tt": item(g.rel("cl", "TT", raw["tt"], 2, 2500), CL_TOL),
            "raw_ee": item(g.rel("cl", "EE", raw["ee"], 2, 2500), CL_TOL),
            "bb": item(g.rel("cl", "BB", raw["bb"], 2, 400), 1e-2),
@@ -247,11 +346,12 @@ def main():
         c.set(dict({**CONFIGS, **GOLDEN_ONLY}[name]))
         c.compute(["lensing"])
         out = c.cosmo.out
-        raw = c.raw_cl(2500 if out.has_cls else out.l_lss_max)
+        raw = c.raw_cl(2500 if out.has_cls else out.l_lss_max) \
+            if out.has_cls or out.has_nc else None
         lensed = c.lensed_cl(2500) if out.lensing else None
         torch.cuda.synchronize()
         rel = golden_check(name, raw, lensed, c.pk_lin, c.cosmo.params.h,
-                           c.cosmo.thermodynamics)
+                           c.cosmo.thermodynamics, c)
         bad = sorted(k for k, (v, tol, _) in rel.items() if not v <= tol)
         ok = ok and not bad
         print(f"[golden] {name} ({time.time() - t0:.3f} s) "

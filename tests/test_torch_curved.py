@@ -328,8 +328,8 @@ def test_tensor_rkck_lane_program_on_host(setup, tmp_path):
     """csrc/tensor_rkck.cuh built for the host against the plain integrator
     on four curved tensor lanes, the tensor k_min among them."""
     lib = _host_lib("tensor_rkck_host", tmp_path)
-    lib.tensor_rkck_host_curved.argtypes = [P, P, P, P, P, D, D, I, P, P, D, D, I, D, D, I, L,
-                                            I, I, P, P, P, P]
+    lib.tensor_rkck_host_curved.argtypes = [P, P, P, P, P, D, D, I, P, P, D, D, I, P, D, D, I,
+                                            L, I, I, P, P, P, P]
     _, _, idx, tb, lanes = _tensor_setup(setup)
     taus = t64(setup.taus)
     St, nt = tt.tensor_rkck(lanes, taus, tb, RTOL)
@@ -339,11 +339,12 @@ def test_tensor_rkck_lane_program_on_host(setup, tmp_path):
     S = torch.empty((nl, ntau, 2), dtype=torch.float64)
     nsteps = torch.zeros(nl, dtype=torch.long)
     status = torch.ones(nl, dtype=torch.int32)
-    layout = (ctypes.c_int * 8)(*tt._layout_ints(idx))
+    ints = tt._layout_ints(idx)
+    layout = (ctypes.c_int * len(ints))(*ints)
     rc = lib.tensor_rkck_host_curved(
         layout, lane_tab.data_ptr(), taus.data_ptr(), tb.bg.y.data_ptr(), tb.bg.y2.data_ptr(),
         tb.bg.x0, tb.bg.dx, tb.bg.n, tb.th.y.data_ptr(), tb.th.y2.data_ptr(), tb.th.x0, tb.th.dx,
-        tb.th.n, RTOL, setup.K, setup.sgnK, tt.MAX_INTERVAL_STEPS, nl, ntau, work.data_ptr(),
+        tb.th.n, None, RTOL, setup.K, setup.sgnK, tt.MAX_INTERVAL_STEPS, nl, ntau, work.data_ptr(),
         S.data_ptr(), nsteps.data_ptr(), status.data_ptr())
     assert rc == 0 and not status.any()
     np.testing.assert_array_equal(nsteps.numpy(), nt.numpy())

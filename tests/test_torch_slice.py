@@ -319,12 +319,11 @@ def test_tensor_inputs_parse(extra):
     ({"output": "mPk", "modes": "s,t"}, "severe", "tensor source"),
     ({"output": "tCl", "tensor method": "photons"}, "severe", "tensor method"),
     ({"output": "tCl,lCl", "modes": "t"}, "severe", "lensing potential"),
-    ({"output": "tCl,pCl", "modes": "s,t", "tensor method": "exact", "N_ncdm": 1},
-     "not_implemented", "tensors.py:200-213"),
+    ({"output": "tCl,pCl", "modes": "s,t", "tensor method": "bogus", "N_ncdm": 1},
+     "severe", "unknown tensor method"),
 ])
 def test_tensor_input_guards(keys, err, match):
-    """The reference's consistency guards, and the tensor method that is not
-    ported (exact, with massive neutrinos)."""
+    """The reference's consistency guards, and an unknown tensor method."""
     exc = T.CosmoSevereError if err == "severe" else NotImplementedError
     c = T.Class(device="cpu")
     c.set(keys)

@@ -218,7 +218,7 @@ def test_kernel_lane_program_on_host(schedule, torch_sources, tmp_path):
                     str(Path(cuda.CSRC_DIR) / "tensor_rkck_host.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     P, I, D, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
-    lib.tensor_rkck_host.argtypes = [P, P, P, P, P, D, D, I, P, P, D, D, I, D, L, I, I,
+    lib.tensor_rkck_host.argtypes = [P, P, P, P, P, D, D, I, P, P, D, D, I, P, D, L, I, I,
                                      P, P, P, P]
     _, taus, lanes = schedule
     st, nt, tables = torch_sources
@@ -230,10 +230,11 @@ def test_kernel_lane_program_on_host(schedule, torch_sources, tmp_path):
     S = torch.empty((nl, ntau, 2), dtype=torch.float64)
     nsteps = torch.zeros(nl, dtype=torch.long)
     status = torch.ones(nl, dtype=torch.int32)
-    layout = (ctypes.c_int * 8)(*tt._layout_ints(idx))
+    ints = tt._layout_ints(idx)
+    layout = (ctypes.c_int * len(ints))(*ints)
     rc = lib.tensor_rkck_host(
         layout, lane_tab.data_ptr(), taus_t.data_ptr(), bg.y.data_ptr(), bg.y2.data_ptr(),
-        bg.x0, bg.dx, bg.n, th.y.data_ptr(), th.y2.data_ptr(), th.x0, th.dx, th.n, RTOL,
+        bg.x0, bg.dx, bg.n, th.y.data_ptr(), th.y2.data_ptr(), th.x0, th.dx, th.n, None, RTOL,
         tt.MAX_INTERVAL_STEPS, nl, ntau, work.data_ptr(), S.data_ptr(), nsteps.data_ptr(),
         status.data_ptr())
     assert rc == 0 and not status.any()
