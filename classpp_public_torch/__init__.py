@@ -7,8 +7,8 @@ the Tb march, the scalar and tensor perturbation integrators, halofit's
 sums, the scalar and tensor line-of-sight scans, flat and hyperspherical,
 the lensing Wigner recurrences) as hand-written CUDA kernels for Hopper
 (csrc/). The port covers LambdaCDM, open, flat or closed, with massless and
-Fermi-Dirac massive neutrinos, halofit, tensor modes, RECFAST, synchronous
-gauge and adiabatic initial conditions.
+Fermi-Dirac massive neutrinos, halofit, tensor modes, RECFAST and HyRec,
+the synchronous and the Newtonian gauge, and adiabatic initial conditions.
 
 Importing the package builds nothing and starts nothing; the kernels are
 compiled at their first launch on a card.

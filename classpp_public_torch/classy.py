@@ -98,10 +98,21 @@ class Class:
         if not -0.95 < kw.get("Omega_k", 0.0) < 0.95:
             raise CosmoSevereError(f"Omega_k = {kw['Omega_k']} outside (-0.95, 0.95) "
                                    "(classpp_public_tpu/classy.py:928)")
-        # gauge and recombination code: the stages raise for what is not ported
+        # gauge (classy.py:166-172) and recombination code: the stages raise
+        # for what is not ported
         if "gauge" in p:
             g = str(p.pop("gauge")).strip().lower()
-            kw["gauge"] = "newtonian" if g in ("new", "newt", "newtonian") else g
+            g = "newtonian" if g in ("new", "newt") else g
+            if g not in ("synchronous", "newtonian"):
+                raise CosmoSevereError(f"unknown gauge {g!r}")
+            kw["gauge"] = g
+        for key in ("Nbody gauge transfer functions", "nbody gauge transfer functions",
+                    "Nbody_gauge_transfer_functions"):
+            if key in p:
+                raise NotImplementedError(
+                    f"{key!r} is not ported: the N-body gauge shifts need the dTk/vTk "
+                    "outputs (classpp_public_tpu/classy.py:462, "
+                    "classpp_public_tpu/models/perturbations/equations.py:1580)")
         if "recombination" in p:
             kw["recombination"] = str(p.pop("recombination")).strip().lower()
         self._parse_thermo(p, kw)

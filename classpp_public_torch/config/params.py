@@ -172,7 +172,8 @@ class CosmoParams:
 def check_lcdm(params: CosmoParams) -> None:
     """Raise for every parameter that switches on physics outside the ported
     slice (LambdaCDM + massive neutrinos, open, flat or closed, synchronous
-    gauge; RECFAST or HyRec, energy injection, every reionization scheme),
+    or Newtonian gauge; RECFAST or HyRec, energy injection, every
+    reionization scheme),
     naming the JAX code that implements it."""
     bad = []
     if any(params.ksi_ncdm) or any(params.ncdm_psd_files):
@@ -190,8 +191,6 @@ def check_lcdm(params: CosmoParams) -> None:
         bad.append("scalar-field dark energy (classpp_public_tpu/models/background.py:602)")
     if params.Omega_idm_dr > 0.0:
         bad.append("interacting dark matter (classpp_public_tpu/models/background.py:421)")
-    if params.gauge != "synchronous":
-        bad.append("newtonian gauge (classpp_public_tpu/models/perturbations/equations.py:496)")
     if tuple(params.temp_contributions) != (1.0,) * 5 or params.eisw_lisw_split_z != 120.0:
         bad.append("temperature-contribution switches "
                    "(classpp_public_tpu/models/perturbations/equations.py:1517)")

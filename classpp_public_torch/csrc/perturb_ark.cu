@@ -8,7 +8,11 @@
 // `solve_one_k` :317, the init/advance/emit/window heads :151,172,410,426,442),
 // whose plain PyTorch version is `integrate_sources_plain` in
 // classpp_public_torch/models/perturbations/solve.py. The per-lane program
-// itself is perturb_ark.cuh.
+// itself is perturb_ark.cuh. The gauge picks the kernel's instance: the JAX
+// package compiles one solver head per PtIdx, whose `gauge` is static, and
+// here `gauge` (0 synchronous, 1 Newtonian) selects perturb_ark_kernel<false>
+// or <true>; the synchronous instance is the code it was before the Newtonian
+// one was added.
 //
 // Design: one lane per warp, one warp per block. Each lane runs its own
 // while loop to its last sample: no lockstep between lanes, no host reads, no
@@ -50,6 +54,7 @@ namespace {
 
 constexpr int kWarp = 32;
 
+template <bool kNewt>
 __global__ void __launch_bounds__(kWarp)
 perturb_ark_kernel(pk::Layout L, pk::Tables T,
                    const double* __restrict__ lanes,  // (6, nl): k, tau_ini, t_tca, t_ufa, t_rsa, t_ncfa
@@ -70,12 +75,13 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
   ln.t_ufa = lanes[3 * nlanes + lane];
   ln.t_rsa = lanes[4 * nlanes + lane];
   ln.t_ncfa = lanes[5 * nlanes + lane];
-  ln.eta_off = ln.k < k_eta_split ? 1.0 : 0.0;
+  // the eta - 1 storage of the low-k lanes is the synchronous gauge's
+  ln.eta_off = kNewt ? 0.0 : (ln.k < k_eta_split ? 1.0 : 0.0);
   ln.K = K;
   ln.sgnK = sgnK;
   ln.sl = nullptr;
   long long steps = 0;
-  const int st = pk::integrate_lane(
+  const int st = pk::integrate_lane<kNewt>(
       L, T, tm, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n, atol + (long)lane * L.n,
       max_steps, work, S + (long)lane * ntau * pk::kNSrc, &steps,
       PK_PROFILE_OUT(lane, nlanes));
@@ -85,12 +91,31 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
   }
 }
 
+// One launch of the instance kNewt; its shared-memory limit is raised past
+// 48 KB when the lane scratch needs it.
+template <bool kNewt>
+int launch(const pk::Layout& L, const pk::Tables& T, size_t smem, const double* lanes,
+           const double* taus, const double* rtol, const double* atol, double k_eta_split,
+           double K, int sgnK, long max_steps, int nlanes, int ntau, double* S,
+           long long* nsteps, int* status, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        perturb_ark_kernel<kNewt>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  perturb_ark_kernel<kNewt><<<nlanes, kWarp, smem, stream>>>(
+      L, T, lanes, taus, rtol, atol, k_eta_split, K, sgnK, max_steps, nlanes, ntau, S, nsteps,
+      status);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // layout: kLayoutInts host ints in pk::Layout order. Every other pointer is a
 // device pointer. ncdm: q (nq), w (ns, nq), dlnf0 (ns, nq), x_fac (ns),
 // pref (ns) packed in this order (unused when ns = 0). K: the spatial
-// curvature in 1/Mpc^2, sgnK its sign. The lane's scratch is dynamic shared
+// curvature in 1/Mpc^2, sgnK its sign; gauge 0 synchronous, 1 Newtonian
+// (any other value is refused). The lane's scratch is dynamic shared
 // memory, sized from the layout (any number of species): a state too wide for
 // one block's 227 KB is refused here, and before that by the wrapper
 // (solve.py `check_lane_scratch`), which names N_ncdm.
@@ -99,19 +124,15 @@ extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const 
                                   double bg_dx, int bg_n, const double* th_y,
                                   const double* th_y2, double th_x0, double th_dx, int th_n,
                                   const double* ncdm, const double* rtol, const double* atol,
-                                  double k_eta_split, double K, int sgnK, long long max_steps,
-                                  int nlanes, int ntau, double* S, long long* nsteps, int* status,
-                                  void* stream) {
+                                  double k_eta_split, double K, int sgnK, int gauge,
+                                  long long max_steps, int nlanes, int ntau, double* S,
+                                  long long* nsteps, int* status, void* stream) {
   pk::Layout L;
   int* li = reinterpret_cast<int*>(&L);
   for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
   const size_t smem = (size_t)pk::work_doubles(L) * sizeof(double);
-  if (nlanes < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        perturb_ark_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (nlanes < 1 || smem > 232448 || gauge < 0 || gauge > 1 || (gauge == 1) != (L.theta_cdm >= 0))
+    return (int)cudaErrorInvalidValue;
   pk::Tables T;
   T.bg_y = bg_y; T.bg_y2 = bg_y2; T.bg_x0 = bg_x0; T.bg_dx = bg_dx; T.bg_n = bg_n;
   T.bg_ncol = pk::kNBgBase + 3 * L.ns;
@@ -119,8 +140,10 @@ extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const 
   const long nsq = (long)L.ns * L.nq;
   T.q = ncdm; T.w = ncdm + L.nq; T.dlnf0 = T.w + nsq; T.x_fac = T.dlnf0 + nsq;
   T.pref = T.x_fac + L.ns;
-  perturb_ark_kernel<<<nlanes, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      L, T, lanes, taus, rtol, atol, k_eta_split, K, sgnK, (long)max_steps, nlanes, ntau, S,
-      nsteps, status);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return gauge == 1
+      ? launch<true>(L, T, smem, lanes, taus, rtol, atol, k_eta_split, K, sgnK, (long)max_steps,
+                     nlanes, ntau, S, nsteps, status, st)
+      : launch<false>(L, T, smem, lanes, taus, rtol, atol, k_eta_split, K, sgnK, (long)max_steps,
+                      nlanes, ntau, S, nsteps, status, st);
 }

@@ -16,9 +16,18 @@
 // Counterparts, line by line: classpp_public_torch/models/perturbations/
 // equations.py (rhs_full, stiff_apply, stiff_solve, adiabatic_ic, the remaps,
 // compute_sources), ops/ode.py (ark_step) and solve.py (_step). Open, flat
-// or closed universe, synchronous gauge, adiabatic mode; photons,
+// or closed universe, synchronous or Newtonian gauge, adiabatic mode; photons,
 // polarization, baryons, cdm, massless neutrinos, n_s massive-neutrino species
 // on a shared momentum grid, and the metric.
+//
+// The gauge is a template parameter kNewt of the lane program (rhs_full,
+// adiabatic_ic, remap_tca_off, compute_sources, integrate_lane), so that the
+// synchronous instance is the arithmetic it was: every Newtonian term sits
+// behind `if constexpr (kNewt)` or a `kNewt ? ... : ...` whose synchronous
+// side is the synchronous expression, and folds away there. In the Newtonian
+// instance the eta slot holds phi, psi is constrained, theta_cdm evolves, and
+// the species see metric_continuity = -3 phi', metric_euler = k^2 psi,
+// metric_shear = 0 and metric_ufa = -6 phi' (equations.py rhs_full).
 //
 // Curvature K (sign sgnK) enters through s_l = sqrt(max(1 - K (l^2 - 1)/k^2,
 // 0)), s2 = 1 - 3 K/k^2 and cotKgen = sqrt|K| cot_K(sqrt|K| tau)/k. The s_l
@@ -106,12 +115,13 @@ struct Layout {
   int F_g, n_F_g;               // l = 3..l_max_g
   int G_g, n_G_g;               // l = 0..l_max_pol_g
   int delta_b, theta_b, delta_cdm;
+  int theta_cdm;                // Newtonian gauge only; -1 in the synchronous gauge
   int delta_ur, theta_ur, shear_ur;
   int F_ur, n_F_ur;             // l = 3..l_max_ur
   int ncdm, ns, nq, nl;         // ncdm block: (ns, nq, nl)
   int eta;
 };
-constexpr int kLayoutInts = 21;
+constexpr int kLayoutInts = 22;
 
 // The two table splines over ln(tau) and the ncdm momentum data.
 struct Tables {
@@ -235,6 +245,7 @@ PK_FN void ncdm_sums(const Layout& L, const Tables& T, const Team& tm, double a,
 // approximation with one species only the three fluid slots of the ncdm block
 // are written: the caller skips the rest of the block (its state and
 // derivative are zero). Ends with team_sync() when it wrote dy.
+template <bool kNewt>
 PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
                     const Lane& ln, const Flags& fl, const Vec y, const Vec dy, bool want_dy,
                     Locals& loc) {
@@ -305,29 +316,69 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
     delta_p += sum_dp;
   }
 
-  // Einstein 00 and the radiation-streaming values
-  const double h_prime = (k2 * s2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH);
-  const double rsa_delta_g = 4.0 / k2 * (aH * h_prime - k2 * eta)
-                             - 4.0 / k2 * kap * (theta_b + 0.5 * h_prime);
-  const double rsa_theta_g = -0.5 * h_prime + 3.0 / k2 * (
-      kapp * (theta_b + 0.5 * h_prime)
-      + kap * (-aH * theta_b + cb2 * k2 * delta_b - aH * h_prime + k2 * eta));
-  const double rsa_delta_ur = 4.0 / k2 * (aH * h_prime - k2 * eta);
-  const double rsa_theta_ur = -0.5 * h_prime;
-  if (rsa) {
-    delta_rho += rho_g * rsa_delta_g + rho_ur * rsa_delta_ur;
-    rho_plus_p_theta += 4.0 / 3.0 * rho_g * rsa_theta_g + 4.0 / 3.0 * rho_ur * rsa_theta_ur;
-  }
+  // Einstein equations, the radiation-streaming values and the metric terms
+  // of the species' equations
+  double h_prime, rsa_delta_g, rsa_theta_g, rsa_delta_ur, rsa_theta_ur;
+  double eta_prime, alpha, alpha_prime, phi, psi, phi_prime, phi_plus_psi;
+  double metric_continuity, metric_euler, metric_shear, metric_shear_prime, metric_ufa;
+  double theta_cdm = 0.0;
+  if constexpr (kNewt) {
+    // the slot holds phi; under TCA the photon shear in psi is its
+    // first-order value; no radiation correction under RSA here
+    // (JAX equations.py:496-528)
+    phi = eta;
+    theta_cdm = y[L.theta_cdm];
+    rho_plus_p_theta += rho_cdm * theta_cdm;
+    const double rho_plus_p_shear_psi =
+        rho_plus_p_shear + (tca ? 4.0 / 3.0 * rho_g * 16.0 / 45.0 / kap * theta_g : 0.0);
+    psi = phi - 4.5 * (a2 / k2) * rho_plus_p_shear_psi;
+    phi_prime = -aH * psi + 1.5 * (a2 / k2) * rho_plus_p_theta;
+    rsa_delta_g = -4.0 * phi - 4.0 / k2 * kap * theta_b;
+    rsa_theta_g = 6.0 * phi_prime + 3.0 / k2 * (
+        kapp * theta_b + kap * (-aH * theta_b + cb2 * k2 * delta_b + k2 * phi));
+    rsa_delta_ur = -4.0 * phi;
+    rsa_theta_ur = 6.0 * phi_prime;
+    metric_continuity = -3.0 * phi_prime;
+    metric_euler = k2 * psi;
+    metric_shear = 0.0;
+    metric_shear_prime = 0.0;
+    metric_ufa = -6.0 * phi_prime;
+    h_prime = 0.0;
+    eta_prime = phi_prime;
+    alpha = 0.0;
+    alpha_prime = 0.0;
+    phi_plus_psi = phi + psi;
+  } else {
+    // Einstein 00 and the radiation-streaming values
+    h_prime = (k2 * s2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH);
+    rsa_delta_g = 4.0 / k2 * (aH * h_prime - k2 * eta)
+                  - 4.0 / k2 * kap * (theta_b + 0.5 * h_prime);
+    rsa_theta_g = -0.5 * h_prime + 3.0 / k2 * (
+        kapp * (theta_b + 0.5 * h_prime)
+        + kap * (-aH * theta_b + cb2 * k2 * delta_b - aH * h_prime + k2 * eta));
+    rsa_delta_ur = 4.0 / k2 * (aH * h_prime - k2 * eta);
+    rsa_theta_ur = -0.5 * h_prime;
+    if (rsa) {
+      delta_rho += rho_g * rsa_delta_g + rho_ur * rsa_delta_ur;
+      rho_plus_p_theta += 4.0 / 3.0 * rho_g * rsa_theta_g + 4.0 / 3.0 * rho_ur * rsa_theta_ur;
+    }
 
-  // Einstein 0i, trace, shear
-  const double eta_prime = (1.5 * a2 * rho_plus_p_theta + 0.5 * K * h_prime) / (k2 * s2);
-  const double alpha = (h_prime + 6.0 * eta_prime) / (2.0 * k2);
-  const double tca_shear_g_1 = 16.0 / 45.0 / kap * (theta_g + k2 * alpha);
-  if (tca) rho_plus_p_shear += 4.0 / 3.0 * rho_g * tca_shear_g_1;
-  const double alpha_prime = -2.0 * aH * alpha + eta - 4.5 * (a2 / k2) * rho_plus_p_shear;
-  const double metric_continuity = 0.5 * h_prime;
-  const double metric_shear = k2 * alpha;
-  const double metric_shear_prime = k2 * alpha_prime;
+    // Einstein 0i, trace, shear
+    eta_prime = (1.5 * a2 * rho_plus_p_theta + 0.5 * K * h_prime) / (k2 * s2);
+    alpha = (h_prime + 6.0 * eta_prime) / (2.0 * k2);
+    const double tca_shear_g_1 = 16.0 / 45.0 / kap * (theta_g + k2 * alpha);
+    if (tca) rho_plus_p_shear += 4.0 / 3.0 * rho_g * tca_shear_g_1;
+    alpha_prime = -2.0 * aH * alpha + eta - 4.5 * (a2 / k2) * rho_plus_p_shear;
+    metric_continuity = 0.5 * h_prime;
+    metric_shear = k2 * alpha;
+    metric_shear_prime = k2 * alpha_prime;
+    metric_euler = 0.0;
+    metric_ufa = metric_continuity;
+    phi = eta - aH * alpha;
+    psi = aH * alpha + alpha_prime;
+    phi_plus_psi = eta + alpha_prime;
+    phi_prime = eta_prime - aH_prime * alpha - aH * alpha_prime;
+  }
 
   const double d_g = rsa ? rsa_delta_g : delta_g;
   const double t_g = rsa ? rsa_theta_g : theta_g;
@@ -337,12 +388,20 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   const double dtau_c = -kapp * tau_c * tau_c;
   const double F = tau_c / (1.0 + R);
   const double F_prime = dtau_c / (1.0 + R) + tau_c * aH * R / ((1.0 + R) * (1.0 + R));
-  const double slip_1 = (dtau_c / tau_c - 2.0 * aH / (1.0 + R)) * (theta_b - t_g) + F * (
+  const double slip_1 = kNewt
+      ? (dtau_c / tau_c - 2.0 * aH / (1.0 + R)) * (theta_b - t_g) + F * (
+            -app_a * theta_b
+            + k2 * (-aH * d_g / 2.0 + cb2 * (-theta_b - metric_continuity)
+                    + (t_g + metric_continuity) / 3.0)
+            - aH * metric_euler)
+      : (dtau_c / tau_c - 2.0 * aH / (1.0 + R)) * (theta_b - t_g) + F * (
       -app_a * theta_b
       + k2 * (-aH * d_g / 2.0 + cb2 * (-theta_b - metric_continuity)
               + (t_g + metric_continuity) / 3.0));
   const double shear_g_tca1 = 16.0 / 45.0 * tau_c * (t_g + metric_shear);
-  const double theta_prime0 = (-aH * theta_b + k2 * (cb2 * delta_b + R / 4.0 * d_g)) / (1.0 + R);
+  const double theta_prime0 = kNewt
+      ? (-aH * theta_b + k2 * (cb2 * delta_b + R / 4.0 * d_g)) / (1.0 + R) + metric_euler
+      : (-aH * theta_b + k2 * (cb2 * delta_b + R / 4.0 * d_g)) / (1.0 + R);
   const double shear_g_prime1 = 16.0 / 45.0 * (tau_c * (theta_prime0 + metric_shear_prime)
                                                 + dtau_c * (t_g + metric_shear));
   const double tca_slip = (1.0 - 2.0 * aH * F) * slip_1 + F * k2 * (
@@ -351,9 +410,13 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   const double tca_shear_g = (1.0 - 11.0 / 6.0 * dtau_c) * shear_g_tca1
       - 11.0 / 6.0 * tau_c * 16.0 / 45.0 * tau_c * (theta_prime0 + metric_shear_prime);
 
-  const double theta_b_prime_notca = -aH * theta_b + k2 * cb2 * delta_b + R * kap * (t_g - theta_b);
-  const double theta_b_prime_tca =
-      (-aH * theta_b + k2 * (cb2 * delta_b + R * (d_g / 4.0 - s2 * tca_shear_g))
+  const double theta_b_prime_notca = kNewt
+      ? -aH * theta_b + k2 * cb2 * delta_b + metric_euler + R * kap * (t_g - theta_b)
+      : -aH * theta_b + k2 * cb2 * delta_b + R * kap * (t_g - theta_b);
+  const double theta_b_prime_tca = kNewt
+      ? (-aH * theta_b + k2 * (cb2 * delta_b + R * (d_g / 4.0 - s2 * tca_shear_g))
+         + R * tca_slip) / (1.0 + R) + metric_euler
+      : (-aH * theta_b + k2 * (cb2 * delta_b + R * (d_g / 4.0 - s2 * tca_shear_g))
        + R * tca_slip) / (1.0 + R);
   const double theta_b_prime = tca ? theta_b_prime_tca : theta_b_prime_notca;
   const double P0 = (G0 + G2 + 2.0 * s_l2 * shear_g) / 8.0;
@@ -366,21 +429,33 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
       dy[L.delta_g] = rsa ? 0.0 : -4.0 / 3.0 * (t_g + metric_continuity);
       dy[L.delta_b] = -(theta_b + metric_continuity);
       dy[L.theta_b] = theta_b_prime;
-      const double theta_g_prime_full = k2 * (d_g / 4.0 - s2 * shear_g) + kap * (theta_b - t_g);
-      const double theta_g_prime_tca = -(theta_b_prime + aH * theta_b - k2 * cb2 * delta_b) / R
+      const double theta_g_prime_full = kNewt
+          ? k2 * (d_g / 4.0 - s2 * shear_g) + metric_euler + kap * (theta_b - t_g)
+          : k2 * (d_g / 4.0 - s2 * shear_g) + kap * (theta_b - t_g);
+      const double theta_g_prime_tca = kNewt
+          ? -(theta_b_prime + aH * theta_b - k2 * cb2 * delta_b) / R
+            + k2 * (0.25 * d_g - s2 * tca_shear_g) + (1.0 + R) / R * metric_euler
+          : -(theta_b_prime + aH * theta_b - k2 * cb2 * delta_b) / R
                                        + k2 * (0.25 * d_g - s2 * tca_shear_g);
       dy[L.theta_g] = rsa ? 0.0 : (tca ? theta_g_prime_tca : theta_g_prime_full);
       dy[L.shear_g] = hier_on ? 0.5 * (8.0 / 15.0 * (theta_g + metric_shear)
                                        - 3.0 / 5.0 * k * s_l3 / s_l2 * y[L.F_g]
                                        - kap * (2.0 * shear_g - 4.0 / 5.0 / s_l2 * P0))
                               : 0.0;
-      dy[L.delta_cdm] = -metric_continuity;
+      if constexpr (kNewt) {   // cdm velocity (perturb_derivs :8238-8248)
+        dy[L.delta_cdm] = -(theta_cdm + metric_continuity);
+        dy[L.theta_cdm] = -aH * theta_cdm + metric_euler;
+      } else {
+        dy[L.delta_cdm] = -metric_continuity;
+      }
       dy[L.delta_ur] = ur_on ? -4.0 / 3.0 * (theta_ur + metric_continuity) : 0.0;
-      dy[L.theta_ur] = ur_on ? k2 * (delta_ur / 4.0 - s2 * shear_ur) : 0.0;
+      dy[L.theta_ur] = ur_on ? (kNewt ? k2 * (delta_ur / 4.0 - s2 * shear_ur) + metric_euler
+                                      : k2 * (delta_ur / 4.0 - s2 * shear_ur))
+                             : 0.0;
       const double d_shear_ur_full = 0.5 * (8.0 / 15.0 * (theta_ur + metric_shear)
                                             - 3.0 / 5.0 * k * s_l3 / s_l2 * y[L.F_ur]);
       const double d_shear_ur_ufa = -3.0 / tau * shear_ur
-                                    + 2.0 / 3.0 * (theta_ur + metric_continuity);
+                                    + 2.0 / 3.0 * (theta_ur + metric_ufa);
       dy[L.shear_ur] = ur_on ? (ufa ? d_shear_ur_ufa : d_shear_ur_full) : 0.0;
       dy[L.eta] = eta_prime;
     }
@@ -447,10 +522,12 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
           const double ca2 = w_s / 3.0 / (1.0 + w_s) * (5.0 - pp_s / p_s);
           const double ceff2 = ca2, cvis2 = 3.0 * w_s * ca2;
           dy[base] = -(1.0 + w_s) * (t_fl + metric_continuity) - 3.0 * aH * (ceff2 - w_s) * d_fl;
-          dy[base + 1] = -aH * (1.0 - 3.0 * ca2) * t_fl + ceff2 / (1.0 + w_s) * k2 * d_fl
+          dy[base + 1] = kNewt ? -aH * (1.0 - 3.0 * ca2) * t_fl + ceff2 / (1.0 + w_s) * k2 * d_fl
+                                     - k2 * s_fl + metric_euler
+                               : -aH * (1.0 - 3.0 * ca2) * t_fl + ceff2 / (1.0 + w_s) * k2 * d_fl
                          - k2 * s_fl;
           dy[base + 2] = -3.0 * (aH * (2.0 / 3.0 - ca2 - pp_s / p_s / 3.0) + 1.0 / tau) * s_fl
-                         + 8.0 / 3.0 * cvis2 / (1.0 + w_s) * s_l2 * (t_fl + metric_continuity);
+                         + 8.0 / 3.0 * cvis2 / (1.0 + w_s) * s_l2 * (t_fl + metric_ufa);
         }
       } else {
         const double ax = a * T.x_fac[s];
@@ -468,7 +545,9 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
           } else {
             const double nxt = y[o + l + 1];
             if (l == 0) d = -qk_eps * nxt + metric_continuity * dl0 / 3.0;
-            else if (l == 1) d = qk_eps / 3.0 * (lm1 - 2.0 * s_l2 * nxt);
+            else if (l == 1) d = kNewt ? qk_eps / 3.0 * (lm1 - 2.0 * s_l2 * nxt)
+                                             - eps * metric_euler / (3.0 * q * k) * dl0
+                                       : qk_eps / 3.0 * (lm1 - 2.0 * s_l2 * nxt);
             else if (l == 2) d = qk_eps / 5.0 * (2.0 * s_l2 * lm1 - 3.0 * s_l3 * nxt)
                                  - s_l2 * metric_shear * 2.0 / 15.0 * dl0;
             else d = qk_eps / (2.0 * l + 1.0) * (l * sl[l] * lm1 - (l + 1.0) * sl[l + 1] * nxt);
@@ -482,14 +561,15 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
 
   // gauge-invariant matter variables and the rest of the locals
   const double rho_m_cb = rho_b + rho_cdm;
-  const double theta_cb_gauge = rho_b * theta_b / rho_m_cb;
+  const double rho_theta_cb = kNewt ? rho_b * theta_b + rho_cdm * theta_cdm : rho_b * theta_b;
+  const double theta_cb_gauge = rho_theta_cb / rho_m_cb;
   const double delta_cb = (rho_b * delta_b + rho_cdm * delta_cdm) / rho_m_cb
                           + 3.0 * aH * theta_cb_gauge / k2;
   const double theta_cb = theta_cb_gauge + k2 * alpha;
   if (ns) {
     const double rho_m = rho_m_cb + sum_rho_nc, rpp_m = rho_m_cb + sum_rpp_nc;
     const double delta_rho_m = rho_b * delta_b + rho_cdm * delta_cdm + sum_rho_delta;
-    const double theta_m_gauge = (rho_b * theta_b + sum_rpt) / rpp_m;
+    const double theta_m_gauge = (rho_theta_cb + sum_rpt) / rpp_m;
     loc.delta_m = delta_rho_m / rho_m + 3.0 * aH * theta_m_gauge / k2;
     loc.theta_m = theta_m_gauge + k2 * alpha;
     loc.delta_nc = sum_rho_delta / sum_rho_nc;
@@ -507,10 +587,10 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   loc.aH = aH; loc.aH_prime = aH_prime; loc.h_prime = h_prime; loc.eta_prime = eta_prime;
   loc.alpha = alpha; loc.alpha_prime = alpha_prime; loc.theta_b_prime = theta_b_prime;
   loc.eta = eta;
-  loc.phi = eta - aH * alpha;
-  loc.psi = aH * alpha + alpha_prime;
-  loc.phi_plus_psi = eta + alpha_prime;
-  loc.phi_prime = eta_prime - aH_prime * alpha - aH * alpha_prime;
+  loc.phi = phi;
+  loc.psi = psi;
+  loc.phi_plus_psi = phi_plus_psi;
+  loc.phi_prime = phi_prime;
   loc.delta_g_eff = d_g; loc.theta_g_eff = t_g;
   loc.delta_ur_eff = rsa ? rsa_delta_ur : delta_ur;
   loc.theta_ur_eff = rsa ? rsa_theta_ur : theta_ur;
@@ -572,8 +652,12 @@ PK_FN void stiff_solve(const Layout& L, const Team& tm, const Frame& fr, const F
   team_sync(tm);
 }
 
-// Adiabatic initial state at fr.tau (equations.py adiabatic_ic). Ends with
-// team_sync().
+// Adiabatic initial state at fr.tau (equations.py adiabatic_ic), and in the
+// Newtonian gauge its transform (equations.py ic_to_newtonian): alpha from the
+// first two Einstein equations, every species shifted by it, theta_cdm =
+// k^2 alpha, phi in the eta slot, and the ncdm Psi_0, Psi_1 seeded from the
+// shifted ur variables. Ends with team_sync().
+template <bool kNewt>
 PK_FN void adiabatic_ic(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
                         const Lane& ln, const Vec y) {
   const double k = ln.k, tau = fr.tau, ci = 1.0, s2 = 1.0 - 3.0 * ln.K / (k * k);
@@ -597,7 +681,39 @@ PK_FN void adiabatic_ic(const Layout& L, const Tables& T, const Team& tm, const 
   eta_hat = eta_hat + (ci - ln.eta_off);
   for (int i = tm.tid; i < L.n; i += tm.nt) y[i] = 0.0;
   team_sync(tm);
-  if (tm.tid == 0) {
+  // the ur density and velocity the ncdm Psi_0, Psi_1 are seeded from
+  double nc_delta = delta_g, nc_theta = theta_ur;
+  if constexpr (kNewt) {
+    const double k2 = k * k, aH = fr.a * fr.H;
+    double rho_ur = fr.rho_ur;
+    for (int s = 0; s < L.ns; ++s) rho_ur += fr.nc[3 * s];   // still relativistic here
+    const double rho_rn = fr.rho_g + rho_ur;
+    const double fracg = fr.rho_g / rho_rn, fracn = rho_ur / rho_rn, fraccdm = 1.0 - fracb;
+    const double rmr = rho_m / rho_rn;
+    const double delta_tot = (fracg * delta_g + fracn * delta_g
+                              + rmr * (fracb * (0.75 * delta_g) + fraccdm * (0.75 * delta_g)))
+                             / (1.0 + rmr);
+    const double velocity_tot = (4.0 / 3.0 * (fracg * theta_g + fracn * theta_ur)
+                                 + rmr * fracb * theta_g) / (1.0 + rmr);
+    const double eta = eta_hat + ln.eta_off;
+    const double alpha = (eta + 1.5 * aH * aH / (k2 * s2)
+                          * (delta_tot + 3.0 * aH / k2 * velocity_tot)) / aH;
+    nc_delta = delta_g + -4.0 * aH * alpha;
+    nc_theta = theta_ur + k2 * alpha;
+    if (tm.tid == 0) {
+      y[L.delta_g] = nc_delta;
+      y[L.theta_g] = theta_g + k2 * alpha;
+      y[L.delta_b] = 0.75 * delta_g + -3.0 * aH * alpha;
+      y[L.theta_b] = theta_g + k2 * alpha;
+      y[L.delta_cdm] = 0.75 * delta_g + -3.0 * aH * alpha;
+      y[L.theta_cdm] = k2 * alpha;
+      y[L.delta_ur] = nc_delta;
+      y[L.theta_ur] = nc_theta;
+      y[L.shear_ur] = shear_ur;
+      y[L.F_ur] = l3_ur;
+      y[L.eta] = eta - aH * alpha;
+    }
+  } else if (tm.tid == 0) {
     y[L.delta_g] = delta_g;
     y[L.theta_g] = theta_g;
     y[L.delta_b] = 0.75 * delta_g;
@@ -616,8 +732,8 @@ PK_FN void adiabatic_ic(const Layout& L, const Tables& T, const Team& tm, const 
     const double q = T.q[iq], eps = sqrt(q * q + ax * ax);
     const double dl0 = T.dlnf0[s * L.nq + iq];
     const int o = L.ncdm + (s * L.nq + iq) * L.nl;
-    y[o] = -0.25 * delta_g * dl0;
-    y[o + 1] = -eps / (3.0 * q * k) * theta_ur * dl0;
+    y[o] = -0.25 * nc_delta * dl0;
+    y[o + 1] = -eps / (3.0 * q * k) * nc_theta * dl0;
     y[o + 2] = -0.5 * shear_ur * dl0;
     y[o + 3] = -0.25 * l3_ur * dl0;
   }
@@ -627,11 +743,12 @@ PK_FN void adiabatic_ic(const Layout& L, const Tables& T, const Team& tm, const 
 // Photon hierarchy from its tight-coupling values (remap_tca_off). `fl` are
 // the flags at the switch time; the shear is evaluated with tca forced on.
 // Ends with team_sync().
+template <bool kNewt>
 PK_FN void remap_tca_off(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
                          const Lane& ln, Flags fl, const Vec y) {
   Locals loc;
   fl.tca = true;
-  rhs_full(L, T, tm, fr, ln, fl, y, y, false, loc);
+  rhs_full<kNewt>(L, T, tm, fr, ln, fl, y, y, false, loc);
   team_sync(tm);   // every thread has read y
   if (tm.tid == 0) {
     const double kk = ln.k / fr.kap, s_l2 = ln.sl[2], s_l3 = ln.sl[3];
@@ -680,22 +797,31 @@ PK_FN void remap_ncdmfa_on(const Layout& L, const Tables& T, const Team& tm, con
   }
 }
 
-// The 27 source columns at (k, fr.tau) (compute_sources), SrcIdx order,
-// written by thread 0 to `out` (which no thread of the team reads).
+// The 27 source columns at (k, fr.tau) (compute_sources), SrcIdx order, in
+// the efficient form of the gauge, written by thread 0 to `out` (which no
+// thread of the team reads).
+template <bool kNewt>
 PK_FN void compute_sources(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
                            const Lane& ln, const Flags& fl, const Vec y, double* out) {
   Locals c;
-  rhs_full(L, T, tm, fr, ln, fl, y, y, false, c);
+  rhs_full<kNewt>(L, T, tm, fr, ln, fl, y, y, false, c);
   if (tm.tid != 0) return;
   const double k = ln.k, k2 = k * k;
   const double g = fr.g, dg = fr.dg, emk = fr.emk;
   const double aH = c.aH, al = c.alpha, alp = c.alpha_prime;
   const double theta_b = y[L.theta_b];
-  out[0] = g * (c.delta_g_eff / 4.0 + alp)
-           + (g * (c.eta - alp - 2.0 * aH * al)
-              + emk * 2.0 * (c.eta_prime - c.aH_prime * al - aH * alp))
-           + (g * (c.theta_b_prime / k2 + alp) + dg * (theta_b / k2 + al));
-  out[1] = emk * k * (alp + 2.0 * aH * al - c.eta);
+  if constexpr (kNewt) {
+    out[0] = g * (c.delta_g_eff / 4.0 + c.psi)
+             + (g * (c.phi - c.psi) + emk * 2.0 * c.phi_prime)
+             + (g * c.theta_b_prime + dg * theta_b) / k2;
+    out[1] = emk * k * (c.psi - c.phi);
+  } else {
+    out[0] = g * (c.delta_g_eff / 4.0 + alp)
+             + (g * (c.eta - alp - 2.0 * aH * al)
+                + emk * 2.0 * (c.eta_prime - c.aH_prime * al - aH * alp))
+             + (g * (c.theta_b_prime / k2 + alp) + dg * (theta_b / k2 + al));
+    out[1] = emk * k * (alp + 2.0 * aH * al - c.eta);
+  }
   out[2] = g * c.P;
   out[3] = sqrt(6.0) * g * c.P;
   out[4] = c.phi; out[5] = c.psi; out[6] = c.phi_plus_psi; out[7] = c.phi_prime;
@@ -703,7 +829,7 @@ PK_FN void compute_sources(const Layout& L, const Tables& T, const Team& tm, con
   out[12] = c.h_prime; out[13] = c.eta;
   out[14] = c.delta_g_eff; out[15] = c.theta_g_eff;
   out[16] = y[L.delta_b]; out[17] = theta_b;
-  out[18] = y[L.delta_cdm]; out[19] = 0.0;
+  out[18] = y[L.delta_cdm]; out[19] = kNewt ? y[L.theta_cdm] : 0.0;
   out[20] = c.delta_ur_eff; out[21] = c.theta_ur_eff;
   out[22] = c.delta_nc; out[23] = c.theta_nc;
   out[24] = c.delta_tot; out[25] = c.H_T_Nb_prime; out[26] = c.theta_tot;
@@ -721,6 +847,7 @@ PK_HOST_FN long work_doubles(const Layout& L) {
 // rtol/atol: this lane's per-component tolerances; work: the lane's scratch,
 // shared by the team (ln.sl is set to its s_l table). Every thread returns the
 // same status word and step count.
+template <bool kNewt>
 PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane ln,
                          double tau_ini, const double* taus, int ntau, const double* rtol,
                          const double* atol, long max_steps, const Vec work, double* S,
@@ -746,7 +873,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
   Frame fr;
   double t = tau_ini, h = 0.1 * tau_ini;
   frame_at(T, tm, t, fbuf, fr);
-  adiabatic_ic(L, T, tm, fr, ln, y);
+  adiabatic_ic<kNewt>(L, T, tm, fr, ln, y);
 
   int j = 0, bad_in_a_row = 0, status = kOk;
   long long nsteps = 0;
@@ -790,7 +917,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       Locals unused;
       stiff_apply(L, tm, fr, fl, sl2, Ys, fi);
       PK_PROF(3)
-      rhs_full(L, T, tm, fr, ln, fl, Ys, fe, true, unused);
+      rhs_full<kNewt>(L, T, tm, fr, ln, fl, Ys, fe, true, unused);
       PK_PROF(4)
       for (int c = tid; c < nst; c += nt) fe[c] -= fi[c];
       team_sync(tm);
@@ -861,7 +988,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       if (any) {
         const Flags fn = flags_at(ln, t_new);
         frame_at(T, tm, t_new, fbuf, fr);
-        if (crossed[0]) remap_tca_off(L, T, tm, fr, ln, fn, y);
+        if (crossed[0]) remap_tca_off<kNewt>(L, T, tm, fr, ln, fn, y);
         if (crossed[1]) remap_ufa_on(L, tm, y);
         if (crossed[2]) remap_rsa_on(L, tm, y);
         if (ns && crossed[3]) remap_ncdmfa_on(L, T, tm, fr, ln, y);
@@ -869,7 +996,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       t = t_new;
       if (t_new >= t_b * (1.0 - 1e-15)) {
         frame_at(T, tm, t_b, fbuf, fr);
-        compute_sources(L, T, tm, fr, ln, flags_at(ln, t_b), y, S + (long)j * kNSrc);
+        compute_sources<kNewt>(L, T, tm, fr, ln, flags_at(ln, t_b), y, S + (long)j * kNSrc);
         t = t_b;
         ++j;
       }

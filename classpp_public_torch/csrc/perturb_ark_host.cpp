@@ -6,23 +6,52 @@
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libperturb_ark_host.so perturb_ark_host.cpp
 //
-// The arguments of perturb_ark_host_curved are those of perturb_ark_launch
+// The arguments of perturb_ark_host_gauge are those of perturb_ark_launch
 // (perturb_ark.cu) with host pointers and a scratch of work_doubles, without
-// the stream; perturb_ark_host is the flat case (K = 0). The package never
-// loads this library; tests/test_torch_perturbations.py and
-// tests/test_torch_curved.py do.
+// the stream; perturb_ark_host_curved is its synchronous case and
+// perturb_ark_host the flat synchronous one (K = 0). The package never loads
+// this library; tests/test_torch_perturbations.py, tests/test_torch_curved.py
+// and tests/test_torch_newtonian.py do.
 
 #include "perturb_ark.cuh"
 
-extern "C" int perturb_ark_host_curved(const int* layout, const double* lanes,
-                                       const double* taus, const double* bg_y,
-                                       const double* bg_y2, double bg_x0, double bg_dx, int bg_n,
-                                       const double* th_y, const double* th_y2, double th_x0,
-                                       double th_dx, int th_n, const double* ncdm,
-                                       const double* rtol, const double* atol,
-                                       double k_eta_split, double K, int sgnK,
-                                       long long max_steps, int nlanes, int ntau, double* work,
-                                       double* S, long long* nsteps, int* status) {
+namespace {
+
+template <bool kNewt>
+void run_lanes(const pk::Layout& L, const pk::Tables& T, const double* lanes, const double* taus,
+               const double* rtol, const double* atol, double k_eta_split, double K, int sgnK,
+               long long max_steps, int nlanes, int ntau, double* work, double* S,
+               long long* nsteps, int* status) {
+  for (int lane = 0; lane < nlanes; ++lane) {
+    pk::Lane ln;
+    ln.k = lanes[lane];
+    const double tau_ini = lanes[nlanes + lane];
+    ln.t_tca = lanes[2 * nlanes + lane];
+    ln.t_ufa = lanes[3 * nlanes + lane];
+    ln.t_rsa = lanes[4 * nlanes + lane];
+    ln.t_ncfa = lanes[5 * nlanes + lane];
+    ln.eta_off = kNewt ? 0.0 : (ln.k < k_eta_split ? 1.0 : 0.0);
+    ln.K = K;
+    ln.sgnK = sgnK;
+    ln.sl = nullptr;
+    status[lane] = pk::integrate_lane<kNewt>(
+        L, T, pk::Team{0, 1}, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n,
+        atol + (long)lane * L.n, (long)max_steps, work, S + (long)lane * ntau * pk::kNSrc,
+        &nsteps[lane]);
+  }
+}
+
+}  // namespace
+
+extern "C" int perturb_ark_host_gauge(const int* layout, const double* lanes,
+                                      const double* taus, const double* bg_y,
+                                      const double* bg_y2, double bg_x0, double bg_dx, int bg_n,
+                                      const double* th_y, const double* th_y2, double th_x0,
+                                      double th_dx, int th_n, const double* ncdm,
+                                      const double* rtol, const double* atol,
+                                      double k_eta_split, double K, int sgnK, int gauge,
+                                      long long max_steps, int nlanes, int ntau, double* work,
+                                      double* S, long long* nsteps, int* status) {
   pk::Layout L;
   int* li = reinterpret_cast<int*>(&L);
   for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
@@ -33,24 +62,28 @@ extern "C" int perturb_ark_host_curved(const int* layout, const double* lanes,
   const long nsq = (long)L.ns * L.nq;
   T.q = ncdm; T.w = ncdm + L.nq; T.dlnf0 = T.w + nsq; T.x_fac = T.dlnf0 + nsq;
   T.pref = T.x_fac + L.ns;
-  for (int lane = 0; lane < nlanes; ++lane) {
-    pk::Lane ln;
-    ln.k = lanes[lane];
-    const double tau_ini = lanes[nlanes + lane];
-    ln.t_tca = lanes[2 * nlanes + lane];
-    ln.t_ufa = lanes[3 * nlanes + lane];
-    ln.t_rsa = lanes[4 * nlanes + lane];
-    ln.t_ncfa = lanes[5 * nlanes + lane];
-    ln.eta_off = ln.k < k_eta_split ? 1.0 : 0.0;
-    ln.K = K;
-    ln.sgnK = sgnK;
-    ln.sl = nullptr;
-    status[lane] = pk::integrate_lane(
-        L, T, pk::Team{0, 1}, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n,
-        atol + (long)lane * L.n, (long)max_steps, work, S + (long)lane * ntau * pk::kNSrc,
-        &nsteps[lane]);
-  }
+  if (gauge < 0 || gauge > 1 || (gauge == 1) != (L.theta_cdm >= 0)) return 1;
+  if (gauge == 1)
+    run_lanes<true>(L, T, lanes, taus, rtol, atol, k_eta_split, K, sgnK, max_steps, nlanes, ntau,
+                    work, S, nsteps, status);
+  else
+    run_lanes<false>(L, T, lanes, taus, rtol, atol, k_eta_split, K, sgnK, max_steps, nlanes,
+                     ntau, work, S, nsteps, status);
   return 0;
+}
+
+extern "C" int perturb_ark_host_curved(const int* layout, const double* lanes,
+                                       const double* taus, const double* bg_y,
+                                       const double* bg_y2, double bg_x0, double bg_dx, int bg_n,
+                                       const double* th_y, const double* th_y2, double th_x0,
+                                       double th_dx, int th_n, const double* ncdm,
+                                       const double* rtol, const double* atol,
+                                       double k_eta_split, double K, int sgnK,
+                                       long long max_steps, int nlanes, int ntau, double* work,
+                                       double* S, long long* nsteps, int* status) {
+  return perturb_ark_host_gauge(layout, lanes, taus, bg_y, bg_y2, bg_x0, bg_dx, bg_n, th_y, th_y2,
+                                th_x0, th_dx, th_n, ncdm, rtol, atol, k_eta_split, K, sgnK, 0,
+                                max_steps, nlanes, ntau, work, S, nsteps, status);
 }
 
 extern "C" int perturb_ark_host(const int* layout, const double* lanes, const double* taus,

@@ -4,16 +4,23 @@ source functions.
 
 Counterpart of classpp_public_tpu/models/perturbations/equations.py
 (`PertCtx` :134, `rhs_full` :225, `stiff_apply` :1017, `stiff_solve` :1057,
-`adiabatic_ic` :1109, `remap_tca_off` :1421, `remap_ufa_on` :1448,
-`remap_ncdmfa_on` :1456, `remap_rsa_on` :1482, `compute_sources` :1501),
-restricted to the synchronous-gauge branches: photons, polarization,
-baryons, cdm, massless neutrinos, massive neutrinos (ncdm: the Psi_l(q)
-hierarchy on a shared momentum grid, or its fluid approximation) and the
-metric, in open, flat and closed universes. The curvature enters through the
-free-streaming factors s_l = sqrt(1 - K (l^2 - 1)/k^2), s2 = 1 - 3 K/k^2 and
-cotKgen = sqrt|K| cot_K(sqrt|K| tau)/k (`curvature`); in a flat universe
-s_l = s2 = 1 exactly and cotKgen = 1/(k tau). In synchronous gauge
-metric_euler is 0.
+`adiabatic_ic` :1109, `_ic_to_newtonian` :1317, `initial_conditions` :1412,
+`remap_tca_off` :1421, `remap_ufa_on` :1448, `remap_ncdmfa_on` :1456,
+`remap_rsa_on` :1482, `compute_sources` :1501), restricted to photons,
+polarization, baryons, cdm, massless neutrinos, massive neutrinos (ncdm: the
+Psi_l(q) hierarchy on a shared momentum grid, or its fluid approximation) and
+the metric, in open, flat and closed universes, in the synchronous or the
+Newtonian gauge. The curvature enters through the free-streaming factors
+s_l = sqrt(1 - K (l^2 - 1)/k^2), s2 = 1 - 3 K/k^2 and cotKgen =
+sqrt|K| cot_K(sqrt|K| tau)/k (`curvature`); in a flat universe s_l = s2 = 1
+exactly and cotKgen = 1/(k tau).
+
+The gauge enters through the metric terms of the species' equations. In the
+synchronous gauge metric_euler is 0, which the synchronous branch leaves
+out, and metric_ufa equals metric_continuity. In the Newtonian gauge the state
+slot `idx.eta` holds phi, psi is constrained, theta_cdm evolves, and
+metric_continuity = -3 phi', metric_euler = k^2 psi, metric_shear = 0,
+metric_ufa = -6 phi' (equations.py:496-528).
 
 Every function takes the state as (L, n): one row per lane (k mode), each
 with its own time, wavenumber and approximation flags. The tables are read
@@ -210,6 +217,7 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     shear_ur = y[:, idx.shear_ur]
     F_ur = y[:, idx.F_ur: idx.F_ur + idx.n_F_ur]
     eta = y[:, idx.eta] + ctx.eta_off
+    newt = idx.gauge == "newtonian"
 
     if idx.n_ncdm:
         # exact momentum integrals or the fluid variables in slots
@@ -244,33 +252,64 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         rho_plus_p_shear = rho_plus_p_shear + rps_nc.sum(dim=1)
         delta_p = delta_p + dp_nc.sum(dim=1)
 
-    # Einstein 00 (perturb_einstein :5911) and the radiation-streaming
-    # values (perturb_rsa_delta_and_theta :9581-9615, rsa_MD_with_reio)
-    h_prime = (k2 * s2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH)
-    rsa_delta_g = 4.0 / k2 * (aH * h_prime - k2 * eta) \
-        - 4.0 / k2 * kap * (theta_b + 0.5 * h_prime)
-    rsa_theta_g = -0.5 * h_prime + 3.0 / k2 * (
-        kapp * (theta_b + 0.5 * h_prime)
-        + kap * (-aH * theta_b + cb2 * k2 * delta_b - aH * h_prime + k2 * eta))
-    rsa_delta_ur = 4.0 / k2 * (aH * h_prime - k2 * eta)
-    rsa_theta_ur = -0.5 * h_prime
-    delta_rho = delta_rho + _w(rsa, rho_g * rsa_delta_g + rho_ur * rsa_delta_ur, zero)
-    rho_plus_p_theta = rho_plus_p_theta + _w(
-        rsa, 4.0 / 3.0 * rho_g * rsa_theta_g + 4.0 / 3.0 * rho_ur * rsa_theta_ur, zero)
+    if newt:
+        # Einstein equations, Newtonian gauge (perturb_einstein :5870-5905):
+        # the slot holds phi, psi is constrained; under TCA the photon shear
+        # in psi is its first-order value 16/45/kappa' theta_g. Under RSA no
+        # radiation correction enters delta_rho or (rho+p) theta here
+        # (equations.py:496-528).
+        phi = eta
+        theta_cdm = y[:, idx.theta_cdm]
+        rho_plus_p_theta = rho_plus_p_theta + rho_cdm * theta_cdm
+        rho_plus_p_shear_psi = rho_plus_p_shear + _w(
+            tca, 4.0 / 3.0 * rho_g * 16.0 / 45.0 / kap * theta_g, zero)
+        psi = phi - 4.5 * (a2 / k2) * rho_plus_p_shear_psi
+        phi_prime = -aH * psi + 1.5 * (a2 / k2) * rho_plus_p_theta
+        # radiation streaming (perturb_rsa_delta_and_theta :9543)
+        rsa_delta_g = -4.0 * phi - 4.0 / k2 * kap * theta_b
+        rsa_theta_g = 6.0 * phi_prime + 3.0 / k2 * (
+            kapp * theta_b + kap * (-aH * theta_b + cb2 * k2 * delta_b + k2 * phi))
+        rsa_delta_ur = -4.0 * phi
+        rsa_theta_ur = 6.0 * phi_prime
+        metric_continuity = -3.0 * phi_prime
+        metric_euler = k2 * psi
+        metric_shear = zero
+        metric_shear_prime = zero
+        metric_ufa = -6.0 * phi_prime
+        h_prime = zero
+        eta_prime = phi_prime
+        alpha = zero
+        alpha_prime = zero
+        phi_plus_psi = phi + psi
+    else:
+        # Einstein 00 (perturb_einstein :5911) and the radiation-streaming
+        # values (perturb_rsa_delta_and_theta :9581-9615, rsa_MD_with_reio)
+        h_prime = (k2 * s2 * eta + 1.5 * a2 * delta_rho) / (0.5 * aH)
+        rsa_delta_g = 4.0 / k2 * (aH * h_prime - k2 * eta) \
+            - 4.0 / k2 * kap * (theta_b + 0.5 * h_prime)
+        rsa_theta_g = -0.5 * h_prime + 3.0 / k2 * (
+            kapp * (theta_b + 0.5 * h_prime)
+            + kap * (-aH * theta_b + cb2 * k2 * delta_b - aH * h_prime + k2 * eta))
+        rsa_delta_ur = 4.0 / k2 * (aH * h_prime - k2 * eta)
+        rsa_theta_ur = -0.5 * h_prime
+        delta_rho = delta_rho + _w(rsa, rho_g * rsa_delta_g + rho_ur * rsa_delta_ur, zero)
+        rho_plus_p_theta = rho_plus_p_theta + _w(
+            rsa, 4.0 / 3.0 * rho_g * rsa_theta_g + 4.0 / 3.0 * rho_ur * rsa_theta_ur, zero)
 
-    # Einstein 0i, trace, shear (:5941-5976)
-    eta_prime = (1.5 * a2 * rho_plus_p_theta + 0.5 * K * h_prime) / (k2 * s2)
-    alpha = (h_prime + 6.0 * eta_prime) / (2.0 * k2)
-    tca_shear_g_1 = 16.0 / 45.0 / kap * (theta_g + k2 * alpha)
-    rho_plus_p_shear = rho_plus_p_shear + _w(tca, 4.0 / 3.0 * rho_g * tca_shear_g_1, zero)
-    alpha_prime = -2.0 * aH * alpha + eta - 4.5 * (a2 / k2) * rho_plus_p_shear
-    metric_continuity = 0.5 * h_prime
-    metric_shear = k2 * alpha
-    metric_shear_prime = k2 * alpha_prime
-    phi = eta - aH * alpha
-    psi = aH * alpha + alpha_prime
-    phi_prime = eta_prime - aH_prime * alpha - aH * alpha_prime
-    phi_plus_psi = eta + alpha_prime
+        # Einstein 0i, trace, shear (:5941-5976)
+        eta_prime = (1.5 * a2 * rho_plus_p_theta + 0.5 * K * h_prime) / (k2 * s2)
+        alpha = (h_prime + 6.0 * eta_prime) / (2.0 * k2)
+        tca_shear_g_1 = 16.0 / 45.0 / kap * (theta_g + k2 * alpha)
+        rho_plus_p_shear = rho_plus_p_shear + _w(tca, 4.0 / 3.0 * rho_g * tca_shear_g_1, zero)
+        alpha_prime = -2.0 * aH * alpha + eta - 4.5 * (a2 / k2) * rho_plus_p_shear
+        metric_continuity = 0.5 * h_prime
+        metric_shear = k2 * alpha
+        metric_shear_prime = k2 * alpha_prime
+        phi = eta - aH * alpha
+        psi = aH * alpha + alpha_prime
+        phi_prime = eta_prime - aH_prime * alpha - aH * alpha_prime
+        phi_plus_psi = eta + alpha_prime
+        metric_ufa = metric_continuity
 
     d_g = _w(rsa, rsa_delta_g, delta_g)
     t_g = _w(rsa, rsa_theta_g, theta_g)
@@ -280,12 +319,15 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     dtau_c = -kapp * tau_c * tau_c
     F = tau_c / (1.0 + R)
     F_prime = dtau_c / (1.0 + R) + tau_c * aH * R / (1.0 + R) ** 2
-    slip_1 = (dtau_c / tau_c - 2.0 * aH / (1.0 + R)) * (theta_b - t_g) + F * (
-        -app_a * theta_b
-        + k2 * (-aH * d_g / 2.0 + cb2 * (-theta_b - metric_continuity)
-                + (t_g + metric_continuity) / 3.0))
+    slip_src = -app_a * theta_b + k2 * (-aH * d_g / 2.0 + cb2 * (-theta_b - metric_continuity)
+                                        + (t_g + metric_continuity) / 3.0)
+    if newt:
+        slip_src = slip_src - aH * metric_euler
+    slip_1 = (dtau_c / tau_c - 2.0 * aH / (1.0 + R)) * (theta_b - t_g) + F * slip_src
     shear_g_tca1 = 16.0 / 45.0 * tau_c * (t_g + metric_shear)
     theta_prime0 = (-aH * theta_b + k2 * (cb2 * delta_b + R / 4.0 * d_g)) / (1.0 + R)
+    if newt:
+        theta_prime0 = theta_prime0 + metric_euler
     shear_g_prime1 = 16.0 / 45.0 * (tau_c * (theta_prime0 + metric_shear_prime)
                                     + dtau_c * (t_g + metric_shear))
     tca_slip = (1.0 - 2.0 * aH * F) * slip_1 + F * k2 * (
@@ -297,17 +339,28 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     dy = torch.empty_like(y)
     dy[:, idx.delta_g] = _w(rsa, zero, -4.0 / 3.0 * (t_g + metric_continuity))
     dy[:, idx.delta_b] = -(theta_b + metric_continuity)
-    theta_b_prime_notca = -aH * theta_b + k2 * cb2 * delta_b + R * kap * (t_g - theta_b)
     theta_b_prime_tca = (-aH * theta_b
                          + k2 * (cb2 * delta_b + R * (d_g / 4.0 - s2 * tca_shear_g))
                          + R * tca_slip) / (1.0 + R)
+    if newt:
+        # metric_euler in the baryon and photon velocities (equations.py:611-622)
+        theta_b_prime_notca = (-aH * theta_b + k2 * cb2 * delta_b + metric_euler
+                               + R * kap * (t_g - theta_b))
+        theta_b_prime_tca = theta_b_prime_tca + metric_euler
+    else:
+        theta_b_prime_notca = -aH * theta_b + k2 * cb2 * delta_b + R * kap * (t_g - theta_b)
     theta_b_prime = _w(tca, theta_b_prime_tca, theta_b_prime_notca)
     dy[:, idx.theta_b] = theta_b_prime
 
     P0 = (G[:, 0] + G[:, 2] + 2.0 * s_l2 * shear_g) / 8.0
-    theta_g_prime_full = k2 * (d_g / 4.0 - s2 * shear_g) + kap * (theta_b - t_g)
     theta_g_prime_tca = (-(theta_b_prime + aH * theta_b - k2 * cb2 * delta_b) / R
                          + k2 * (0.25 * d_g - s2 * tca_shear_g))
+    if newt:
+        theta_g_prime_full = (k2 * (d_g / 4.0 - s2 * shear_g) + metric_euler
+                              + kap * (theta_b - t_g))
+        theta_g_prime_tca = theta_g_prime_tca + (1.0 + R) / R * metric_euler
+    else:
+        theta_g_prime_full = k2 * (d_g / 4.0 - s2 * shear_g) + kap * (theta_b - t_g)
     dy[:, idx.theta_g] = _w(rsa, zero, _w(tca, theta_g_prime_tca, theta_g_prime_full))
 
     hier_on = (~(tca | rsa))[:, None]
@@ -344,15 +397,24 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         - kap * G[:, -1]
     dy[:, idx.G_g: idx.G_g + idx.n_G_g] = _w(hier_on, dG, 0.0)
 
-    dy[:, idx.delta_cdm] = -metric_continuity
+    # cdm: the synchronous gauge is its rest frame; the Newtonian gauge
+    # evolves theta_cdm (perturb_derivs :8238-8248)
+    if newt:
+        dy[:, idx.delta_cdm] = -(theta_cdm + metric_continuity)
+        dy[:, idx.theta_cdm] = -aH * theta_cdm + metric_euler
+    else:
+        dy[:, idx.delta_cdm] = -metric_continuity
 
     # massless neutrinos (:8630-8672)
     ur_on = ~rsa
     dy[:, idx.delta_ur] = _w(ur_on, -4.0 / 3.0 * (theta_ur + metric_continuity), zero)
-    dy[:, idx.theta_ur] = _w(ur_on, k2 * (delta_ur / 4.0 - s2 * shear_ur), zero)
+    d_theta_ur = k2 * (delta_ur / 4.0 - s2 * shear_ur)
+    if newt:
+        d_theta_ur = d_theta_ur + metric_euler
+    dy[:, idx.theta_ur] = _w(ur_on, d_theta_ur, zero)
     d_shear_ur_full = 0.5 * (8.0 / 15.0 * (theta_ur + metric_shear)
                              - 3.0 / 5.0 * k * s_l3 / s_l2 * F_ur[:, 0])
-    d_shear_ur_ufa = -3.0 / tau * shear_ur + 2.0 / 3.0 * (theta_ur + metric_continuity)
+    d_shear_ur_ufa = -3.0 / tau * shear_ur + 2.0 / 3.0 * (theta_ur + metric_ufa)
     dy[:, idx.shear_ur] = _w(ur_on, _w(ufa, d_shear_ur_ufa, d_shear_ur_full), zero)
     lmax_u = idx.l_max_ur
     lu = torch.arange(3, lmax_u + 1, dtype=y.dtype, device=y.device)
@@ -377,6 +439,9 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         dPsi = qk_eps / (2.0 * ln_ + 1.0) * (ln_ * sl_n * Ps_m1 - (ln_ + 1.0) * sl_n_p1 * Ps_p1)
         dPsi[..., 0] = -qk_eps[..., 0] * Psi[..., 1] \
             + metric_continuity[:, None, None] * dl0 / 3.0
+        if newt:
+            dPsi[..., 1] = dPsi[..., 1] - eps_nc * metric_euler[:, None, None] \
+                / (3.0 * nc.q[None, None, :] * k[:, None, None]) * dl0
         sl2c, sl3c = s_l2[:, None, None], s_l3[:, None, None]
         dPsi[..., 2] = qk_eps[..., 0] / 5.0 * (2.0 * sl2c * Psi[..., 1]
                                                - 3.0 * sl3c * Psi[..., 3]) \
@@ -392,24 +457,28 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         dPsi_fl[:, :, 0, 0] = -(1.0 + w_nc) * (t_fl + mc) - 3.0 * aHc * (ceff2 - w_nc) * d_fl
         dPsi_fl[:, :, 0, 1] = (-aHc * (1.0 - 3.0 * ca2) * t_fl
                                + ceff2 / (1.0 + w_nc) * k2c * d_fl - k2c * s_fl)
+        if newt:
+            dPsi_fl[:, :, 0, 1] += metric_euler[:, None]
         dPsi_fl[:, :, 0, 2] = (
             -3.0 * (aHc * (2.0 / 3.0 - ca2 - pp_nc / p_nc / 3.0) + 1.0 / tau[:, None]) * s_fl
-            + 8.0 / 3.0 * cvis2 / (1.0 + w_nc) * s_l2[:, None] * (t_fl + mc))
+            + 8.0 / 3.0 * cvis2 / (1.0 + w_nc) * s_l2[:, None] * (t_fl + metric_ufa[:, None]))
         dPsi = _w(ctx.ncdmfa_on[:, None, None, None], dPsi_fl, dPsi)
         dy[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block] = dPsi.reshape(y.shape[0], -1)
 
     dy[:, idx.eta] = eta_prime
 
-    # gauge-invariant matter variables (perturb_einstein :5986-6006)
+    # gauge-invariant matter variables (perturb_einstein :5986-6006); in the
+    # Newtonian gauge alpha = 0 and the cdm velocity enters the sums
     rho_m_cb = rho_b + rho_cdm
-    theta_cb_gauge = rho_b * theta_b / rho_m_cb
+    rho_theta_cb = rho_b * theta_b + rho_cdm * theta_cdm if newt else rho_b * theta_b
+    theta_cb_gauge = rho_theta_cb / rho_m_cb
     delta_cb = (rho_b * delta_b + rho_cdm * delta_cdm) / rho_m_cb + 3.0 * aH * theta_cb_gauge / k2
     theta_cb = theta_cb_gauge + k2 * alpha
     rho_tot_species = rho_g + rho_b + rho_cdm + rho_ur
     if idx.n_ncdm:
         sum_rho_nc = rho_nc.sum(dim=1)
         sum_rpp_nc = rho_plus_p_nc.sum(dim=1)
-        theta_m_gauge = (rho_b * theta_b + rpt_nc.sum(dim=1)) / (rho_m_cb + sum_rpp_nc)
+        theta_m_gauge = (rho_theta_cb + rpt_nc.sum(dim=1)) / (rho_m_cb + sum_rpp_nc)
         delta_m = (rho_b * delta_b + rho_cdm * delta_cdm + rho_delta_nc.sum(dim=1)) \
             / (rho_m_cb + sum_rho_nc) + 3.0 * aH * theta_m_gauge / k2
         theta_m = theta_m_gauge + k2 * alpha
@@ -557,6 +626,71 @@ def adiabatic_ic(fr: Frame, ctx: PertCtx, curvature_ini: float = 1.0) -> torch.T
     return y
 
 
+def ic_to_newtonian(y: torch.Tensor, fr: Frame, ctx: PertCtx) -> torch.Tensor:
+    """Gauge-transform the synchronous initial state to the Newtonian gauge
+    (perturb_initial_conditions :5095-5250; equations.py:1317-1410): alpha =
+    (h' + 6 eta')/2k^2 from the first two Einstein equations (with the
+    curvature factor 1/s2), every species shifted by it, theta_cdm = k^2
+    alpha, the eta slot set to phi, and each ncdm Psi_0, Psi_1 re-seeded from
+    the shifted ur variables."""
+    idx = ctx.tables.idx
+    k = ctx.k
+    k2 = k * k
+    aH = fr.a * fr.H
+    rho_ur = fr.rho_ur
+    if idx.n_ncdm:
+        rho_ur = rho_ur + fr.rho_nc.sum(dim=1)   # still relativistic here
+    rho_r = fr.rho_g + rho_ur
+    rho_m = fr.rho_b + fr.rho_cdm
+    fracg = fr.rho_g / rho_r
+    fracnu = rho_ur / rho_r
+    fracb = fr.rho_b / rho_m
+    fraccdm = 1.0 - fracb
+    rmr = rho_m / rho_r
+    dg, tg = y[:, idx.delta_g], y[:, idx.theta_g]
+    db, tb = y[:, idx.delta_b], y[:, idx.theta_b]
+    dc = y[:, idx.delta_cdm]
+    dur, tur = y[:, idx.delta_ur], y[:, idx.theta_ur]
+    eta = y[:, idx.eta] + ctx.eta_off
+    delta_tot = (fracg * dg + fracnu * dur + rmr * (fracb * db + fraccdm * dc)) / (1.0 + rmr)
+    velocity_tot = (4.0 / 3.0 * (fracg * tg + fracnu * tur) + rmr * fracb * tb) / (1.0 + rmr)
+    s2 = 1.0 - 3.0 * ctx.tables.K / k2
+    alpha = (eta + 1.5 * aH * aH / (k2 * s2)
+             * (delta_tot + 3.0 * aH / k2 * velocity_tot)) / aH
+    y = y.clone()
+    y[:, idx.eta] = eta - aH * alpha
+    y[:, idx.delta_g] += -4.0 * aH * alpha
+    y[:, idx.theta_g] += k2 * alpha
+    y[:, idx.delta_b] += -3.0 * aH * alpha
+    y[:, idx.theta_b] += k2 * alpha
+    y[:, idx.delta_cdm] += -3.0 * aH * alpha
+    y[:, idx.theta_cdm] = k2 * alpha
+    y[:, idx.delta_ur] += -4.0 * aH * alpha
+    y[:, idx.theta_ur] += k2 * alpha            # shear and l = 3 are gauge invariant
+    if idx.n_ncdm:
+        nc = ctx.tables.ncdm
+        ns, nq, nl = idx.n_ncdm, idx.q_size_ncdm, idx.n_l_ncdm
+        eps = torch.sqrt(nc.q[None, None, :] ** 2
+                         + (fr.a[:, None, None] * nc.x_fac[None, :, None]) ** 2)
+        dl0 = nc.dlnf0[None]
+        Psi = y[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block].reshape(-1, ns, nq, nl).clone()
+        Psi[..., 0] = -0.25 * y[:, idx.delta_ur][:, None, None] * dl0
+        Psi[..., 1] = -eps / (3.0 * nc.q[None, None, :] * k[:, None, None]) \
+            * y[:, idx.theta_ur][:, None, None] * dl0
+        y[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block] = Psi.reshape(k.shape[0], -1)
+    return y
+
+
+def initial_conditions(fr: Frame, ctx: PertCtx) -> torch.Tensor:
+    """The adiabatic initial state in the layout's gauge: built in the
+    synchronous gauge and transformed for the Newtonian one
+    (equations.py:1412-1418)."""
+    y = adiabatic_ic(fr, ctx)
+    if ctx.tables.idx.gauge == "newtonian":
+        y = ic_to_newtonian(y, fr, ctx)
+    return y
+
+
 def remap_tca_off(y: torch.Tensor, fr: Frame, ctx: PertCtx) -> torch.Tensor:
     """Fill the photon hierarchy from its tight-coupling values when TCA
     switches off, with the curvature factors s_2, s_3 (perturb_vector_init
@@ -613,20 +747,30 @@ def remap_rsa_on(y: torch.Tensor, idx: PtIdx, on: torch.Tensor) -> torch.Tensor:
 
 
 def compute_sources(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
-    """All source functions at (k, tau) per lane, synchronous-gauge efficient
-    form (perturb_sources :6874-6895). Returns (L, SrcIdx.n)."""
+    """All source functions at (k, tau) per lane, in the efficient form of
+    the layout's gauge (perturb_sources :6848-6860 Newtonian, :6874-6895
+    synchronous; equations.py:1517-1530). Returns (L, SrcIdx.n)."""
     idx = ctx.tables.idx
     k = ctx.k
     k2 = k * k
     _, L = rhs_full(fr, y, ctx)
     g, dg, emk = fr.g, fr.dg, fr.emk
-    aH, al, alp = L["aH"], L["alpha"], L["alpha_prime"]
-    t0 = (g * (L["delta_g_eff"] / 4.0 + alp)
-          + (g * (L["eta"] - alp - 2.0 * aH * al)
-             + emk * 2.0 * (L["eta_prime"] - L["aH_prime"] * al - aH * alp))
-          + (g * (L["theta_b_prime"] / k2 + alp) + dg * (y[:, idx.theta_b] / k2 + al)))
-    t1 = emk * k * (alp + 2.0 * aH * al - L["eta"])
     zero = torch.zeros_like(k)
+    if idx.gauge == "newtonian":
+        phi, psi = L["phi"], L["psi"]
+        t0 = (g * (L["delta_g_eff"] / 4.0 + psi)
+              + (g * (phi - psi) + emk * 2.0 * L["phi_prime"])
+              + (g * L["theta_b_prime"] + dg * y[:, idx.theta_b]) / k2)
+        t1 = emk * k * (psi - phi)
+        theta_cdm = y[:, idx.theta_cdm]
+    else:
+        aH, al, alp = L["aH"], L["alpha"], L["alpha_prime"]
+        t0 = (g * (L["delta_g_eff"] / 4.0 + alp)
+              + (g * (L["eta"] - alp - 2.0 * aH * al)
+                 + emk * 2.0 * (L["eta_prime"] - L["aH_prime"] * al - aH * alp))
+              + (g * (L["theta_b_prime"] / k2 + alp) + dg * (y[:, idx.theta_b] / k2 + al)))
+        t1 = emk * k * (alp + 2.0 * aH * al - L["eta"])
+        theta_cdm = zero
     cols = {
         "t0": t0, "t1": t1, "t2": g * L["P"], "p": math.sqrt(6.0) * g * L["P"],
         "phi": L["phi"], "psi": L["psi"], "phi_plus_psi": L["phi_plus_psi"],
@@ -634,7 +778,7 @@ def compute_sources(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
         "delta_cb": L["delta_cb"], "theta_cb": L["theta_cb"], "h_prime": L["h_prime"],
         "eta_src": L["eta"], "delta_g": L["delta_g_eff"], "theta_g": L["theta_g_eff"],
         "delta_b": y[:, idx.delta_b], "theta_b": y[:, idx.theta_b],
-        "delta_cdm": y[:, idx.delta_cdm], "theta_cdm": zero,
+        "delta_cdm": y[:, idx.delta_cdm], "theta_cdm": theta_cdm,
         "delta_ur": L["delta_ur_eff"], "theta_ur": L["theta_ur_eff"],
         "delta_ncdm": L["delta_nc"], "theta_ncdm": L["theta_nc"], "delta_tot": L["delta_tot"],
         "H_T_Nb_prime": L["H_T_Nb_prime"], "theta_tot": L["theta_tot"],

@@ -3,9 +3,9 @@ classpp_public_tpu/models/perturbations/indices.py).
 
 One fixed maximal layout: slots inactive under the current approximation
 carry zero derivative and are re-initialised by a remap at the switch. The
-port holds the synchronous-gauge LambdaCDM + ur layout (open, flat or
-closed) plus the ncdm phase-space block; the other species' flags of the JAX
-PtIdx raise.
+port holds the LambdaCDM + ur layout in the synchronous or the Newtonian
+gauge (open, flat or closed) plus the ncdm phase-space block; the other
+species' flags of the JAX PtIdx raise.
 """
 
 from __future__ import annotations
@@ -32,19 +32,27 @@ class PtIdx:
     has_dcdm: bool = False
     has_scf: bool = False
     has_idm_dr: bool = False
+    # "synchronous" | "newtonian": in the Newtonian gauge the state gains
+    # theta_cdm and the eta slot holds the Bardeen potential phi
+    # (indices.py:36-39)
     gauge: str = "synchronous"
     # sign of the spatial curvature (reference pba->sgnK): 0 flat, -1 open,
     # +1 closed (indices.py:40-42)
     sgnK: int = 0
     nbody: bool = False
 
+    # the JAX line of each species flag that is not ported
+    _NOT_PORTED = {"has_fld": 35, "has_dcdm": 45, "has_scf": 51, "has_idm_dr": 56,
+                   "nbody": 89}
+
     def __post_init__(self):
-        extra = [n for n in ("has_fld", "has_dcdm", "has_scf",
-                             "has_idm_dr", "nbody") if getattr(self, n)]
-        if extra or self.gauge != "synchronous":
-            raise NotImplementedError(
-                f"perturbation layout {extra or [self.gauge]} is not ported "
-                "(classpp_public_tpu/models/perturbations/indices.py:18)")
+        for name, line in self._NOT_PORTED.items():
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"perturbation layout {name} is not ported "
+                    f"(classpp_public_tpu/models/perturbations/indices.py:{line})")
+        if self.gauge not in ("synchronous", "newtonian"):
+            raise ValueError(f"unknown gauge {self.gauge!r}")
 
     delta_g = 0
     theta_g = 1
@@ -76,8 +84,17 @@ class PtIdx:
         return self.theta_b + 1
 
     @property
-    def delta_ur(self):
+    def theta_cdm(self):
+        # Newtonian gauge only (the synchronous gauge fixes theta_cdm = 0)
         return self.delta_cdm + 1
+
+    @property
+    def n_theta_cdm(self):
+        return 1 if self.gauge == "newtonian" else 0
+
+    @property
+    def delta_ur(self):
+        return self.delta_cdm + 1 + self.n_theta_cdm
 
     @property
     def theta_ur(self):

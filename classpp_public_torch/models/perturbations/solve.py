@@ -24,6 +24,11 @@ from it in one batched pass after the loop. The host reads the lane state
 only every `SYNC_EVERY` iterations, to stop, drop finished lanes and skip the
 TCA remap once no lane can cross that switch any more.
 
+The gauge is the layout's (`PtIdx.gauge`): the kernel runs its synchronous or
+its Newtonian instance, the plain version the same equations. In the
+Newtonian gauge no lane stores eta - 1 (`_eta_off`) and the P(k)-tail lanes
+keep the CMB tolerances (`_tolerances`).
+
 The JAX package's chunk, window and mesh scheduling and its 256-bucketing
 (solve.py:514-737) are TPU launch shaping and have no counterpart here: the
 CMB lanes and the P(k)-tail lanes, which differ in their tolerances
@@ -112,7 +117,12 @@ def curvature_of(params: CosmoParams, bg) -> tuple:
     return K, 0 if params.Omega_k == 0.0 else (1 if K > 0 else -1)
 
 
-def _eta_off(k):
+def _eta_off(k, gauge="synchronous"):
+    """The eta storage offset per lane: 1 on the low-k lanes of the
+    synchronous gauge, 0 in the Newtonian gauge (JAX solve.py:206,
+    eta_flag)."""
+    if gauge == "newtonian":
+        return torch.zeros_like(k)
     return (k < K_ETA_SPLIT).to(k.dtype)
 
 
@@ -213,9 +223,9 @@ def integrate_sources_plain(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTab
     taus_ext = torch.cat([taus, taus[-1:]])
     nsteps_all = torch.zeros(nl_tot, dtype=torch.long, device=dev)
 
-    eta_off = _eta_off(lanes.k)
+    eta_off = _eta_off(lanes.k, tables.idx.gauge)
     t0 = lanes.tau_ini.clone()
-    y0 = eq.adiabatic_ic(eq.frame_at(t0, tables), _ctx(lanes, t0, eta_off, tables))
+    y0 = eq.initial_conditions(eq.frame_at(t0, tables), _ctx(lanes, t0, eta_off, tables))
     s = _LaneState(ids=torch.arange(nl_tot, device=dev), k=lanes.k, tau_ini=lanes.tau_ini,
                    t_tca=lanes.t_tca, t_ufa=lanes.t_ufa, t_rsa=lanes.t_rsa,
                    t_ncfa=lanes.t_ncfa, eta_off=eta_off,
@@ -262,18 +272,23 @@ def integrate_sources_plain(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTab
         lane = flat_lane[c0:c1]
         tt = flat_tau[c0:c1]
         lc = lanes.take(lane)
-        ctx = _ctx(lc, tt, _eta_off(lc.k), tables)
+        ctx = _ctx(lc, tt, _eta_off(lc.k, tables.idx.gauge), tables)
         Sflat[c0:c1] = eq.compute_sources(eq.frame_at(tt, tables), Ys[c0:c1], ctx)
     return S, nsteps_all
 
 
+LAYOUT_INTS = 22   # pk::kLayoutInts
+GAUGES = {"synchronous": 0, "newtonian": 1}   # the kernel's gauge argument
+
+
 def _layout_ints(idx: PtIdx) -> list:
-    """PtIdx as the int fields of the kernel's pk::Layout, in its order."""
+    """PtIdx as the int fields of the kernel's pk::Layout, in its order
+    (theta_cdm -1 in the synchronous gauge, which has no such slot)."""
     return [idx.size, idx.delta_g, idx.theta_g, idx.shear_g, idx.F_g, idx.n_F_g,
             idx.G_g, idx.n_G_g, idx.delta_b, idx.theta_b, idx.delta_cdm,
-            idx.delta_ur, idx.theta_ur, idx.shear_ur, idx.F_ur, idx.n_F_ur,
-            idx.ncdm, idx.n_ncdm, idx.q_size_ncdm if idx.n_ncdm else 0,
-            idx.n_l_ncdm if idx.n_ncdm else 0, idx.eta]
+            idx.theta_cdm if idx.n_theta_cdm else -1, idx.delta_ur, idx.theta_ur,
+            idx.shear_ur, idx.F_ur, idx.n_F_ur, idx.ncdm, idx.n_ncdm,
+            idx.q_size_ncdm if idx.n_ncdm else 0, idx.n_l_ncdm if idx.n_ncdm else 0, idx.eta]
 
 
 def sl_count(idx: PtIdx) -> int:
@@ -348,14 +363,14 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
     S = torch.empty((nl, ntau, SrcIdx.n), dtype=torch.float64, device=dev)
     nsteps = torch.zeros(nl, dtype=torch.long, device=dev)
     status = torch.zeros(nl, dtype=torch.int32, device=dev)
-    layout = (ctypes.c_int * 21)(*_layout_ints(idx))
+    layout = (ctypes.c_int * LAYOUT_INTS)(*_layout_ints(idx))
     err = lib.perturb_ark_launch(
         layout, lane_tab.data_ptr(), taus.data_ptr(), bg.y.data_ptr(), bg.y2.data_ptr(),
         float(bg.x0), float(bg.dx), int(bg.n), th.y.data_ptr(), th.y2.data_ptr(),
         float(th.x0), float(th.dx), int(th.n), ncdm.data_ptr() if idx.n_ncdm else None,
         rtol.data_ptr(), atol.data_ptr(), K_ETA_SPLIT, float(tables.K), int(idx.sgnK),
-        MAX_ITERATIONS, nl, ntau, S.data_ptr(), nsteps.data_ptr(), status.data_ptr(),
-        cuda.stream_ptr(dev))
+        GAUGES[idx.gauge], MAX_ITERATIONS, nl, ntau, S.data_ptr(), nsteps.data_ptr(),
+        status.data_ptr(), cuda.stream_ptr(dev))
     cuda.check(err, "perturb_ark")
     launches += 1
     st = status.cpu()   # the one host read: waits for the launch
@@ -372,18 +387,23 @@ def _tolerances(k: np.ndarray, idx: PtIdx, pr: PrecisionParams, tail: bool,
     """Per-lane, per-component (rtol, atol) (solve.py:594-655): CMB lanes
     tight; P(k)-tail lanes loosened on the radiation rows (rtol x
     tol_perturb_tail_factor, atol floor) except beyond k_pp_max, where the
-    lensing potential cannot reach and every row is loose."""
+    lensing potential cannot reach and every row is loose. The Newtonian
+    gauge keeps the tail tight (tail factor 1, radiation atol 1e-11;
+    solve.py:601-611): psi is algebraic in the radiation shear, so loose
+    radiation rows would reach the matter and P(k) directly."""
     rtol = pr.tol_perturb_integration
     n = idx.size
     if not tail:
         return np.full((len(k), n), rtol), np.full((len(k), n), 1e-11)
+    newt = idx.gauge == "newtonian"
+    tail_factor = 1.0 if newt else pr.tol_perturb_tail_factor
+    tail_atol = 1e-11 if newt else pr.atol_perturb_tail_radiation
     atol_rad = np.full(n, 3e-8)
     rtol_tail = np.full(n, rtol)
     for s0, s1 in idx.radiation_slices:
-        atol_rad[s0:s1] = pr.atol_perturb_tail_radiation
-        rtol_tail[s0:s1] = rtol * pr.tol_perturb_tail_factor
-    rt = np.where((k <= k_pp_max)[:, None], rtol_tail[None, :],
-                  rtol * pr.tol_perturb_tail_factor)
+        atol_rad[s0:s1] = tail_atol
+        rtol_tail[s0:s1] = rtol * tail_factor
+    rt = np.where((k <= k_pp_max)[:, None], rtol_tail[None, :], rtol * tail_factor)
     return rt, np.broadcast_to(atol_rad, (len(k), n)).copy()
 
 
@@ -417,7 +437,7 @@ def compute_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th
     K, sgnK = curvature_of(params, bg)
     idx = PtIdx(l_max_g=pr.l_max_g, l_max_pol_g=pr.l_max_pol_g, l_max_ur=pr.l_max_ur,
                 n_ncdm=params.N_ncdm, l_max_ncdm=pr.l_max_ncdm, q_size_ncdm=nq_ncdm,
-                q_gauss=q_gauss, q_max_ncdm=q_max_ncdm, sgnK=sgnK)
+                q_gauss=q_gauss, q_max_ncdm=q_max_ncdm, sgnK=sgnK, gauge=params.gauge)
     ncdm = make_ncdm_ctx(params, idx).to(device) if idx.n_ncdm else None
     tables = eq.make_tables(bg, bidx, th, idx, ncdm, K)
     tables = tables._replace(bg=tables.bg.to(device), th=tables.th.to(device))

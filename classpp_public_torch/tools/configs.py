@@ -55,6 +55,15 @@ halofit at z = 0, 1, 3), `g2_ncdm`
 scalars, Omega_k = 0.01) and `lcdm_row1` (bench.py:142-152: the default
 cosmology, tCl and mPk, l_max 2500, P(k) to 1/Mpc; its probe row).
 
+The Newtonian gauge: `g9_newt` (tests/golden/gen/g9_newt.ini uncut: flat
+LambdaCDM with massless neutrinos, `gauge = newtonian`, lensed TT/TE/EE/phiphi
+to l = 2500, P(k) to 10/Mpc; held to its golden under
+tests/test_newt_golden.py's contract), and three cross-gauge twins, each an
+earlier configuration with `gauge = newtonian` held to its synchronous run
+under tests/test_gauge.py's contract (`NEWT_TWIN`): `row2_newt` (row2_exact:
+one ncdm species, halofit), `g8_newt` (g8_curved: open, scalars and tensors)
+and `g18_newt` (g18_closed: closed, scalars and tensors).
+
 The output-file keys of the .ini files (headers, format, root, write
 thermodynamics, *_verbose) are left out.
 """
@@ -151,13 +160,23 @@ G2_NCDM = dict(_GOLDEN_COSMO, N_ur=0.00641, N_ncdm=3, m_ncdm="0.021934, 0.023582
 G8S_CURVED = dict(_GOLDEN_COSMO, tau_reio=0.05430842, Omega_k=0.01, output="tCl,pCl,lCl,mPk",
                   lensing="yes", l_max_scalars=2500, z_pk="0.", **{"P_k_max_1/Mpc": 1.0})
 LCDM_ROW1 = {"output": "tCl,mPk", "l_max_scalars": 2500, "P_k_max_1/Mpc": 1.0, "z_pk": "0."}
+G9_NEWT = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe="BBN", reio_parametrization="reio_camb",
+               recombination="RECFAST", gauge="newtonian", output="tCl,pCl,lCl,mPk",
+               lensing="yes", modes="s", l_max_scalars=2500, z_pk="0",
+               **{"P_k_max_1/Mpc": 10.0})
+ROW2_NEWT = dict(ROW2_EXACT, gauge="newtonian")
+G8_NEWT = dict(G8_CURVED, gauge="newtonian")
+G18_NEWT = dict(G18_CLOSED, gauge="newtonian")
 CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR,
            "g8_curved": G8_CURVED, "g18_closed": G18_CLOSED, "g5_hyrec": G5_HYREC,
            "g16_injection": G16_INJECTION, "g22_injection_bos": G22_INJECTION_BOS,
            "g11a_reio_bins": G11A_REIO_BINS, "g11b_reio_manytanh": G11B_REIO_MANYTANH,
            "planck_row2_ss005": PLANCK_ROW2_SS005, "ncdm_row3": NCDM_ROW3,
            "g19_ncl_full": G19_NCL_FULL, "g27_pd": G27_PD, "nc_des_y1": NC_DES_Y1,
-           "g32_texact": G32_TEXACT}
+           "g32_texact": G32_TEXACT, "g9_newt": G9_NEWT, "row2_newt": ROW2_NEWT,
+           "g8_newt": G8_NEWT, "g18_newt": G18_NEWT}
+# each Newtonian twin and the synchronous configuration it is held to
+NEWT_TWIN = {"row2_newt": "row2_exact", "g8_newt": "g8_curved", "g18_newt": "g18_closed"}
 THERMO_ONLY = {"hyrec_full": HYREC_FULL}
 TENSOR_ONLY = {"texact_ncdm3": TEXACT_NCDM3}
 GOLDEN_ONLY = {"g29_open01": G29_OPEN01, "g30_closed01": G30_CLOSED01, "g7_ncl": G7_NCL,

@@ -17,10 +17,15 @@ zero against the sqrt(auto x auto) envelope of the golden), g32_texact and
 g33_tphotons (tests/test_tensor_method.py), g1_lcdm (tests/test_endtoend.py:37-80
 and the growth factor of tests/test_background.py:77-92; g1_lcdm_halofit is the
 same configuration with halofit on, as test_endtoend.py runs it), g1h_halofit
-(tests/test_endtoend.py:83-100), g2_ncdm (tests/test_ncdm.py:39-97) and
-g8s_curved (tests/test_curved.py:39-89); and the probe rows of
+(tests/test_endtoend.py:83-100), g2_ncdm (tests/test_ncdm.py:39-97),
+g8s_curved (tests/test_curved.py:39-89) and g9_newt (the Newtonian gauge,
+tests/test_newt_golden.py); and the probe rows of
 tests/golden/bench_probe.json (`probe_rel`; lcdm_row1 here, the others in
 chip_smoke.py, which uses this module for its golden paths).
+
+`gauge_check(name, newt, sync)` holds a Newtonian-gauge twin (configs.NEWT_TWIN:
+row2_newt, g8_newt, g18_newt) to its synchronous configuration under
+tests/test_gauge.py's contract; the script runs both of a twin.
 
 Run as a script it drives configurations through Class(device="cuda") and
 prints each measure against its limit with the multipole of the largest
@@ -31,6 +36,7 @@ Usage (from the repository root, needs one card and nvcc):
     python3 -m classpp_public_torch.tools.golden_check g7_ncl g19_ncl_full g27_pd
     python3 -m classpp_public_torch.tools.golden_check g32_texact g33_tphotons g1_lcdm \
         g1_lcdm_halofit g1h_halofit g2_ncdm g8s_curved lcdm_row1
+    python3 -m classpp_public_torch.tools.golden_check g9_newt row2_newt g8_newt g18_newt
 """
 
 import json
@@ -304,6 +310,17 @@ def golden_check(name, raw, lensed, pk_lin, h, thermo=None, cls=None):
         rel["pk"] = item(g.rel_pk(pk_lin, h, 9.0, "pk", 0.0, 2e-4, 9), PK_TOL)
         rel["pk_cb"] = item(g.rel_pk(cls.pk_cb_lin, h, 9.0, "pk_cb", 0.0, 2e-4, 9), PK_TOL)
         return rel
+    if name == "g9_newt":
+        # tests/test_newt_golden.py: raw TT/EE 3e-3 and phiphi 1e-2 to 2500,
+        # TE 3e-3 of sqrt(TT EE), lensed TT/EE 3e-3 to 2400, P(k) 1e-2 for
+        # 1e-3 < k < 9/Mpc
+        return {"raw_tt": item(g.rel("cl", "TT", raw["tt"], 2, 2500), CL_TOL),
+                "raw_ee": item(g.rel("cl", "EE", raw["ee"], 2, 2500), CL_TOL),
+                "raw_pp": item(g.rel("cl", "phiphi", raw["pp"], 2, 2500), 1e-2),
+                "raw_te": item(g.rel_te("cl", raw["te"], 2500), CL_TOL),
+                "lensed_tt": item(g.rel("cl_lensed", "TT", lensed["tt"], 2, 2400), CL_TOL),
+                "lensed_ee": item(g.rel("cl_lensed", "EE", lensed["ee"], 2, 2400), CL_TOL),
+                "pk": item(g.rel_pk(pk_lin, h, k_max=9.0), PK_TOL)}
     if name == "g8s_curved":
         # raw TT/EE to 2500, phiphi 3e-2 to 2000, TE, lensed TT/EE to 2400, P(k)
         return {"raw_tt": item(g.rel("cl", "TT", raw["tt"], 2, 2500), CL_TOL),
@@ -328,11 +345,66 @@ def golden_check(name, raw, lensed, pk_lin, h, thermo=None, cls=None):
     return rel
 
 
+GAUGE_CL_TOL, GAUGE_PK_TOL, GAUGE_S8_TOL = 1.5e-2, 5e-2, 1e-2
+GAUGE_PK_K = np.geomspace(1e-3, 0.9, 24)   # 1/Mpc, tests/test_gauge.py:62
+
+
+def gauge_summary(cls):
+    """What gauge_check reads of a run: its raw and lensed C_l (to 2500, or
+    None), P(k) at GAUGE_PK_K and sigma8 (None without mPk)."""
+    out = cls.cosmo.out
+    has_pk = out.has_pk
+    return dict(raw=cls.raw_cl(2500), lensed=cls.lensed_cl(2500) if out.lensing else None,
+                pk=np.array([cls.pk_lin(k, 0.0) for k in GAUGE_PK_K]) if has_pk else None,
+                sigma8=cls.sigma8() if has_pk else None)
+
+
+def gauge_check(name, newt, sync):
+    """tests/test_gauge.py's contract between a Newtonian twin and its
+    synchronous configuration, each a gauge_summary: {measure: (relative
+    difference, limit, where)}. row2_newt: raw TT/EE/phiphi and TE (against
+    sqrt(TT EE)) to l = 600, lensed TT/EE to 598, P(k) at 24 k in
+    1e-3-0.9/Mpc and sigma8 (:35-68); g8_newt, g18_newt: raw TT to l = 400
+    (:71-90). Beside each gated measure, `<measure>_full` is the same over the
+    whole range (to 2500, lensed 2400), printed and not held (limit None)."""
+
+    def rel(key, spec, lmax, tol):
+        a, b = np.asarray(sync[key][spec]), np.asarray(newt[key][spec])
+        ell = np.arange(2, lmax + 1)
+        err = np.abs(b[ell] / a[ell] - 1.0)
+        return (float(err.max()), tol, int(ell[err.argmax()]))
+
+    def rel_te(lmax, tol):
+        a, b = sync["raw"], newt["raw"]
+        ell = np.arange(2, lmax + 1)
+        den = np.sqrt(np.asarray(a["tt"])[ell] * np.asarray(a["ee"])[ell])
+        err = np.abs(np.asarray(b["te"])[ell] - np.asarray(a["te"])[ell]) / den
+        return (float(err.max()), tol, int(ell[err.argmax()]))
+
+    out = {}
+    if name == "row2_newt":
+        for spec in ("tt", "ee", "pp"):
+            out[f"raw_{spec}"] = rel("raw", spec, 600, GAUGE_CL_TOL)
+            out[f"raw_{spec}_full"] = rel("raw", spec, 2500, None)
+        out["raw_te"] = rel_te(600, GAUGE_CL_TOL)
+        out["raw_te_full"] = rel_te(2500, None)
+        for spec in ("tt", "ee"):
+            out[f"lensed_{spec}"] = rel("lensed", spec, 598, GAUGE_CL_TOL)
+            out[f"lensed_{spec}_full"] = rel("lensed", spec, 2400, None)
+        err = np.abs(newt["pk"] / sync["pk"] - 1.0)
+        out["pk"] = (float(err.max()), GAUGE_PK_TOL, float(GAUGE_PK_K[err.argmax()]))
+        out["sigma8"] = (abs(newt["sigma8"] / sync["sigma8"] - 1.0), GAUGE_S8_TOL, 8.0)
+    else:
+        out["raw_tt"] = rel("raw", "tt", 400, GAUGE_CL_TOL)
+        out["raw_tt_full"] = rel("raw", "tt", 2500, None)
+    return out
+
+
 def main():
     import torch
 
     import classpp_public_torch as cpt
-    from .configs import CONFIGS, GOLDEN_ONLY
+    from .configs import CONFIGS, GOLDEN_ONLY, NEWT_TWIN
 
     names = sys.argv[1:] or sorted(GOLDEN_ONLY)
     if not torch.cuda.is_available():
@@ -340,19 +412,35 @@ def main():
         return 1
     print(f"[card] {torch.cuda.get_device_name(0)}", flush=True)
     ok = True
-    for name in names:
-        t0 = time.time()
+
+    def run(name):
         c = cpt.Class(device="cuda")
         c.set(dict({**CONFIGS, **GOLDEN_ONLY}[name]))
         c.compute(["lensing"])
-        out = c.cosmo.out
-        raw = c.raw_cl(2500 if out.has_cls else out.l_lss_max) \
-            if out.has_cls or out.has_nc else None
-        lensed = c.lensed_cl(2500) if out.lensing else None
         torch.cuda.synchronize()
-        rel = golden_check(name, raw, lensed, c.pk_lin, c.cosmo.params.h,
-                           c.cosmo.thermodynamics, c)
-        bad = sorted(k for k, (v, tol, _) in rel.items() if not v <= tol)
+        return c
+
+    for name in names:
+        t0 = time.time()
+        c = run(name)
+        if name in NEWT_TWIN:
+            newt = gauge_summary(c)
+            rel = gauge_check(name, newt, gauge_summary(run(NEWT_TWIN[name])))
+            if name != "row2_newt":
+                # the curved twins against the synchronous golden: printed
+                ref = golden_check(NEWT_TWIN[name], newt["raw"], newt["lensed"], c.pk_lin,
+                                   c.cosmo.params.h)
+                print(f"[golden, not held] {name} against {NEWT_TWIN[name]}'s golden "
+                      + json.dumps({k: {"rel": v, "tol": tol, "at": at}
+                                    for k, (v, tol, at) in ref.items()}), flush=True)
+        else:
+            out = c.cosmo.out
+            raw = c.raw_cl(2500 if out.has_cls else out.l_lss_max) \
+                if out.has_cls or out.has_nc else None
+            lensed = c.lensed_cl(2500) if out.lensing else None
+            rel = golden_check(name, raw, lensed, c.pk_lin, c.cosmo.params.h,
+                               c.cosmo.thermodynamics, c)
+        bad = sorted(k for k, (v, tol, _) in rel.items() if tol is not None and not v <= tol)
         ok = ok and not bad
         print(f"[golden] {name} ({time.time() - t0:.3f} s) "
               + json.dumps({k: {"rel": v, "tol": tol, "at": at} for k, (v, tol, at) in rel.items()})

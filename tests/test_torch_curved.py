@@ -310,7 +310,7 @@ def test_perturb_ark_lane_program_on_host(setup, tmp_path):
     S = torch.empty((nl, ntau, SrcIdx.n), dtype=torch.float64)
     nsteps = torch.zeros(nl, dtype=torch.long)
     status = torch.ones(nl, dtype=torch.int32)
-    layout = (ctypes.c_int * 21)(*tsolve._layout_ints(idx))
+    layout = (ctypes.c_int * tsolve.LAYOUT_INTS)(*tsolve._layout_ints(idx))
     rc = lib.perturb_ark_host_curved(
         layout, lane_tab.data_ptr(), taus.data_ptr(), tb.bg.y.data_ptr(), tb.bg.y2.data_ptr(),
         tb.bg.x0, tb.bg.dx, tb.bg.n, tb.th.y.data_ptr(), tb.th.y2.data_ptr(), tb.th.x0, tb.th.dx,

@@ -216,7 +216,7 @@ def test_kernel_lane_program_on_host(setup, torch_sources, tmp_path):
     lib.perturb_ark_host_work_doubles.argtypes = [P]
     lib.perturb_ark_host_work_doubles.restype = L
     idx, tb = setup.tidx, setup.tables
-    layout = (ctypes.c_int * 21)(*tsolve._layout_ints(idx))
+    layout = (ctypes.c_int * tsolve.LAYOUT_INTS)(*tsolve._layout_ints(idx))
     assert lib.perturb_ark_host_work_doubles(layout) == tsolve.work_doubles(idx)
     nl, ntau = 8, len(setup.taus)
     lane_tab = torch.stack(list(setup.lanes)).contiguous()
@@ -252,7 +252,7 @@ def test_state_layout_matches_jax():
     for f in fields + ("ncdm", "n_l_ncdm", "n_ncdm_block", "q_size_ncdm", "radiation_slices"):
         assert getattr(t, f) == getattr(j, f), f
     assert t.size == 46 + 16 * 18
-    assert tsolve._layout_ints(t)[0] == t.size and len(tsolve._layout_ints(t)) == 21
+    assert tsolve._layout_ints(t)[0] == t.size and len(tsolve._layout_ints(t)) == 22
     with pytest.raises(NotImplementedError):
         TIdx(has_fld=True)
 

@@ -10,12 +10,17 @@ packages against tests/golden/g1_lcdm.npz (limit 1e-2):
 
     python3 tests/torch_phiphi_sampling.py jax STAGES.pkl    # the CPU
     python3 tests/torch_phiphi_sampling.py port STAGES.pkl   # one card
+    python3 tests/torch_phiphi_sampling.py draws g1_lcdm,g9_newt   # one card
 
 `jax` runs the JAX package's Class on the CPU with omega_cdm moved by 0,
 +-1e-12 and +3e-12 (relative) and writes the unmoved run's background,
 thermodynamics and tau sampling to STAGES.pkl; `port` runs the port's
 Class(device="cuda") seeded with those stages, then on its own stages, and
-imports nothing of JAX. Each prints the raw phiphi error at l = 2.
+imports nothing of JAX. `draws` runs the port's Class(device="cuda") on its
+own stages for each named configuration of the g1 cosmology (g1_lcdm, and
+g9_newt, the same cosmology in the Newtonian gauge) with omega_cdm moved by
+the same amounts, each against its own golden. Each prints the raw phiphi
+error at l = 2.
 """
 
 import os
@@ -35,8 +40,8 @@ from classpp_public_torch.tools.golden_check import Golden  # noqa: E402
 MOVES = (0.0, 1e-12, -1e-12, 3e-12)
 
 
-def report(tag, raw, ntau, t0):
-    g = Golden("g1_lcdm")
+def report(tag, raw, ntau, t0, golden="g1_lcdm"):
+    g = Golden(golden)
     print(f"[phiphi] {tag}: {ntau} tau samples; raw phiphi at l = 2 "
           f"{g.rel('cl', 'phiphi', raw['pp'], 2, 2)[0]:.4e}, worst over l = 2..2500 "
           f"{g.rel('cl', 'phiphi', raw['pp'], 2, 2500)}; raw TT "
@@ -93,5 +98,21 @@ def run_port(path):
                raw, len(tau), t0)
 
 
+def run_draws(names):
+    import torch
+
+    import classpp_public_torch as cpt
+
+    for name in names.split(","):
+        keys = {**configs.CONFIGS, **configs.GOLDEN_ONLY}[name]
+        for move in MOVES:
+            t0 = time.time()
+            c = cpt.Class(device=torch.device("cuda"))
+            c.set(dict(keys, omega_cdm=keys["omega_cdm"] * (1 + move)))
+            c.compute(["lensing"])
+            report(f"port {name} (gauge {c.cosmo.params.gauge}), omega_cdm moved by {move:g}",
+                   c.raw_cl(2500), len(c.cosmo.perturbations.tau_np), t0, golden=name)
+
+
 if __name__ == "__main__":
-    {"jax": run_jax, "port": run_port}[sys.argv[1]](sys.argv[2])
+    {"jax": run_jax, "port": run_port, "draws": run_draws}[sys.argv[1]](sys.argv[2])
