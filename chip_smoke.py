@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card.
 
-Runs twenty configurations through `classpp_public_torch.Class(device="cuda")`,
+Runs twenty-four configurations through `classpp_public_torch.Class(device="cuda")`,
 stage by stage, at full width and depth, the thermodynamics of a seventeenth
 and the tensor stage of an eighteenth:
 
@@ -39,6 +39,12 @@ and the tensor stage of an eighteenth:
   (tests/golden/gen/g9_newt.ini: flat LambdaCDM, lensed to l = 2500, P(k) to
   10/Mpc), and `row2_newt`, `g8_newt` and `g18_newt`, row2_exact, g8_curved
   and g18_closed with `gauge = newtonian`;
+- the isocurvature initial conditions (an initial-condition branch of
+  perturb_ark; all the modes of a point in one launch): `g21_isocorr`
+  (tests/golden/gen/g21_isocorr.ini: ad, cdi and nid, correlated, lensed to
+  l = 2500), `g21_newt` (the same in the Newtonian gauge), `g31_peric`
+  (g31_peric.ini: ad and cdi, tCl, pCl, P(k) to 1/Mpc) and `row2_iso`
+  (row2_exact with ad, bi and niv: one ncdm species and halofit);
 
 and checks:
 
@@ -46,7 +52,8 @@ and checks:
 2. each path launched each kernel it runs (the growth march on every path),
    and a curved path none of the flat scans (and a flat one none of the
    curved scans), a HyRec path hyrec_history and not recfast_history (and a
-   RECFAST path the reverse):
+   RECFAST path the reverse), and a path with isocurvature modes perturb_ark
+   once, transfer_los once per initial condition and lensing_wigner once:
    launch counters, set to 0 just before the path and read just after;
 3. each result against the reference C++ build: the probe
    tests/golden/bench_probe.json for planck_row2 (and planck_row2_ss005),
@@ -58,9 +65,13 @@ and checks:
    g18_closed: tests/test_curved.py:112-157; g5_hyrec: tests/test_hyrec.py;
    g16/g22: tests/test_injection.py; g11a/g11b: tests/test_reio.py, tau_reio
    included; g19_ncl_full, g27_pd: tests/test_numbercounts.py; g32_texact:
-   tests/test_tensor_method.py; g9_newt: tests/test_newt_golden.py), for
-   nc_des_y1 positive autos and every cross inside the Cauchy-Schwarz
-   envelope of its autos, and for each Newtonian twin its synchronous
+   tests/test_tensor_method.py; g9_newt: tests/test_newt_golden.py;
+   g21_isocorr: tests/test_isocurvature.py with each initial-condition pair
+   under tests/test_peric_output.py's contract; g31_peric:
+   tests/test_peric_output.py), for nc_des_y1 positive autos and every cross
+   inside the Cauchy-Schwarz envelope of its autos, for row2_iso positive
+   autos and every initial-condition pair's cross inside its envelope, and
+   for each Newtonian twin its synchronous
    configuration's run in this process under tests/test_gauge.py's contract
    (golden_check.gauge_check; g8_newt and g18_newt also print their errors
    against the synchronous golden);
@@ -73,8 +84,10 @@ and checks:
    of a curved path, the lowest and highest k among them, or on texact_ncdm3
    its two lowest-k, its slowest and its highest-k tensor lanes; on the
    Newtonian paths also the two lowest-k and the slowest scalar lanes, and at
-   least one P(k)-tail lane), beside the least time the card could take for
-   the same work (`bound_ms`);
+   least one P(k)-tail lane; on the isocurvature paths the two lowest-k
+   lanes of every isocurvature mode, the slowest lane and, with P(k), a
+   P(k)-tail lane), beside the least time the card could take for the same
+   work (`bound_ms`);
 5. the three LOS scans that no path above runs past 1024 tau samples
    (transfer_tensor_los, transfer_los_curved, transfer_tensor_los_curved) on
    g3_tensor's and g8_curved's captured inputs refined fourfold in tau
@@ -196,6 +209,12 @@ PERTURB_STRIDE_OF = {"ncdm_row3": 48}
 # also takes their two lowest-k lanes and their slowest lane, and must hold at
 # least one P(k)-tail lane (the tail keeps its tolerances tight in this gauge)
 NEWT_PATHS = ("g9_newt", "row2_newt", "g8_newt", "g18_newt")
+# the isocurvature paths (the initial-condition branch's code on the card):
+# the plain comparison takes the two lowest-k lanes of every isocurvature
+# mode, the slowest lane and, with P(k), the lowest-k P(k)-tail lane of the
+# last mode, and none of the stride (its lanes are the adiabatic ones of the
+# earlier paths)
+ISO_PATHS = ("g21_isocorr", "g21_newt", "g31_peric", "row2_iso")
 # Raw phiphi at l = 2 of the g1 cosmology (g9_newt's) is a draw of the tau
 # sampling, whose late samples the last bits of the thermodynamics table move
 # (ROADMAP Queue 3; tests/torch_phiphi_sampling.py): the JAX package draws
@@ -313,16 +332,26 @@ def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(
     path the reverse. Every path launches growth_march. A path that stops
     after the thermodynamics (`last`) launches its recombination kernel,
     tb_march and growth_march, and none else of `every`; one that runs the
-    tensor perturbations alone, those and tensor_rkck."""
+    tensor perturbations alone, those and tensor_rkck. The third item holds
+    exact counts: a path with isocurvature modes launches perturb_ark once
+    (every mode in one launch), transfer_los once per initial condition and
+    lensing_wigner once (on the total C_l)."""
     hyrec = recombination in ("hyrec", "hyrec_full")
     reco = {"hyrec_history"} if hyrec else {"recfast_history"}
     other_reco = {"recfast_history"} if hyrec else {"hyrec_history"}
     early = reco | {"tb_march", "growth_march"}
     if last == "thermodynamics":
-        return early, set(every) - early
+        return early, set(every) - early, {}
     if last == "tensor_perturbations":
-        return early | {"tensor_rkck"}, set(every) - early - {"tensor_rkck"}
+        return early | {"tensor_rkck"}, set(every) - early - {"tensor_rkck"}, {}
     names = early | {"perturb_ark"}
+    exact = {}
+    if len(out.ics) > 1:
+        exact["perturb_ark"] = 1
+        if out.has_cls:
+            exact["transfer_los"] = len(out.ics)
+            if out.lensing:
+                exact["lensing_wigner"] = 1
     scans = set()
     if out.has_cls:
         scans = {"transfer_los"} | ({"transfer_tensor_los"} if "t" in out.modes else set())
@@ -336,8 +365,9 @@ def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(
         names.add("tensor_rkck")
     curved = {f"{n}_curved" for n in scans}
     if sgnK:
-        return names | curved, {"transfer_los", "transfer_tensor_los"} | other_reco
-    return names | scans, {"transfer_los_curved", "transfer_tensor_los_curved"} | other_reco
+        return names | curved, {"transfer_los", "transfer_tensor_los"} | other_reco, exact
+    return (names | scans, {"transfer_los_curved", "transfer_tensor_los_curved"} | other_reco,
+            exact)
 
 
 def run_config(name, params, kernels, last="lensing"):
@@ -414,7 +444,8 @@ def run_config(name, params, kernels, last="lensing"):
     print(f"[shapes] {name} k {tuple(pt.k.shape)} tau {tuple(pt.tau.shape)} sources "
           f"{tuple(pt.sources.shape)} transfer {tr_shape} "
           f"steps max {int(pt.stats_steps.max())} mean {float(pt.stats_steps.float().mean()):.1f} "
-          f"m_ncdm {cosmo.params.m_ncdm}", flush=True)
+          f"m_ncdm {cosmo.params.m_ncdm}"
+          + (f" isocurvature {list(pt.sources_iso)}" if pt.sources_iso else ""), flush=True)
     if "t" in cosmo.out.modes:
         tp = cosmo.tensor_perturbations
         print(f"[shapes] {name} tensor k {tuple(tp.k.shape)} tau {tuple(tp.tau.shape)} sources "
@@ -443,6 +474,8 @@ def run_config(name, params, kernels, last="lensing"):
         GAUGE_RUNS[name] = gauge_summary(c)
     if name == "nc_des_y1":
         pass                        # no golden: check_nc_output held it
+    elif name == "row2_iso":
+        check_iso_output(name, c)   # no golden
     elif name in NEWT_TWIN:
         check_gauge_twin(name, NEWT_TWIN[name], c)
     elif name not in PROBE_ROW:
@@ -487,7 +520,7 @@ def check_gauge_twin(name, twin, c):
     rel = gauge_check(name, GAUGE_RUNS[name], GAUGE_RUNS[twin])
     print(f"[gauge] {name} against {twin} " + json.dumps(
         {k: {"rel": v, "tol": t, "at": at} for k, (v, t, at) in rel.items()}), flush=True)
-    if name != "row2_newt":
+    if name in ("g8_newt", "g18_newt"):
         ref = golden_check(twin, GAUGE_RUNS[name]["raw"], GAUGE_RUNS[name]["lensed"], c.pk_lin,
                            c.cosmo.params.h)
         print(f"[golden, not held] {name} against {twin}'s golden " + json.dumps(
@@ -524,31 +557,61 @@ def check_nc_output(name, c, raw):
     if got != want:
         raise RuntimeError(f"{name}: raw_cl number-count keys {sorted(got ^ want)} differ")
     ell = np.arange(2, out.l_lss_max + 1)
-    worst = 0.0
     for key in sorted(want):
-        arr = np.asarray(raw[key])[ell]
-        if not np.isfinite(arr).all():
+        if not np.isfinite(np.asarray(raw[key])[ell]).all():
             raise RuntimeError(f"{name} C_l[{key}] is not finite")
-        if key.startswith(("phi-", "T-")):
-            continue
-        a, b = key.split("-")
-        if a == b:
-            if not (arr > 0).all():
-                raise RuntimeError(f"{name} auto C_l[{key}] is not positive")
-            continue
-        auto_a = np.asarray(raw[f"{a}-{a}"])[ell]
-        auto_b = np.asarray(raw[f"{b}-{b}"])[ell]
-        worst = max(worst, float(np.max(np.abs(arr) / np.sqrt(auto_a * auto_b))))
+    split = [(key, *key.split("-")) for key in want if not key.startswith(("phi-", "T-"))]
+    worst = check_envelope(name, {a: np.asarray(raw[key])[ell] for key, a, b in split if a == b},
+                           {(a, b): np.asarray(raw[key])[ell] for key, a, b in split if a != b})
     print(f"[nc] {name}: {len(want)} spectra to l = {out.l_lss_max}, finite, autos positive; "
           f"largest cross over its envelope {worst:.6f}", flush=True)
+
+
+def check_envelope(name, autos, crosses):
+    """Every auto C_l positive and every cross {(a, b): C_l} inside the
+    Cauchy-Schwarz envelope sqrt(C_aa C_bb) of its two autos (exact on the k
+    quadrature's multipoles; 1% headroom for the spline to every l); returns
+    the largest |C_ab| / sqrt(C_aa C_bb)."""
+    import numpy as np
+
+    for a, arr in autos.items():
+        if not (arr > 0).all():
+            raise RuntimeError(f"{name}: auto C_l of {a} not positive")
+    worst = max((float(np.max(np.abs(arr) / np.sqrt(autos[a] * autos[b])))
+                 for (a, b), arr in crosses.items()), default=0.0)
     if not worst <= 1.01:
         raise RuntimeError(f"{name}: a cross spectrum leaves its Cauchy-Schwarz envelope: {worst}")
+    return worst
 
 
-def check_launches(name, counts, must, must_not):
+def check_iso_output(name, c):
+    """An isocurvature path without a golden: each initial-condition pair's
+    raw C_l finite, and in TT and EE the autos positive and every cross
+    inside its envelope (check_envelope)."""
+    import numpy as np
+
+    from classpp_public_torch.tools.golden_check import pair_cls
+
+    lmax = c.cosmo.out.l_scalar_max
+    pairs = {ab: cl[2:] for ab, cl in pair_cls(c, lmax).items()}
+    for (a, b), cl in pairs.items():
+        if not np.isfinite(cl).all():
+            raise RuntimeError(f"{name}: C_l of the pair {a}-{b} not finite")
+    worst = max(check_envelope(f"{name} {col}",
+                               {a: cl[:, i] for (a, b), cl in pairs.items() if a == b},
+                               {ab: cl[:, i] for ab, cl in pairs.items() if ab[0] != ab[1]})
+                for i, col in enumerate(("TT", "EE")))
+    print(f"[iso] {name}: pairs {sorted(pairs)} to l = {lmax}, finite, autos positive; "
+          f"largest cross over its envelope {worst:.6f}", flush=True)
+
+
+def check_launches(name, counts, must, must_not, exact):
     missing = sorted(n for n in must if counts[n] <= 0)
     if missing:
         raise RuntimeError(f"{name}: kernels not launched on the main path: {missing}")
+    off = {n: (counts[n], v) for n, v in exact.items() if counts[n] != v}
+    if off:
+        raise RuntimeError(f"{name}: launches (counted, expected) {off}")
     stray = sorted(n for n in must_not if counts[n] != 0)
     if stray:
         raise RuntimeError(f"{name}: kernels of another geometry or recombination code "
@@ -575,31 +638,45 @@ def compared_lanes(nl, stride, curved, name):
     return sorted(set(range(0, nl, stride)) | {nl - 1})
 
 
-def print_lane_steps(name, tag, k, steps_kernel, steps_plain):
+def print_lane_steps(name, tag, k, steps_kernel, steps_plain, kinds=None):
+    """The step counts of the compared lanes; kinds: each lane's initial
+    condition, printed before its k."""
+    kinds = kinds or [""] * len(k)
     print(f"[{name}] {tag} steps per compared lane (k/Mpc: kernel, plain): "
-          + ", ".join(f"{float(kk):.5g}: {int(a)}, {int(b)}"
-                      for kk, a, b in zip(k, steps_kernel, steps_plain)), flush=True)
+          + ", ".join(f"{kind + ' ' if kind else ''}{float(kk):.5g}: {int(a)}, {int(b)}"
+                      for kind, kk, a, b in zip(kinds, k, steps_kernel, steps_plain)), flush=True)
 
 
 def check_perturb_ark(solve, args, tag, curved=False):
     """The integrator kernel against its plain version on every
     PERTURB_STRIDE-th lane (PERTURB_STRIDE_OF on the paths named there) and
     the last (highest k) of the captured call, or
-    on a curved path on CURVED_LANES lanes from the lowest k to the highest;
-    lanes of more than PLAIN_MAX_STEPS steps are left out."""
+    on a curved path on CURVED_LANES lanes from the lowest k to the highest,
+    or on an isocurvature path as ISO_PATHS says; lanes of more than
+    PLAIN_MAX_STEPS steps are left out."""
     import torch
 
+    from classpp_public_torch.models.perturbations.equations import IC_KINDS
     from classpp_public_torch.models.perturbations.indices import SrcIdx
 
-    lanes, taus, tables, (rtol, atol) = args
+    lanes, taus, tables, (rtol, atol) = args[:4]
+    ic = args[4] if len(args) > 4 else None
     idx = tables.idx
     nl = lanes.k.shape[0]
-    ms, (S, nsteps) = timed(lambda: solve.integrate_sources(lanes, taus, tables, (rtol, atol)))
+    ms, (S, nsteps) = timed(lambda: solve.integrate_sources(lanes, taus, tables, (rtol, atol),
+                                                            ic))
     stride = PERTURB_STRIDE_OF.get(tag, PERTURB_STRIDE)
     picked = compared_lanes(nl, stride, curved, "perturb_ark")
     slow = int(nsteps.argmax())
     if tag in NEWT_PATHS:
         picked = sorted(set(picked) | {0, 1, slow})
+    if ic is not None:
+        codes = ic.cpu()
+        iso_lanes = [torch.nonzero(codes == c).flatten().tolist() for c in range(1, len(IC_KINDS))]
+        picked = {slow} | {i for lanes_c in iso_lanes for i in lanes_c[:2]}
+        tail = [i for i in max(iso_lanes, key=lambda v: v[0] if v else -1)
+                if float(atol[i, idx.delta_cdm]) > 1e-11]
+        picked = sorted(picked | set(tail[:1]))
     long_lanes = [i for i in picked if int(nsteps[i]) > PLAIN_MAX_STEPS]
     if long_lanes:
         print(f"[perturb_ark] {tag}: lanes of more than {PLAIN_MAX_STEPS} steps left out of "
@@ -614,9 +691,14 @@ def check_perturb_ark(solve, args, tag, curved=False):
           f"/Mpc, {int(nsteps[slow])} steps; {n_tail} P(k)-tail lanes compared", flush=True)
     if tag in NEWT_PATHS and n_tail == 0:
         raise RuntimeError(f"perturb_ark ({tag}): no P(k)-tail lane in the plain comparison")
+    # with P(k) some lanes carry the 3e-8 absolute floor
+    if ic is not None and bool((atol > 1e-11).any()) and n_tail == 0:
+        raise RuntimeError(f"perturb_ark ({tag}): no P(k)-tail lane in the plain comparison")
+    ic_sel = ic[sel].contiguous() if ic is not None else None
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    Sp, np_ = solve.integrate_sources_plain(lanes.take(sel), taus, tables, (rt_sel, at_sel))
+    Sp, np_ = solve.integrate_sources_plain(lanes.take(sel), taus, tables, (rt_sel, at_sel),
+                                            ic_sel)
     b.record()
     torch.cuda.synchronize()
     plain_ms = a.elapsed_time(b)
@@ -662,8 +744,20 @@ def check_perturb_ark(solve, args, tag, curved=False):
     dn_rel = float((dn / np_).max())
     if curved or tag in NEWT_PATHS:
         print_lane_steps("perturb_ark", tag, lanes.k[sel], nsteps[sel], np_)
-    print(f"[perturb_ark] {tag}: {len(sel)} of {nl} lanes compared (stride {stride} and the "
-          f"last), state {idx.size}, {idx.n_ncdm} ncdm species; worst error "
+    iso_equal = None
+    if ic_sel is not None:
+        kinds = [IC_KINDS[int(c)] for c in ic_sel.cpu()]
+        print_lane_steps("perturb_ark", tag, lanes.k[sel], nsteps[sel], np_, kinds)
+        iso = ic_sel != 0
+        iso_equal = bool((nsteps[sel][iso] == np_[iso]).all())
+        print(f"[perturb_ark] {tag}: isocurvature lanes compared {sorted(set(kinds) - {'ad'})}, "
+              f"equal step counts on all of them: {iso_equal}", flush=True)
+        if not iso_equal:
+            raise RuntimeError(f"perturb_ark ({tag}): step counts differ from the plain "
+                               "version's on an isocurvature lane")
+    how = "ISO_PATHS' lanes" if ic is not None else f"stride {stride} and the last"
+    print(f"[perturb_ark] {tag}: {len(sel)} of {nl} lanes compared ({how}), state "
+          f"{idx.size}, {idx.n_ncdm} ncdm species; worst error "
           f"{worst:.3e} of its limit; max |nsteps_kernel - nsteps_plain| {int(dn.max())} "
           f"({dn_rel:.3e} of the plain count, limit {PERTURB_STEPS_TOL}); plain {plain_ms:.0f} ms "
           f"for {len(sel)} lanes, kernel {ms:.1f} ms for {nl}", flush=True)
@@ -682,7 +776,8 @@ def check_perturb_ark(solve, args, tag, curved=False):
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, plain_lanes=len(sel),
                 kernel_lanes=nl, nsteps_max_diff=int(dn.max()), bound_ms=bms, bound_by=bby,
                 gauge=idx.gauge, nsteps_max=int(nsteps[slow]), nsteps_max_k=float(lanes.k[slow]),
-                tail_lanes_compared=n_tail, scaled_err=worst)
+                tail_lanes_compared=n_tail, scaled_err=worst,
+                **({} if ic is None else dict(iso_steps_equal=iso_equal)))
 
 
 def host_timed(fn):
@@ -1214,7 +1309,6 @@ def main():
 
     kernels = kernel_table()
     mods = {k.name: k.module for k in kernels}
-
     # --- the main paths, each with its own launch counts and reference check
     counts, captured = {}, {}
     for tag, params in CONFIGS.items():
@@ -1243,7 +1337,10 @@ def main():
     # launches are not counted, under "refined_tau")
     entries = []
     for k in kernels:
-        main_tag = [tag for tag in paths if k.name in results[tag]][-1]
+        ran = [tag for tag in paths if k.name in results[tag]]
+        if not ran:
+            raise RuntimeError(f"{k.name}: no path ran the kernel")
+        main_tag = ran[-1]
         e = dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
                  launches=counts[main_tag][k.name], library_ms=None, path=main_tag,
                  **results[main_tag][k.name])

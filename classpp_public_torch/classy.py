@@ -9,7 +9,9 @@ modifiers, `on the spot`, `reio_parametrization` with its node lists:
 classy.py:139-150, :173-206), and the number counts and galaxy lensing
 (`output` nCl / dCl / sCl with the selection, contribution, bias and dN/dz
 keys: classy.py:455-510; `raw_cl`'s number-count and cross keys :1008-1075,
-`density_cl` :1077).
+`density_cl` :1077), and the isocurvature initial conditions (`ic`, `f_X`,
+`n_X`, `alpha_X`, `c_X_Y`, `n_X_Y`, `alpha_X_Y`: classy.py:630-669) with the
+primordial spectra `P_k_ini type` analytic_Pk and two_scales (:720-737).
 
 Every other input key raises with the JAX file and line that implements it.
 """
@@ -24,6 +26,7 @@ import numpy as np
 from . import constants as const
 from .config.params import CosmoParams
 from .config.precision import PrecisionParams
+from .models.perturbations.equations import IC_KINDS
 from .pipeline import Cosmology, OutputSelection, resolve_device
 
 
@@ -191,6 +194,8 @@ class Class:
         if out.non_linear not in ("", "halofit"):
             raise CosmoSevereError(f"unknown non linear method {out.non_linear!r}")
         self._parse_modes(p, out, kw)
+        iso, corr = self._parse_ics(p, out)
+        self._parse_pk_ini(p, kw)
 
         pr_fields = {f.name: f for f in dataclasses.fields(PrecisionParams)}
         prkw = {}
@@ -210,7 +215,8 @@ class Class:
             # the sigma(R) integrals need k beyond the requested P(k) range
             # (input_module.cpp:2806-2811)
             out.P_k_max = max(out.P_k_max, pr.nonlinear_min_k_max, pr.halofit_min_k_max)
-        return Cosmology(CosmoParams(**kw), pr, out, device=self.device)
+        return Cosmology(CosmoParams(**kw), pr, out, device=self.device, iso_primordial=iso,
+                         iso_corr=corr)
 
     @staticmethod
     def _parse_thermo(p: dict, kw: dict) -> None:
@@ -318,6 +324,85 @@ class Class:
             r_val, n_s_val = kw.get("r", 1.0), kw.get("n_s", 0.9619)
             kw.setdefault("n_t", -r_val / 8.0 * (2.0 - r_val / 8.0 - n_s_val))
             kw.setdefault("alpha_t", r_val / 8.0 * (r_val / 8.0 + n_s_val - 1.0))
+
+    @staticmethod
+    def _parse_ics(p: dict, out: OutputSelection) -> tuple:
+        """`ic` and the isocurvature amplitudes, tilts, runnings and
+        correlations, with the JAX classy's refusals (classy.py:630-669):
+        (iso_primordial {ic: (f, n, alpha)}, iso_corr {(ic1, ic2): (c, n,
+        alpha)}). The pipeline refuses an ic list without "ad" and
+        isocurvature modes in a curved universe (pipeline.check_ics)."""
+        if "ic" in p and not (out.has_cls or out.has_pk or out.has_nc):
+            # 'ic' is read under has_perturbations only; with an empty
+            # 'output' the reference's unread-parameter check fires
+            raise CosmoSevereError("Class did not read input parameter(s): ic")
+        ics = tuple(x.strip() for x in str(p.pop("ic", "ad")).replace(",", " ").split())
+        for icn in ics:
+            if icn not in IC_KINDS:
+                raise CosmoSevereError(f"unknown initial condition {icn!r}")
+        out.ics = ics
+        iso = {icn: (float(p.pop(f"f_{icn}", 1.0)), float(p.pop(f"n_{icn}", 1.0)),
+                     float(p.pop(f"alpha_{icn}", 0.0)))
+               for icn in IC_KINDS[1:] if icn in ics}
+        # correlated isocurvature: c_X_Y in [-1, 1] with the cross tilt n_X_Y
+        # and running alpha_X_Y (primordial_module.cpp:775-890)
+        corr = {}
+        for i1, x in enumerate(IC_KINDS):
+            for y in IC_KINDS[i1 + 1:]:
+                ckey, nkey, akey = f"c_{x}_{y}", f"n_{x}_{y}", f"alpha_{x}_{y}"
+                if ckey in p or nkey in p or akey in p:
+                    c = float(p.pop(ckey, 0.0))
+                    n12 = float(p.pop(nkey, 0.0))
+                    a12 = float(p.pop(akey, 0.0))
+                    if not -1.0 <= c <= 1.0:
+                        raise CosmoSevereError(
+                            f"{ckey} = {c} outside [-1, 1] (inconsistent "
+                            "isocurvature cross-correlation)")
+                    if c != 0.0 and not (x in ics or x == "ad") \
+                            or c != 0.0 and y not in ics:
+                        raise CosmoSevereError(
+                            f"{ckey} given but ic does not include both {x!r} and {y!r}")
+                    if c != 0.0:
+                        corr[(x, y)] = (c, n12, a12)
+        return iso, corr
+
+    @staticmethod
+    def _parse_pk_ini(p: dict, kw: dict) -> None:
+        """`P_k_ini type`: analytic_Pk, or two_scales, whose two amplitudes
+        set n_s and A_s (classy.py:720-737, input_module.cpp:1847-1905,
+        adiabatic branch; its isocurvature keys are refused as in the JAX
+        classy). The JAX classy reads k_pivot after popping it, so takes A_s
+        at 0.05/Mpc whatever k_pivot says; a k_pivot other than 0.05 is
+        refused (ROADMAP Queue 3)."""
+        pk_ini = str(p.pop("P_k_ini type", p.pop("Pk_ini_type", "analytic_Pk"))).strip()
+        if pk_ini == "two_scales":
+            k1, k2 = float(p.pop("k1")), float(p.pop("k2"))
+            if k1 <= 0.0 or k2 <= 0.0:
+                raise CosmoSevereError("two_scales requires k1, k2 > 0")
+            if any(key in p for key in ("P_{II}^1", "P_{II}^2", "P_{RI}^1", "|P_{RI}^2|",
+                                        "special_iso")):
+                raise CosmoSevereError(
+                    "two_scales isocurvature amplitudes not implemented "
+                    "(correlated isocurvature; input_module.cpp:1869)")
+            prr1, prr2 = float(p.pop("P_{RR}^1")), float(p.pop("P_{RR}^2"))
+            if prr1 <= 0.0 or prr2 <= 0.0:
+                raise CosmoSevereError("two_scales requires P_{RR}^{1,2} > 0")
+            if kw.get("k_pivot", 0.05) != 0.05:
+                raise NotImplementedError(
+                    "P_k_ini type two_scales with k_pivot != 0.05 is not ported: the JAX "
+                    "classy takes A_s at 0.05/Mpc whatever k_pivot "
+                    "(classpp_public_tpu/classy.py:735)")
+            n_s = np.log(prr2 / prr1) / np.log(k2 / k1) + 1.0
+            kw["n_s"] = float(n_s)
+            kw["A_s"] = float(prr1 * np.exp((n_s - 1.0) * np.log(0.05 / k1)))
+        elif pk_ini in ("external_Pk", "inflation_V", "inflation_H", "inflation_V_end"):
+            raise NotImplementedError(
+                f"P_k_ini type {pk_ini!r} is not ported (classpp_public_tpu/classy.py:677-719, "
+                "classpp_public_tpu/models/inflation.py)")
+        elif pk_ini != "analytic_Pk":
+            raise CosmoSevereError(
+                f"P_k_ini type {pk_ini!r} not implemented (analytic_Pk, external_Pk, "
+                "inflation_V, inflation_H, inflation_V_end, two_scales)")
 
     @staticmethod
     def _m_ncdm_from_omega(kw: dict, i: int, omega_target: float, h: float,

@@ -12,7 +12,11 @@
 // package compiles one solver head per PtIdx, whose `gauge` is static, and
 // here `gauge` (0 synchronous, 1 Newtonian) selects perturb_ark_kernel<false>
 // or <true>; the synchronous instance is the code it was before the Newtonian
-// one was added.
+// one was added. Each lane has its initial condition (`ic`, 0 adiabatic, 1 bi,
+// 2 cdi, 3 nid, 4 niv; null: all adiabatic): the JAX package runs one solve
+// per initial condition (solve.py:739-750), here the lanes of every initial
+// condition go in one launch, and only the first state of a lane depends on
+// it (perturb_ark.cuh isocurvature_ic).
 //
 // Design: one lane per warp, one warp per block. Each lane runs its own
 // while loop to its last sample: no lockstep between lanes, no host reads, no
@@ -31,6 +35,13 @@
 // serial chain of steps (3500 on planck_row2; 32 000 on the k = 20/Mpc lane
 // of a run with massive neutrinos, whose fluid keeps oscillating); within a
 // step the dependent chain is the scalar block of each of the six stages.
+//
+// Block b integrates lane order[b] (null: lane b). The wrapper orders the
+// blocks by decreasing k: with several initial conditions there are more
+// lanes than resident blocks (25 KB of shared memory a lane with one ncdm
+// species: ~9 blocks an SM, ~1200 on the card), and the highest-k lanes, the
+// slowest of every initial condition, must start in the first wave, not
+// after it.
 //
 // A lane that runs past max_steps or cannot produce a finite step sets its
 // status word (1, 2); the wrapper reads the words once and raises.
@@ -61,12 +72,14 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
                    const double* __restrict__ taus,   // (ntau,)
                    const double* __restrict__ rtol,   // (nl, n)
                    const double* __restrict__ atol,   // (nl, n)
+                   const int* __restrict__ ic,        // (nl,) or null
+                   const int* __restrict__ order,     // (nl,) or null
                    double k_eta_split, double K, int sgnK, long max_steps, int nlanes,
                    int ntau, double* __restrict__ S,  // (nl, ntau, 27)
                    long long* __restrict__ nsteps,    // (nl,)
                    int* __restrict__ status) {        // (nl,)
   extern __shared__ double work[];                    // work_doubles(L)
-  const int lane = blockIdx.x;
+  const int lane = order ? order[blockIdx.x] : (int)blockIdx.x;
   const pk::Team tm{(int)threadIdx.x, kWarp};
   pk::Lane ln;
   ln.k = lanes[lane];
@@ -75,8 +88,10 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
   ln.t_ufa = lanes[3 * nlanes + lane];
   ln.t_rsa = lanes[4 * nlanes + lane];
   ln.t_ncfa = lanes[5 * nlanes + lane];
-  // the eta - 1 storage of the low-k lanes is the synchronous gauge's
-  ln.eta_off = kNewt ? 0.0 : (ln.k < k_eta_split ? 1.0 : 0.0);
+  ln.ic = ic ? ic[lane] : pk::kIcAd;
+  // the eta - 1 storage of the low-k lanes is the synchronous gauge's, and
+  // the adiabatic mode's
+  ln.eta_off = kNewt ? 0.0 : (ln.ic == pk::kIcAd && ln.k < k_eta_split ? 1.0 : 0.0);
   ln.K = K;
   ln.sgnK = sgnK;
   ln.sl = nullptr;
@@ -95,17 +110,17 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
 // 48 KB when the lane scratch needs it.
 template <bool kNewt>
 int launch(const pk::Layout& L, const pk::Tables& T, size_t smem, const double* lanes,
-           const double* taus, const double* rtol, const double* atol, double k_eta_split,
-           double K, int sgnK, long max_steps, int nlanes, int ntau, double* S,
-           long long* nsteps, int* status, cudaStream_t stream) {
+           const double* taus, const double* rtol, const double* atol, const int* ic,
+           const int* order, double k_eta_split, double K, int sgnK, long max_steps, int nlanes,
+           int ntau, double* S, long long* nsteps, int* status, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         perturb_ark_kernel<kNewt>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   perturb_ark_kernel<kNewt><<<nlanes, kWarp, smem, stream>>>(
-      L, T, lanes, taus, rtol, atol, k_eta_split, K, sgnK, max_steps, nlanes, ntau, S, nsteps,
-      status);
+      L, T, lanes, taus, rtol, atol, ic, order, k_eta_split, K, sgnK, max_steps, nlanes, ntau, S,
+      nsteps, status);
   return (int)cudaGetLastError();
 }
 
@@ -115,7 +130,9 @@ int launch(const pk::Layout& L, const pk::Tables& T, size_t smem, const double* 
 // device pointer. ncdm: q (nq), w (ns, nq), dlnf0 (ns, nq), x_fac (ns),
 // pref (ns) packed in this order (unused when ns = 0). K: the spatial
 // curvature in 1/Mpc^2, sgnK its sign; gauge 0 synchronous, 1 Newtonian
-// (any other value is refused). The lane's scratch is dynamic shared
+// (any other value is refused). ic: each lane's initial condition (null: all
+// adiabatic); order: the lane of each block (null: block b runs lane b), a
+// permutation of 0..nlanes-1. The lane's scratch is dynamic shared
 // memory, sized from the layout (any number of species): a state too wide for
 // one block's 227 KB is refused here, and before that by the wrapper
 // (solve.py `check_lane_scratch`), which names N_ncdm.
@@ -124,6 +141,7 @@ extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const 
                                   double bg_dx, int bg_n, const double* th_y,
                                   const double* th_y2, double th_x0, double th_dx, int th_n,
                                   const double* ncdm, const double* rtol, const double* atol,
+                                  const int* ic, const int* order,
                                   double k_eta_split, double K, int sgnK, int gauge,
                                   long long max_steps, int nlanes, int ntau, double* S,
                                   long long* nsteps, int* status, void* stream) {
@@ -142,8 +160,8 @@ extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const 
   T.pref = T.x_fac + L.ns;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return gauge == 1
-      ? launch<true>(L, T, smem, lanes, taus, rtol, atol, k_eta_split, K, sgnK, (long)max_steps,
-                     nlanes, ntau, S, nsteps, status, st)
-      : launch<false>(L, T, smem, lanes, taus, rtol, atol, k_eta_split, K, sgnK, (long)max_steps,
-                      nlanes, ntau, S, nsteps, status, st);
+      ? launch<true>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K, sgnK,
+                     (long)max_steps, nlanes, ntau, S, nsteps, status, st)
+      : launch<false>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K, sgnK,
+                      (long)max_steps, nlanes, ntau, S, nsteps, status, st);
 }

@@ -14,11 +14,17 @@
 // team_sync(); a function that reads may assume its inputs are visible.
 //
 // Counterparts, line by line: classpp_public_torch/models/perturbations/
-// equations.py (rhs_full, stiff_apply, stiff_solve, adiabatic_ic, the remaps,
-// compute_sources), ops/ode.py (ark_step) and solve.py (_step). Open, flat
-// or closed universe, synchronous or Newtonian gauge, adiabatic mode; photons,
-// polarization, baryons, cdm, massless neutrinos, n_s massive-neutrino species
-// on a shared momentum grid, and the metric.
+// equations.py (rhs_full, stiff_apply, stiff_solve, adiabatic_ic,
+// isocurvature_ic, ic_to_newtonian, the remaps, compute_sources), ops/ode.py
+// (ark_step) and solve.py (_step). Open, flat or closed universe, synchronous
+// or Newtonian gauge, the adiabatic mode and (flat) the four isocurvature
+// modes, picked per lane (Lane::ic); photons, polarization, baryons, cdm,
+// massless neutrinos, n_s massive-neutrino species on a shared momentum grid,
+// and the metric.
+//
+// The initial condition only sets the lane's first state: the adiabatic lanes
+// run adiabatic_ic, which is the code it was, and the isocurvature lanes
+// isocurvature_ic; the step loop is the same for every lane.
 //
 // The gauge is a template parameter kNewt of the lane program (rhs_full,
 // adiabatic_ic, remap_tca_off, compute_sources, integrate_lane), so that the
@@ -161,11 +167,15 @@ struct Flags {
   bool tca, rsa, ufa, ncfa;
 };
 
+// Initial conditions: a lane's code (equations.py IC_KINDS).
+constexpr int kIcAd = 0, kIcBi = 1, kIcCdi = 2, kIcNid = 3, kIcNiv = 4;
+
 struct Lane {
   double k, eta_off, t_tca, t_ufa, t_rsa, t_ncfa;
   double K;                     // spatial curvature [Mpc^-2]
   int sgnK;                     // its sign: 0 flat, -1 open, +1 closed
   const double* sl;             // s_l, l = 0..sl_count - 1 (set by integrate_lane)
+  int ic;                       // initial condition, kIcAd ... kIcNiv
 };
 
 // Entries of a lane's s_l table: every l a hierarchy couples, s_{l+1} of its
@@ -740,6 +750,112 @@ PK_FN void adiabatic_ic(const Layout& L, const Tables& T, const Team& tm, const 
   team_sync(tm);
 }
 
+// Isocurvature initial state of kind ln.ic (bi, cdi, nid, niv) at fr.tau,
+// flat, with entropy amplitude 1 (equations.py isocurvature_ic), and in the
+// Newtonian gauge the generic transform of that synchronous state
+// (equations.py ic_to_newtonian: alpha from the first two Einstein
+// equations, every species shifted by it, theta_cdm = k^2 alpha, phi in the
+// eta slot). The ncdm species count as relativistic; each Psi_0, Psi_1 is
+// seeded from the (shifted) ur density and velocity, Psi_2 from the ur
+// shear. Every thread computes the scalars; thread 0 writes them. Ends with
+// team_sync().
+template <bool kNewt>
+PK_FN void isocurvature_ic(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
+                           const Lane& ln, const Vec y) {
+  const double k = ln.k, tau = fr.tau, e = 1.0;
+  double rho_ur = fr.rho_ur;
+  for (int s = 0; s < L.ns; ++s) rho_ur = rho_ur + fr.nc[3 * s];
+  const double rho_r = fr.rho_g + rho_ur, rho_m = fr.rho_b + fr.rho_cdm;
+  const double fracnu = rho_ur / rho_r, fracg = fr.rho_g / rho_r, fracb = fr.rho_b / rho_m;
+  const double fraccdm = 1.0 - fracb;
+  const double om = fr.a * rho_m / sqrt(rho_r);
+  const double kt = k * tau, kt2 = kt * kt;
+  double dg, tg, db, tb, dc, dur, tur, sur, eta;
+  if (ln.ic == kIcCdi || ln.ic == kIcBi) {
+    const double frac = ln.ic == kIcCdi ? fraccdm : fracb;
+    dg = e * frac * om * tau * (-2.0 / 3.0 + om * tau / 4.0);
+    tg = -e * frac * om * kt2 / 12.0;
+    db = ln.ic == kIcCdi ? 0.75 * dg : e + 0.75 * dg;
+    tb = tg;
+    dc = ln.ic == kIcCdi ? e + 0.75 * dg : 0.75 * dg;
+    dur = dg;
+    tur = tg;
+    sur = -e * frac * kt2 * tau * om / 6.0 / (2.0 * fracnu + 15.0);
+    eta = -e * frac * om * tau * (1.0 / 6.0 - om * tau / 16.0);
+  } else if (ln.ic == kIcNid) {
+    dg = e * fracnu / fracg * (-1.0 + kt2 / 6.0);
+    tg = -e * fracnu / fracg * k * k * tau * (0.25 - fracb / fracg * 3.0 / 16.0 * om * tau);
+    db = e * fracnu / fracg / 8.0 * kt2;
+    tb = tg;
+    dc = -e * fracnu * fracb / fracg / 80.0 * kt2 * om * tau;
+    dur = e * (1.0 - kt2 / 6.0);
+    tur = e * k * k * tau / 4.0;
+    sur = e * kt2 / (4.0 * fracnu + 15.0) / 2.0;
+    eta = -e * fracnu / (4.0 * fracnu + 15.0) / 6.0 * kt2;
+  } else {   // kIcNiv
+    dg = e * kt * fracnu / fracg * (1.0 - 3.0 / 16.0 * fracb * (2.0 + fracg) / fracg * om * tau);
+    tg = e * fracnu / fracg * 0.75 * k * (
+        -1.0 + 0.75 * fracb / fracg * om * tau
+        + 3.0 / 16.0 * om * om * tau * tau * fracb / fracg / fracg * (fracg - 3.0 * fracb)
+        + kt2 / 6.0);
+    db = 0.75 * dg;
+    tb = tg;
+    dc = -e * 9.0 / 64.0 * fracnu * fracb / fracg * kt * om * tau;
+    dur = -e * kt * (1.0 + 3.0 / 16.0 * fracb * fracnu / fracg * om * tau);
+    tur = e * 0.75 * k * (1.0 - kt2 / 6.0 * (4.0 * fracnu + 9.0) / (4.0 * fracnu + 5.0));
+    sur = e / (4.0 * fracnu + 15.0) * kt * (1.0 + 3.0 * om * tau * fracnu / (4.0 * fracnu + 15.0));
+    eta = e * fracnu * kt * (-1.0 / (4.0 * fracnu + 5.0)
+                             + (-3.0 / 64.0 * fracb / fracg
+                                + 15.0 / 4.0 / (4.0 * fracnu + 15.0) / (4.0 * fracnu + 5.0)
+                                * om * tau));
+  }
+  double theta_cdm = 0.0;
+  if constexpr (kNewt) {
+    const double k2 = k * k, aH = fr.a * fr.H, rmr = rho_m / rho_r;
+    const double s2 = 1.0 - 3.0 * ln.K / k2;
+    const double delta_tot = (fracg * dg + fracnu * dur + rmr * (fracb * db + fraccdm * dc))
+                             / (1.0 + rmr);
+    const double velocity_tot = (4.0 / 3.0 * (fracg * tg + fracnu * tur) + rmr * fracb * tb)
+                                / (1.0 + rmr);
+    const double alpha = (eta + 1.5 * aH * aH / (k2 * s2)
+                          * (delta_tot + 3.0 * aH / k2 * velocity_tot)) / aH;
+    eta = eta - aH * alpha;
+    dg = dg + -4.0 * aH * alpha;
+    tg = tg + k2 * alpha;
+    db = db + -3.0 * aH * alpha;
+    tb = tb + k2 * alpha;
+    dc = dc + -3.0 * aH * alpha;
+    theta_cdm = k2 * alpha;
+    dur = dur + -4.0 * aH * alpha;
+    tur = tur + k2 * alpha;
+  }
+  for (int i = tm.tid; i < L.n; i += tm.nt) y[i] = 0.0;
+  team_sync(tm);
+  if (tm.tid == 0) {
+    y[L.delta_g] = dg;
+    y[L.theta_g] = tg;
+    y[L.delta_b] = db;
+    y[L.theta_b] = tb;
+    y[L.delta_cdm] = dc;
+    if constexpr (kNewt) y[L.theta_cdm] = theta_cdm;
+    y[L.delta_ur] = dur;
+    y[L.theta_ur] = tur;
+    y[L.shear_ur] = sur;
+    y[L.eta] = eta;
+  }
+  for (int e2 = tm.tid; e2 < L.ns * L.nq; e2 += tm.nt) {
+    const int s = e2 / L.nq, iq = e2 - s * L.nq;
+    const double ax = fr.a * T.x_fac[s];
+    const double q = T.q[iq], eps = sqrt(q * q + ax * ax);
+    const double dl0 = T.dlnf0[s * L.nq + iq];
+    const int o = L.ncdm + (s * L.nq + iq) * L.nl;
+    y[o] = -0.25 * dur * dl0;
+    y[o + 1] = -eps / (3.0 * q * k) * tur * dl0;
+    y[o + 2] = -0.5 * sur * dl0;
+  }
+  team_sync(tm);
+}
+
 // Photon hierarchy from its tight-coupling values (remap_tca_off). `fl` are
 // the flags at the switch time; the shear is evaluated with tca forced on.
 // Ends with team_sync().
@@ -873,7 +989,10 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
   Frame fr;
   double t = tau_ini, h = 0.1 * tau_ini;
   frame_at(T, tm, t, fbuf, fr);
-  adiabatic_ic<kNewt>(L, T, tm, fr, ln, y);
+  if (ln.ic == kIcAd)
+    adiabatic_ic<kNewt>(L, T, tm, fr, ln, y);
+  else
+    isocurvature_ic<kNewt>(L, T, tm, fr, ln, y);
 
   int j = 0, bad_in_a_row = 0, status = kOk;
   long long nsteps = 0;

@@ -6,12 +6,14 @@
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libperturb_ark_host.so perturb_ark_host.cpp
 //
-// The arguments of perturb_ark_host_gauge are those of perturb_ark_launch
+// The arguments of perturb_ark_host_ic are those of perturb_ark_launch
 // (perturb_ark.cu) with host pointers and a scratch of work_doubles, without
-// the stream; perturb_ark_host_curved is its synchronous case and
-// perturb_ark_host the flat synchronous one (K = 0). The package never loads
-// this library; tests/test_torch_perturbations.py, tests/test_torch_curved.py
-// and tests/test_torch_newtonian.py do.
+// the block order and the stream; perturb_ark_host_gauge is its case of
+// adiabatic lanes (ic null), perturb_ark_host_curved that case in the
+// synchronous gauge and perturb_ark_host the flat synchronous one (K = 0).
+// The package never loads this library; tests/test_torch_perturbations.py,
+// tests/test_torch_curved.py, tests/test_torch_newtonian.py and
+// tests/test_torch_isocurvature.py do.
 
 #include "perturb_ark.cuh"
 
@@ -19,7 +21,8 @@ namespace {
 
 template <bool kNewt>
 void run_lanes(const pk::Layout& L, const pk::Tables& T, const double* lanes, const double* taus,
-               const double* rtol, const double* atol, double k_eta_split, double K, int sgnK,
+               const double* rtol, const double* atol, const int* ic, double k_eta_split,
+               double K, int sgnK,
                long long max_steps, int nlanes, int ntau, double* work, double* S,
                long long* nsteps, int* status) {
   for (int lane = 0; lane < nlanes; ++lane) {
@@ -30,7 +33,8 @@ void run_lanes(const pk::Layout& L, const pk::Tables& T, const double* lanes, co
     ln.t_ufa = lanes[3 * nlanes + lane];
     ln.t_rsa = lanes[4 * nlanes + lane];
     ln.t_ncfa = lanes[5 * nlanes + lane];
-    ln.eta_off = kNewt ? 0.0 : (ln.k < k_eta_split ? 1.0 : 0.0);
+    ln.ic = ic ? ic[lane] : pk::kIcAd;
+    ln.eta_off = kNewt ? 0.0 : (ln.ic == pk::kIcAd && ln.k < k_eta_split ? 1.0 : 0.0);
     ln.K = K;
     ln.sgnK = sgnK;
     ln.sl = nullptr;
@@ -43,15 +47,14 @@ void run_lanes(const pk::Layout& L, const pk::Tables& T, const double* lanes, co
 
 }  // namespace
 
-extern "C" int perturb_ark_host_gauge(const int* layout, const double* lanes,
-                                      const double* taus, const double* bg_y,
-                                      const double* bg_y2, double bg_x0, double bg_dx, int bg_n,
-                                      const double* th_y, const double* th_y2, double th_x0,
-                                      double th_dx, int th_n, const double* ncdm,
-                                      const double* rtol, const double* atol,
-                                      double k_eta_split, double K, int sgnK, int gauge,
-                                      long long max_steps, int nlanes, int ntau, double* work,
-                                      double* S, long long* nsteps, int* status) {
+extern "C" int perturb_ark_host_ic(const int* layout, const double* lanes, const double* taus,
+                                   const double* bg_y, const double* bg_y2, double bg_x0,
+                                   double bg_dx, int bg_n, const double* th_y,
+                                   const double* th_y2, double th_x0, double th_dx, int th_n,
+                                   const double* ncdm, const double* rtol, const double* atol,
+                                   const int* ic, double k_eta_split, double K, int sgnK,
+                                   int gauge, long long max_steps, int nlanes, int ntau,
+                                   double* work, double* S, long long* nsteps, int* status) {
   pk::Layout L;
   int* li = reinterpret_cast<int*>(&L);
   for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
@@ -64,12 +67,26 @@ extern "C" int perturb_ark_host_gauge(const int* layout, const double* lanes,
   T.pref = T.x_fac + L.ns;
   if (gauge < 0 || gauge > 1 || (gauge == 1) != (L.theta_cdm >= 0)) return 1;
   if (gauge == 1)
-    run_lanes<true>(L, T, lanes, taus, rtol, atol, k_eta_split, K, sgnK, max_steps, nlanes, ntau,
-                    work, S, nsteps, status);
+    run_lanes<true>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps, nlanes,
+                    ntau, work, S, nsteps, status);
   else
-    run_lanes<false>(L, T, lanes, taus, rtol, atol, k_eta_split, K, sgnK, max_steps, nlanes,
+    run_lanes<false>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps, nlanes,
                      ntau, work, S, nsteps, status);
   return 0;
+}
+
+extern "C" int perturb_ark_host_gauge(const int* layout, const double* lanes,
+                                      const double* taus, const double* bg_y,
+                                      const double* bg_y2, double bg_x0, double bg_dx, int bg_n,
+                                      const double* th_y, const double* th_y2, double th_x0,
+                                      double th_dx, int th_n, const double* ncdm,
+                                      const double* rtol, const double* atol,
+                                      double k_eta_split, double K, int sgnK, int gauge,
+                                      long long max_steps, int nlanes, int ntau, double* work,
+                                      double* S, long long* nsteps, int* status) {
+  return perturb_ark_host_ic(layout, lanes, taus, bg_y, bg_y2, bg_x0, bg_dx, bg_n, th_y, th_y2,
+                             th_x0, th_dx, th_n, ncdm, rtol, atol, nullptr, k_eta_split, K, sgnK,
+                             gauge, max_steps, nlanes, ntau, work, S, nsteps, status);
 }
 
 extern "C" int perturb_ark_host_curved(const int* layout, const double* lanes,

@@ -7,7 +7,10 @@ Nothing here imports JAX: the caller turns the JAX objects into dicts
 UniformSpline is a dict with keys x0, dx, y, y2. The curvature travels with
 the parameters (Omega_k) and the background (H0): K = -Omega_k H0^2 and its
 sign follow from them (`solve.curvature_of`, `Cosmology.curvature_K`), and a
-transfer result keeps its k(q).
+transfer result keeps its k(q). The isocurvature modes travel as dicts: a
+perturbation result's `sources_iso` {ic: table}, a spectra result's
+`cl_pairs` {(ic1, ic2): table}, a primordial result's `iso` and `iso_corr`,
+and the output selection's `ics`.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from .models.numbercounts import CmbNcCrossResult, NumberCountsResult, RowInfo
 from .models.perturbations.equations import NcdmCtx
 from .models.perturbations.solve import PerturbResult
 from .models.perturbations.tensors import TensorResult
+from .models.primordial import PrimordialResult
 from .models.spectra import SpectraResult
 from .models.thermodynamics import RecfastCtx, ThermoResult
 from .models.transfer import TransferResult
@@ -92,6 +96,13 @@ def thermo(d: dict, device) -> ThermoResult:
     return ThermoResult(**kw)
 
 
+def _tables(d, device):
+    """{key: tensor} of a dict of tables (None or empty: None)."""
+    if isinstance(d, np.ndarray) and d.dtype == object:
+        d = d.item()
+    return {k: _t(v, device) for k, v in d.items()} if d else None
+
+
 def perturb(d: dict, device) -> PerturbResult:
     k_np = np.asarray(d["k"], dtype=np.float64)
     tau_np = np.asarray(d["tau"], dtype=np.float64)
@@ -100,7 +111,8 @@ def perturb(d: dict, device) -> PerturbResult:
                          k_size_cmb=int(d["k_size_cmb"]),
                          stats_steps=torch.as_tensor(np.array(d["stats_steps"]),
                                                      device=device),
-                         k_np=k_np, tau_np=tau_np)
+                         k_np=k_np, tau_np=tau_np,
+                         sources_iso=_tables(d.get("sources_iso"), device))
 
 
 def transfer(d: dict, device) -> TransferResult:
@@ -123,7 +135,21 @@ def spectra(d: dict, device) -> SpectraResult:
                          l_list=torch.as_tensor(np.array(d["l_list"]), device=device),
                          cl_list=_t(d["cl_list"], device),
                          cl_tensor=None if d.get("cl_tensor") is None
-                         else _t(d["cl_tensor"], device))
+                         else _t(d["cl_tensor"], device),
+                         cl_pairs=_tables(d.get("cl_pairs"), device))
+
+
+def primordial(d: dict) -> PrimordialResult:
+    """PrimordialResult from a JAX PrimordialResult dict, with its
+    isocurvature amplitudes and correlations (the external spectrum is
+    dropped: not ported)."""
+    def entries(v):
+        if isinstance(v, np.ndarray) and v.dtype == object:
+            v = v.item()
+        return {k: tuple(float(x) for x in e) for k, e in v.items()} if v else None
+
+    return PrimordialResult(*(float(np.asarray(d[k])) for k in PrimordialResult._fields[:7]),
+                            iso=entries(d.get("iso")), iso_corr=entries(d.get("iso_corr")))
 
 
 def ncdm_ctx(d: dict, device) -> NcdmCtx:
@@ -162,8 +188,8 @@ def recfast_ctx(d: dict) -> RecfastCtx:
 
 def output_selection(d: dict) -> OutputSelection:
     """OutputSelection from the JAX OutputSelection fields, the number-count
-    ones included; fields the port does not have (dTk, vTk, the HMcode
-    feedback, ics, gauge, nbody) are dropped."""
+    ones and the initial conditions `ics` included; fields the port does not
+    have (dTk, vTk, the HMcode feedback, gauge, nbody) are dropped."""
     names = {f.name for f in dataclasses.fields(OutputSelection)}
     return OutputSelection(**{k: (tuple(v) if isinstance(v, list) else v)
                               for k, v in d.items() if k in names})

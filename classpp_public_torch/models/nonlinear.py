@@ -1,6 +1,7 @@
 """Linear and nonlinear matter power spectra (counterpart of
-classpp_public_tpu/models/nonlinear.py: `pk_linear_at_z` :82, `sigma_R`
-:103, `_halofit_one_z` :112, `_halofit_core` :433, `compute_nonlinear` :543).
+classpp_public_tpu/models/nonlinear.py: `pk_ic_deltas` :64,
+`pair_primordial_pk` :73, `pk_linear_at_z` :82, `sigma_R` :103,
+`_halofit_one_z` :112, `_halofit_core` :433, `compute_nonlinear` :543).
 
 The linear P(k, tau) comes from sources x primordial (nonlinear_pk_linear,
 nonlinear_module.cpp:1886); halofit is Takahashi 2012 with the Bird
@@ -15,6 +16,13 @@ universe halofit feels Omega_k through Omega_m(z) and Omega_v(z) = 1 -
 Omega_m - Omega_r, read from the background columns whose rho_crit carries
 the curvature term (nonlinear.py:459-462; the Omega_k terms of
 nonlinear.py:390-399 and :505-515 belong to hmcode and Pk_equal).
+
+With isocurvature modes P(k) sums every correlated pair of initial conditions,
+P = 2 pi^2/k^3 sum P_12(k) delta_1 delta_2, the off-diagonal pairs twice
+(nonlinear_pk_linear :1886, spectra_module.cpp:305-308); halofit takes one
+effective delta with delta_eff^2 = sum P_12/P_ad delta_1 delta_2 and the sign
+of delta_ad, folded per (k, tau) before the splines (nonlinear.py:589-612),
+and so does its sigma8.
 """
 
 from __future__ import annotations
@@ -47,13 +55,66 @@ class PkResult(NamedTuple):
     sigma8: float             # sigma8(z = 0)
 
 
-def pk_linear_at_z(pert, bg, pm: PrimordialResult, z, col: str = "delta_m") -> torch.Tensor:
-    """P(k, z) = 2 pi^2 / k^3 P_R(k) delta(k, z)^2, delta splined in tau."""
+def _delta_at_z(pert, sources, bg, z, col):
+    """delta(k, z): the source column `col` of `sources` splined in tau."""
     tau_q = tau_of_z(bg, z).to(pert.tau.device)
-    S = pert.sources[:, :, SrcIdx.ix[col]].T.contiguous()     # (ntau, nk)
-    delta = spline_eval(pert.tau, S, spline_d2(pert.tau, S), tau_q)
+    S = sources[:, :, SrcIdx.ix[col]].T.contiguous()     # (ntau, nk)
+    return spline_eval(pert.tau, S, spline_d2(pert.tau, S), tau_q)
+
+
+def pk_ic_deltas(pert, bg, z, col: str = "delta_m") -> dict:
+    """{ic: delta(k, z)} of every initial condition, "ad" first."""
+    return {ic: _delta_at_z(pert, src, bg, z, col)
+            for ic, src in {"ad": pert.sources, **(pert.sources_iso or {})}.items()}
+
+
+def pair_primordial_pk(pm: PrimordialResult, n1, n2, k):
+    """The primordial spectrum of the pair (n1, n2); None when uncorrelated."""
+    if n1 == "ad" and n2 == "ad":
+        return pm.scalar_pk(k)
+    if n1 == n2:
+        return pm.iso_pk(n1, k)
+    return pm.cross_pk(n1, n2, k)
+
+
+def _pairs(names):
+    """(n1, n2, factor) of each pair of `names` with n1 not after n2, in the
+    JAX package's order; factor 2 off the diagonal."""
+    return [(n1, names[i2], 1.0 if i1 == i2 else 2.0)
+            for i1, n1 in enumerate(names) for i2 in range(i1, len(names))]
+
+
+def pk_linear_at_z(pert, bg, pm: PrimordialResult, z, col: str = "delta_m") -> torch.Tensor:
+    """P(k, z) = 2 pi^2 / k^3 P_R(k) delta(k, z)^2, delta splined in tau; with
+    isocurvature modes the sum over the correlated pairs."""
     k = pert.k
-    return 2.0 * math.pi**2 / k**3 * pm.scalar_pk(k) * delta**2
+    if not pert.sources_iso:
+        delta = _delta_at_z(pert, pert.sources, bg, z, col)
+        return 2.0 * math.pi**2 / k**3 * pm.scalar_pk(k) * delta**2
+    ds = pk_ic_deltas(pert, bg, z, col)
+    total = torch.zeros_like(k)
+    for n1, n2, f in _pairs(list(ds)):
+        pk12 = pair_primordial_pk(pm, n1, n2, k)
+        if pk12 is not None:
+            total = total + f * pk12 * ds[n1] * ds[n2]
+    return 2.0 * math.pi**2 / k**3 * total
+
+
+def halofit_delta(pert, pm: PrimordialResult, col: str) -> torch.Tensor:
+    """(nk, ntau) the delta halofit reads: the source column, or with
+    isocurvature modes sign(delta_ad) sqrt(max(sum_pairs P_12/P_ad delta_1
+    delta_2, 0)) (nonlinear.py:589-612)."""
+    S = pert.sources[:, :, SrcIdx.ix[col]]
+    if not pert.sources_iso:
+        return S
+    d = {"ad": S, **{ic: src[:, :, SrcIdx.ix[col]] for ic, src in pert.sources_iso.items()}}
+    p_ad = pm.scalar_pk(pert.k)
+    tot = torch.zeros_like(S)
+    for n1, n2, f in _pairs(list(d)):
+        p12 = pair_primordial_pk(pm, n1, n2, pert.k)
+        if p12 is not None:
+            tot = tot + f * (p12 / p_ad)[:, None] * d[n1] * d[n2]
+    return torch.sign(S) * torch.sqrt(torch.clamp(tot, min=0.0))
 
 
 def sigma_R(k: torch.Tensor, pk: torch.Tensor, R) -> torch.Tensor:
@@ -223,9 +284,10 @@ def compute_nonlinear(pert, bg, bidx, pm: PrimordialResult, pr, params, z_pk=(0.
     tau_q = interp(-torch.log1p(z_arr), loga, tau_of_loga)
     anorm_k = 2.0 * math.pi**2 / k**3 * pm.scalar_pk(k)
     taus = pert.tau
+    S_of = {col: halofit_delta(pert, pm, col) for col in ("delta_m", "delta_cb")}
 
     def pk_of(col, tq):
-        S = pert.sources[:, :, SrcIdx.ix[col]].T.contiguous()
+        S = S_of[col].T.contiguous()
         return anorm_k * spline_eval(taus, S, spline_d2(taus, S), tq) ** 2
 
     pk_lin = pk_of("delta_m", tau_q)          # (nz, nk)

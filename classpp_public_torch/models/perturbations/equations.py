@@ -1,10 +1,11 @@
 """Scalar perturbation equations, batched over lanes: RHS, the stiff
-(Thomson) split, adiabatic initial conditions, approximation remaps and the
-source functions.
+(Thomson) split, adiabatic and isocurvature initial conditions, approximation
+remaps and the source functions.
 
 Counterpart of classpp_public_tpu/models/perturbations/equations.py
 (`PertCtx` :134, `rhs_full` :225, `stiff_apply` :1017, `stiff_solve` :1057,
-`adiabatic_ic` :1109, `_ic_to_newtonian` :1317, `initial_conditions` :1412,
+`adiabatic_ic` :1109, `isocurvature_ic` :1216, `_ic_to_newtonian` :1317,
+`initial_conditions` :1412,
 `remap_tca_off` :1421, `remap_ufa_on` :1448, `remap_ncdmfa_on` :1456,
 `remap_rsa_on` :1482, `compute_sources` :1501), restricted to photons,
 polarization, baryons, cdm, massless neutrinos, massive neutrinos (ncdm: the
@@ -41,6 +42,8 @@ from .indices import PtIdx, SrcIdx
 BG_COLS = ("a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm", "rho_ur",
            "rho_tot", "p_tot", "p_tot_prime")
 TH_COLS = ("dkappa", "ddkappa", "g", "dg", "exp_m_kappa", "cb2")
+# the initial conditions; a lane's IC code is its index here (PertCtx.ic)
+IC_KINDS = ("ad", "bi", "cdi", "nid", "niv")
 
 
 class NcdmCtx(NamedTuple):
@@ -120,8 +123,9 @@ def frame_at(tau: torch.Tensor, tables: PertTables) -> Frame:
 
 class PertCtx(NamedTuple):
     """Per-lane data fixed during one step: wavenumber, approximation flags
-    at the step's start time, and the eta storage offset (low-k adiabatic
-    lanes store eta - 1 so its deviation keeps full relative precision)."""
+    at the step's start time, the eta storage offset (low-k adiabatic
+    lanes store eta - 1 so its deviation keeps full relative precision) and
+    the initial condition (an IC_KINDS index per lane; None: all adiabatic)."""
 
     k: torch.Tensor
     tca_on: torch.Tensor   # bool
@@ -130,6 +134,7 @@ class PertCtx(NamedTuple):
     eta_off: torch.Tensor
     tables: PertTables
     ncdmfa_on: torch.Tensor = None   # ncdm fluid approximation (bool)
+    ic: torch.Tensor = None          # IC_KINDS index per lane (int)
 
 
 def _ncdm_moments(fr: Frame, y: torch.Tensor, ctx: PertCtx):
@@ -681,11 +686,97 @@ def ic_to_newtonian(y: torch.Tensor, fr: Frame, ctx: PertCtx) -> torch.Tensor:
     return y
 
 
+def isocurvature_ic(fr: Frame, ctx: PertCtx, kind: str, entropy_ini: float = 1.0) -> torch.Tensor:
+    """Isocurvature initial conditions of `kind` in {"bi", "cdi", "nid",
+    "niv"}, synchronous gauge, flat (Bucher-Moodley-Turok conventions;
+    perturb_initial_conditions :4946-5085; equations.py:1216-1314). The ncdm
+    species count as relativistic (in rho_ur); each ncdm Psi_0..Psi_2 is
+    seeded from the ur multipoles."""
+    idx = ctx.tables.idx
+    k, tau, e = ctx.k, fr.tau, entropy_ini
+    rho_ur = fr.rho_ur
+    if idx.n_ncdm:
+        for i in range(idx.n_ncdm):
+            rho_ur = rho_ur + fr.rho_nc[:, i]
+    rho_r = fr.rho_g + rho_ur
+    rho_m = fr.rho_b + fr.rho_cdm
+    fracnu = rho_ur / rho_r
+    fracg = fr.rho_g / rho_r
+    fracb = fr.rho_b / rho_m
+    fraccdm = 1.0 - fracb
+    om = fr.a * rho_m / torch.sqrt(rho_r)
+    kt = k * tau
+    kt2 = kt * kt
+    if kind in ("cdi", "bi"):
+        frac = fraccdm if kind == "cdi" else fracb
+        dg = e * frac * om * tau * (-2.0 / 3.0 + om * tau / 4.0)
+        tg = -e * frac * om * kt2 / 12.0
+        db = 0.75 * dg if kind == "cdi" else e + 0.75 * dg
+        tb = tg
+        dc = e + 0.75 * dg if kind == "cdi" else 0.75 * dg
+        dur = dg
+        tur = tg
+        sur = -e * frac * kt2 * tau * om / 6.0 / (2.0 * fracnu + 15.0)
+        eta = -e * frac * om * tau * (1.0 / 6.0 - om * tau / 16.0)
+    elif kind == "nid":
+        dg = e * fracnu / fracg * (-1.0 + kt2 / 6.0)
+        tg = -e * fracnu / fracg * k * k * tau * (0.25 - fracb / fracg * 3.0 / 16.0 * om * tau)
+        db = e * fracnu / fracg / 8.0 * kt2
+        tb = tg
+        dc = -e * fracnu * fracb / fracg / 80.0 * kt2 * om * tau
+        dur = e * (1.0 - kt2 / 6.0)
+        tur = e * k * k * tau / 4.0
+        sur = e * kt2 / (4.0 * fracnu + 15.0) / 2.0
+        eta = -e * fracnu / (4.0 * fracnu + 15.0) / 6.0 * kt2
+    elif kind == "niv":
+        dg = e * kt * fracnu / fracg * (1.0 - 3.0 / 16.0 * fracb * (2.0 + fracg) / fracg * om * tau)
+        tg = e * fracnu / fracg * 0.75 * k * (
+            -1.0 + 0.75 * fracb / fracg * om * tau
+            + 3.0 / 16.0 * om * om * tau * tau * fracb / fracg / fracg * (fracg - 3.0 * fracb)
+            + kt2 / 6.0)
+        db = 0.75 * dg
+        tb = tg
+        dc = -e * 9.0 / 64.0 * fracnu * fracb / fracg * kt * om * tau
+        dur = -e * kt * (1.0 + 3.0 / 16.0 * fracb * fracnu / fracg * om * tau)
+        tur = e * 0.75 * k * (1.0 - kt2 / 6.0 * (4.0 * fracnu + 9.0) / (4.0 * fracnu + 5.0))
+        sur = e / (4.0 * fracnu + 15.0) * kt * (
+            1.0 + 3.0 * om * tau * fracnu / (4.0 * fracnu + 15.0))
+        eta = e * fracnu * kt * (-1.0 / (4.0 * fracnu + 5.0)
+                                 + (-3.0 / 64.0 * fracb / fracg
+                                    + 15.0 / 4.0 / (4.0 * fracnu + 15.0) / (4.0 * fracnu + 5.0)
+                                    * om * tau))
+    else:
+        raise ValueError(f"unknown isocurvature kind {kind!r}")
+    y = torch.zeros((k.shape[0], idx.size), dtype=k.dtype, device=k.device)
+    for slot, v in ((idx.delta_g, dg), (idx.theta_g, tg), (idx.delta_b, db), (idx.theta_b, tb),
+                    (idx.delta_cdm, dc), (idx.delta_ur, dur), (idx.theta_ur, tur),
+                    (idx.shear_ur, sur), (idx.eta, eta)):
+        y[:, slot] = v
+    if idx.n_ncdm:
+        nc = ctx.tables.ncdm
+        ns, nq, nl = idx.n_ncdm, idx.q_size_ncdm, idx.n_l_ncdm
+        eps = torch.sqrt(nc.q[None, None, :] ** 2
+                         + (fr.a[:, None, None] * nc.x_fac[None, :, None]) ** 2)
+        dl0 = nc.dlnf0[None]
+        Psi = torch.zeros((k.shape[0], ns, nq, nl), dtype=k.dtype, device=k.device)
+        Psi[..., 0] = -0.25 * dur[:, None, None] * dl0
+        Psi[..., 1] = -eps / (3.0 * nc.q[None, None, :] * k[:, None, None]) \
+            * tur[:, None, None] * dl0
+        Psi[..., 2] = -0.5 * sur[:, None, None] * dl0
+        y[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block] = Psi.reshape(k.shape[0], -1)
+    return y
+
+
 def initial_conditions(fr: Frame, ctx: PertCtx) -> torch.Tensor:
-    """The adiabatic initial state in the layout's gauge: built in the
-    synchronous gauge and transformed for the Newtonian one
-    (equations.py:1412-1418)."""
+    """The initial state of each lane's initial condition (ctx.ic; None:
+    adiabatic) in the layout's gauge: built in the synchronous gauge and
+    transformed for the Newtonian one (equations.py:1412-1418)."""
     y = adiabatic_ic(fr, ctx)
+    if ctx.ic is not None:
+        for code, kind in enumerate(IC_KINDS[1:], start=1):
+            on = ctx.ic == code
+            if bool(on.any()):
+                y = torch.where(on[:, None], isocurvature_ic(fr, ctx, kind), y)
     if ctx.tables.idx.gauge == "newtonian":
         y = ic_to_newtonian(y, fr, ctx)
     return y

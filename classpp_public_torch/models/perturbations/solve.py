@@ -29,6 +29,13 @@ its Newtonian instance, the plain version the same equations. In the
 Newtonian gauge no lane stores eta - 1 (`_eta_off`) and the P(k)-tail lanes
 keep the CMB tolerances (`_tolerances`).
 
+Each lane carries its initial condition (`equations.IC_KINDS` index: 0
+adiabatic, 1 bi, 2 cdi, 3 nid, 4 niv). `compute_perturbations` solves every
+initial condition of `ics` in one call, the lanes ordered by initial
+condition then k, each with the adiabatic lanes' tolerances; only the
+adiabatic synchronous lanes store eta - 1 (JAX solve.py:203-207), and the
+isocurvature sources are scaled by entropy_ini after the solve (:739-749).
+
 The JAX package's chunk, window and mesh scheduling and its 256-bucketing
 (solve.py:514-737) are TPU launch shaping and have no counterpart here: the
 CMB lanes and the P(k)-tail lanes, which differ in their tolerances
@@ -97,18 +104,19 @@ class Lanes(NamedTuple):
 class PerturbResult(NamedTuple):
     k: torch.Tensor            # (nk,)
     tau: torch.Tensor          # (ntau,)
-    sources: torch.Tensor      # (nk, ntau, SrcIdx.n)
+    sources: torch.Tensor      # (nk, ntau, SrcIdx.n), the adiabatic mode
     tau0: float
     k_size_cmb: int
-    stats_steps: torch.Tensor  # (nk,) step attempts per mode
+    stats_steps: torch.Tensor  # (nk,) step attempts per mode (adiabatic)
     k_np: np.ndarray = None
     tau_np: np.ndarray = None
+    sources_iso: dict = None   # {ic: (nk, ntau, SrcIdx.n)} isocurvature modes, in ics order
 
 
-def _ctx(lanes: Lanes, t, eta_off, tables):
+def _ctx(lanes: Lanes, t, eta_off, tables, ic=None):
     return eq.PertCtx(k=lanes.k, tca_on=t < lanes.t_tca, rsa_on=t >= lanes.t_rsa,
                       ufa_on=t >= lanes.t_ufa, eta_off=eta_off, tables=tables,
-                      ncdmfa_on=t >= lanes.t_ncfa)
+                      ncdmfa_on=t >= lanes.t_ncfa, ic=ic)
 
 
 def curvature_of(params: CosmoParams, bg) -> tuple:
@@ -117,13 +125,15 @@ def curvature_of(params: CosmoParams, bg) -> tuple:
     return K, 0 if params.Omega_k == 0.0 else (1 if K > 0 else -1)
 
 
-def _eta_off(k, gauge="synchronous"):
-    """The eta storage offset per lane: 1 on the low-k lanes of the
-    synchronous gauge, 0 in the Newtonian gauge (JAX solve.py:206,
+def _eta_off(k, gauge="synchronous", ic=None):
+    """The eta storage offset per lane: 1 on the low-k adiabatic lanes of the
+    synchronous gauge, 0 on the isocurvature lanes (ic, IC_KINDS indices; None:
+    all adiabatic) and in the Newtonian gauge (JAX solve.py:203-207,
     eta_flag)."""
     if gauge == "newtonian":
         return torch.zeros_like(k)
-    return (k < K_ETA_SPLIT).to(k.dtype)
+    low = k < K_ETA_SPLIT
+    return (low if ic is None else low & (ic == 0)).to(k.dtype)
 
 
 class _LaneState:
@@ -209,7 +219,7 @@ def _runner(fn, on_card: bool):
 
 
 def integrate_sources_plain(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
-                            tolerances) -> tuple:
+                            tolerances, ic: torch.Tensor = None) -> tuple:
     """Plain PyTorch version of `integrate_sources`: all lanes in lockstep
     (on a card, one CUDA graph per step)."""
     rtol_all, atol_all = tolerances
@@ -223,9 +233,9 @@ def integrate_sources_plain(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTab
     taus_ext = torch.cat([taus, taus[-1:]])
     nsteps_all = torch.zeros(nl_tot, dtype=torch.long, device=dev)
 
-    eta_off = _eta_off(lanes.k, tables.idx.gauge)
+    eta_off = _eta_off(lanes.k, tables.idx.gauge, ic)
     t0 = lanes.tau_ini.clone()
-    y0 = eq.initial_conditions(eq.frame_at(t0, tables), _ctx(lanes, t0, eta_off, tables))
+    y0 = eq.initial_conditions(eq.frame_at(t0, tables), _ctx(lanes, t0, eta_off, tables, ic))
     s = _LaneState(ids=torch.arange(nl_tot, device=dev), k=lanes.k, tau_ini=lanes.tau_ini,
                    t_tca=lanes.t_tca, t_ufa=lanes.t_ufa, t_rsa=lanes.t_rsa,
                    t_ncfa=lanes.t_ncfa, eta_off=eta_off,
@@ -271,8 +281,7 @@ def integrate_sources_plain(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTab
         c1 = min(c0 + SOURCE_CHUNK, nl_tot * ntau)
         lane = flat_lane[c0:c1]
         tt = flat_tau[c0:c1]
-        lc = lanes.take(lane)
-        ctx = _ctx(lc, tt, _eta_off(lc.k, tables.idx.gauge), tables)
+        ctx = _ctx(lanes.take(lane), tt, eta_off[lane], tables)
         Sflat[c0:c1] = eq.compute_sources(eq.frame_at(tt, tables), Ys[c0:c1], ctx)
     return S, nsteps_all
 
@@ -327,17 +336,20 @@ KERNEL_STATUS = {1: "exceeded MAX_ITERATIONS", 2: "produced a non-finite step"}
 
 
 def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
-                      tolerances) -> tuple:
+                      tolerances, ic: torch.Tensor = None) -> tuple:
     """Integrate every lane from tau_ini through all samples `taus`.
 
-    tolerances: (rtol, atol), each (nlanes, nstate). Returns
+    tolerances: (rtol, atol), each (nlanes, nstate); ic: each lane's initial
+    condition (int32 IC_KINDS indices; None: all adiabatic). Returns
     (S (nlanes, ntau, SrcIdx.n), nsteps (nlanes,)), nsteps counting step
     attempts as the JAX integrator does. CUDA tensors: one launch of the
-    perturb_ark kernel (one lane per warp); CPU tensors: the plain version."""
+    perturb_ark kernel (one lane per warp, the blocks taken in decreasing k
+    so that the slowest lanes start first); CPU tensors: the plain
+    version."""
     global launches
     dev = taus.device
     if dev.type == "cpu":
-        return integrate_sources_plain(lanes, taus, tables, tolerances)
+        return integrate_sources_plain(lanes, taus, tables, tolerances, ic)
     if dev.type != "cuda":
         raise ValueError(f"integrate_sources: unsupported device {dev}")
     idx = tables.idx
@@ -358,7 +370,14 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
     for t in ins:
         if t.dtype != torch.float64 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"integrate_sources: every input must be contiguous float64 on {dev}")
+    if ic is not None and (ic.dtype != torch.int32 or ic.shape != (nl,) or ic.device != dev
+                           or not ic.is_contiguous()):
+        raise ValueError(f"integrate_sources: ic must be a contiguous int32 ({nl},) tensor "
+                         f"on {dev}")
     check_lane_scratch(idx)
+    # block b integrates lane order[b]: the highest k (the slowest lanes) of
+    # every initial condition in the first wave of blocks
+    order = torch.argsort(lanes.k, descending=True, stable=True).to(torch.int32)
     lib = cuda.library()
     S = torch.empty((nl, ntau, SrcIdx.n), dtype=torch.float64, device=dev)
     nsteps = torch.zeros(nl, dtype=torch.long, device=dev)
@@ -368,15 +387,18 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
         layout, lane_tab.data_ptr(), taus.data_ptr(), bg.y.data_ptr(), bg.y2.data_ptr(),
         float(bg.x0), float(bg.dx), int(bg.n), th.y.data_ptr(), th.y2.data_ptr(),
         float(th.x0), float(th.dx), int(th.n), ncdm.data_ptr() if idx.n_ncdm else None,
-        rtol.data_ptr(), atol.data_ptr(), K_ETA_SPLIT, float(tables.K), int(idx.sgnK),
-        GAUGES[idx.gauge], MAX_ITERATIONS, nl, ntau, S.data_ptr(), nsteps.data_ptr(),
-        status.data_ptr(), cuda.stream_ptr(dev))
+        rtol.data_ptr(), atol.data_ptr(), ic.data_ptr() if ic is not None else None,
+        order.data_ptr(), K_ETA_SPLIT, float(tables.K), int(idx.sgnK), GAUGES[idx.gauge],
+        MAX_ITERATIONS, nl, ntau, S.data_ptr(), nsteps.data_ptr(), status.data_ptr(),
+        cuda.stream_ptr(dev))
     cuda.check(err, "perturb_ark")
     launches += 1
     st = status.cpu()   # the one host read: waits for the launch
     if bool(st.any()):
         i = int(torch.nonzero(st)[0])
-        raise RuntimeError(f"perturbation integration failed: lane k = {float(lanes.k[i]):.6g}/Mpc "
+        kind = eq.IC_KINDS[int(ic[i])] if ic is not None else "ad"
+        raise RuntimeError(f"perturbation integration failed: {kind} lane k = "
+                           f"{float(lanes.k[i]):.6g}/Mpc "
                            f"{KERNEL_STATUS.get(int(st[i]), st[i])} after {int(nsteps[i])} steps "
                            f"({int((st != 0).sum())} of {nl} lanes failed)")
     return S, nsteps
@@ -412,10 +434,13 @@ def compute_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th
                           has_cls: bool = True, has_pk: bool = True,
                           z_max_pk: float = 5.0, has_lcmb: bool = False,
                           k_max_cl_extra: float = 0.0, has_nc: bool = False,
-                          device=None) -> PerturbResult:
+                          ics=("ad",), device=None) -> PerturbResult:
     """Full scalar perturbation stage: grids + schedule + batched solve.
     has_nc (number counts) samples k and tau as C_l's do (solve.py:454-472:
-    the reference's has_cls includes nCl/sCl, perturbations_module.cpp:1700)."""
+    the reference's has_cls includes nCl/sCl, perturbations_module.cpp:1700).
+    ics: the initial conditions, "ad" among them (solve.py:739-750)."""
+    if "ad" not in ics or any(ic not in eq.IC_KINDS for ic in ics):
+        raise ValueError(f"compute_perturbations: ics {tuple(ics)} must be IC_KINDS with 'ad'")
     if pr.evolver != "imex":
         raise NotImplementedError(
             "only the imex evolver is ported (classpp_public_tpu/ops/ode.py:44 rkck)")
@@ -449,17 +474,30 @@ def compute_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th
     def dt(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=device)
 
-    # the CMB lanes and the P(k)-tail lanes go in one call: the tolerances
-    # are per lane and no lane waits for another
+    # the CMB lanes and the P(k)-tail lanes of every initial condition go in
+    # one call, ordered by initial condition then k: the tolerances are per
+    # lane and no lane waits for another
     n_cmb = min(n_cmb, len(ks))
     tols = [_tolerances(ks[i0:i1], idx, pr, tail, k_pp_max)
             for i0, i1, tail in ((0, n_cmb, False), (n_cmb, len(ks), True))]
-    lanes = Lanes(*(dt(a) for a in (sched.k, sched.tau_ini, sched.tau_tca_off,
-                                    sched.tau_ufa_on, sched.tau_rsa_on, t_ncfa)))
-    sources, steps = integrate_sources(
-        lanes, taus_t, tables, tuple(dt(np.concatenate([t[i] for t in tols])) for i in (0, 1)))
+    order = ["ad"] + [ic for ic in ics if ic != "ad"]
+    nic, nk = len(order), len(ks)
+    lanes = Lanes(*(dt(np.tile(a, nic)) for a in (sched.k, sched.tau_ini, sched.tau_tca_off,
+                                                  sched.tau_ufa_on, sched.tau_rsa_on, t_ncfa)))
+    tol = tuple(dt(np.tile(np.concatenate([t[i] for t in tols]), (nic, 1))) for i in (0, 1))
+    ic = None
+    if nic > 1:
+        ic = torch.as_tensor(np.repeat([eq.IC_KINDS.index(n) for n in order], nk),
+                             dtype=torch.int32, device=device)
+    sources, steps = integrate_sources(lanes, taus_t, tables, tol, ic)
+    sources_iso = None
+    if nic > 1:
+        sources_iso = {n: sources[i * nk:(i + 1) * nk] for i, n in enumerate(order) if i}
+        if pr.entropy_ini != 1.0:
+            sources_iso = {n: s * pr.entropy_ini for n, s in sources_iso.items()}
+        sources, steps = sources[:nk], steps[:nk]
     if pr.curvature_ini != 1.0:
         sources = sources * pr.curvature_ini
     return PerturbResult(k=dt(ks), tau=taus_t, sources=sources, tau0=float(bg.tau0),
                          k_size_cmb=k_size_cmb, stats_steps=steps,
-                         k_np=np.asarray(ks), tau_np=np.asarray(taus))
+                         k_np=np.asarray(ks), tau_np=np.asarray(taus), sources_iso=sources_iso)

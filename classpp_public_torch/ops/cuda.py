@@ -34,7 +34,7 @@ SIGNATURES = {
     "transfer_los_launch": [_P, _P, _D, _P, _P, _P, _P, _D, _I, _I, _I, _I, _P, _P],
     "lensing_wigner_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "perturb_ark_launch": [_P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _P, _P, _P,
-                           _D, _D, _I, _I, _L, _I, _I, _P, _P, _P, _P],
+                           _P, _P, _D, _D, _I, _I, _L, _I, _I, _P, _P, _P, _P],
     "halofit_sigma_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
     "recfast_history_launch": [_P, _P, _P, _D, _D, _I, _P, _P, _D, _D, _I, _I, _P, _P],
     "hyrec_history_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],

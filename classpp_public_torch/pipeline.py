@@ -2,14 +2,15 @@
 
 Counterpart of classpp_public_tpu/pipeline.py (`OutputSelection`, the
 `Cosmology` stages :141-467, the tensor stages :295-313, the curvature
-`curvature_K` and `sgnK` :317-326, the number counts `number_counts` and
+`curvature_K` and `sgnK` :317-326, the isocurvature transfers `transfer_iso`
+:391-406 and their spectra :410-420, the number counts `number_counts` and
 `nc_cross` :422-458). Each stage is
 computed once per parameter set; downstream stages pull upstream ones on
 demand. Stage order: background, thermodynamics, perturbations, primordial,
-nonlinear, transfer, tensor_perturbations, tensor_transfer (with tensor
-modes), spectra, lensing; with nCl/sCl the spectra level also holds
-number_counts and, with nCl and lCl among C_l outputs, nc_cross
-(pipeline.py:601-603).
+nonlinear, transfer, transfer_iso (with isocurvature modes),
+tensor_perturbations, tensor_transfer (with tensor modes), spectra, lensing;
+with nCl/sCl the spectra level also holds number_counts and, with nCl and lCl
+among C_l outputs, nc_cross (pipeline.py:601-603).
 
 Every stage takes an explicit torch.device. The background is computed on
 the host and thermodynamics mostly so (its two serial recurrences are kernels
@@ -49,6 +50,7 @@ class OutputSelection:
     non_linear: str = ""   # "" or "halofit"
     modes: tuple = ("s",)  # "s" scalars, "t" tensors
     l_tensor_max: int = 500
+    ics: tuple = ("ad",)   # initial conditions: "ad" and any of bi, cdi, nid, niv
     # number counts and galaxy lensing (nCl / sCl; pipeline.py:49-72)
     nCl: bool = False
     sCl: bool = False
@@ -85,20 +87,48 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def check_ics(ics, Omega_k: float) -> None:
+    """The port's two refusals of the isocurvature initial conditions, where
+    the JAX package computes something else than it means to: an ic list
+    without "ad" (its perturbations always solve "ad", solve.py:739, and its
+    C_l add the others only when len(ics) > 1, pipeline.py:414, so the C_l
+    would be adiabatic and P(k) not), and isocurvature modes in a curved
+    universe (`isocurvature_ic` is the flat case, equations.py:1216-1219, and
+    `transfer_iso` runs flat Bessels on a grid not the adiabatic one,
+    pipeline.py:391-406)."""
+    if "ad" not in ics:
+        raise NotImplementedError(
+            f"ic = {', '.join(ics)} without 'ad' is not ported: the JAX package solves the "
+            "adiabatic mode regardless (classpp_public_tpu/models/perturbations/solve.py:739, "
+            "classpp_public_tpu/pipeline.py:414)")
+    if len(ics) > 1 and Omega_k != 0.0:
+        raise NotImplementedError(
+            "isocurvature initial conditions with Omega_k != 0 are not ported: the JAX package "
+            "takes the flat case (classpp_public_tpu/models/perturbations/equations.py:1216) "
+            "and flat Bessels (classpp_public_tpu/pipeline.py:391-406)")
+
+
 class Cosmology:
-    """Lazy pipeline over (CosmoParams, PrecisionParams, OutputSelection)."""
+    """Lazy pipeline over (CosmoParams, PrecisionParams, OutputSelection).
+    iso_primordial ({ic: (f, n, alpha)}) and iso_corr ({(ic1, ic2): (c, n,
+    alpha)}) are the isocurvature amplitudes and correlations the primordial
+    stage reads (JAX classy.py:855-856)."""
 
     def __init__(self, params: CosmoParams, precision: Optional[PrecisionParams] = None,
-                 output: Optional[OutputSelection] = None, device="cuda"):
+                 output: Optional[OutputSelection] = None, device="cuda",
+                 iso_primordial: Optional[dict] = None, iso_corr: Optional[dict] = None):
         check_lcdm(params)
         self.params = params
         self.pr = precision or PrecisionParams()
         self.out = output or OutputSelection()
+        check_ics(self.out.ics, params.Omega_k)
         if "t" in self.out.modes:
             from .models.perturbations.tensors import check_tensor_method
 
             check_tensor_method(params)
         self.device = resolve_device(device)
+        self.iso_primordial = iso_primordial or None
+        self.iso_corr = iso_corr or None
         self._cache = {}
 
     def set_stage(self, name: str, result):
@@ -158,7 +188,8 @@ class Cosmology:
                 has_cls=self.out.has_cls, has_pk=self.out.has_pk,
                 z_max_pk=self.out.z_max_pk,
                 has_lcmb=self.out.lCl and self.out.has_cls,
-                k_max_cl_extra=k_max_cl_extra, has_nc=self.out.has_nc, device=self.device)
+                k_max_cl_extra=k_max_cl_extra, has_nc=self.out.has_nc, ics=self.out.ics,
+                device=self.device)
         return self._cache["pt"]
 
     @property
@@ -166,7 +197,8 @@ class Cosmology:
         if "pm" not in self._cache:
             from .models.primordial import compute_primordial
 
-            self._cache["pm"] = compute_primordial(self.params)
+            self._cache["pm"] = compute_primordial(self.params, iso=self.iso_primordial,
+                                                   iso_corr=self.iso_corr)
         return self._cache["pm"]
 
     @property
@@ -237,6 +269,24 @@ class Cosmology:
         return self._cache["tr"]
 
     @property
+    def transfer_iso(self) -> dict:
+        """{ic: TransferResult} of each isocurvature mode (pipeline.py:391-406):
+        one transfer_los launch per mode, each table through
+        `_pert_for_transfer` with the one IC-summed nonlinear ratio (the
+        reference corrects every (ic, type) with one nl_corr_density table,
+        transfer_module.cpp:556-588)."""
+        if "tr_iso" not in self._cache:
+            from .models.transfer import compute_transfer
+
+            pert = self.perturbations
+            self._cache["tr_iso"] = {
+                ic: compute_transfer(self._pert_for_transfer(pert._replace(sources=src)),
+                                     self.thermodynamics, self.pr, l_max=self.l_max_internal,
+                                     K=self.curvature_K, sgnK=self.sgnK)
+                for ic, src in (pert.sources_iso or {}).items()}
+        return self._cache["tr_iso"]
+
+    @property
     def curvature_K(self) -> float:
         """K = -Omega_k H0^2 [Mpc^-2] (reference pba->K)."""
         from .models.perturbations.solve import curvature_of
@@ -277,10 +327,11 @@ class Cosmology:
             from .models.spectra import compute_spectra
 
             tr_tensor = self.tensor_transfer if "t" in self.out.modes else None
+            tr_iso = self.transfer_iso if len(self.out.ics) > 1 else None
             self._cache["sp"] = compute_spectra(
                 self.transfer, self.primordial, l_max=self.l_max_internal, tr_tensor=tr_tensor,
                 sgnK=self.sgnK, K=self.curvature_K,
-                q_flat_nu=self.pr.hyper_flat_approximation_nu)
+                q_flat_nu=self.pr.hyper_flat_approximation_nu, tr_iso=tr_iso)
         return self._cache["sp"]
 
     def _nc_kwargs(self) -> dict:
@@ -347,6 +398,8 @@ class Cosmology:
             if lv == "lensing" and not (self.out.lensing and self.out.has_cls):
                 continue
             out.append(lv)
+            if lv == "transfer" and len(self.out.ics) > 1:
+                out.append("transfer_iso")
         return out
 
     def compute(self, level: Sequence[str] = ("lensing",)):

@@ -64,6 +64,17 @@ under tests/test_gauge.py's contract (`NEWT_TWIN`): `row2_newt` (row2_exact:
 one ncdm species, halofit), `g8_newt` (g8_curved: open, scalars and tensors)
 and `g18_newt` (g18_closed: closed, scalars and tensors).
 
+The isocurvature initial conditions: `g21_isocorr` (tests/golden/gen/
+g21_isocorr.ini uncut: ad, cdi and nid with f_cdi 0.3, n_cdi 0.95, f_nid 0.2,
+n_nid 1.05, c_ad_cdi -0.6 with n_ad_cdi 0.02, c_ad_nid 0.4, c_cdi_nid 0.25,
+lensed C_l to l = 2500; Planck 2018 X, arXiv:1807.06211 section 10, fits such
+correlated models), `g21_newt` (the same in the Newtonian gauge, held to
+g21_isocorr's run under tests/test_gauge.py's contract; NEWT_TWIN),
+`g31_peric` (g31_peric.ini: ad and cdi with c_ad_cdi -0.5, tCl, pCl and P(k)
+to 1/Mpc, l_max 1200) and `row2_iso` (row2_exact with ic = ad, bi, niv,
+f_bi 0.3, f_niv 0.2, c_ad_niv 0.3: the other two isocurvature modes with a
+massive neutrino and halofit; no golden holds it).
+
 The output-file keys of the .ini files (headers, format, root, write
 thermodynamics, *_verbose) are left out.
 """
@@ -167,6 +178,17 @@ G9_NEWT = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe="BBN", reio_parametrizati
 ROW2_NEWT = dict(ROW2_EXACT, gauge="newtonian")
 G8_NEWT = dict(G8_CURVED, gauge="newtonian")
 G18_NEWT = dict(G18_CLOSED, gauge="newtonian")
+G21_ISOCORR = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe="BBN",
+                   reio_parametrization="reio_camb", recombination="RECFAST", ic="ad, cdi, nid",
+                   f_cdi=0.3, n_cdi=0.95, f_nid=0.2, n_nid=1.05, c_ad_cdi=-0.6, n_ad_cdi=0.02,
+                   c_ad_nid=0.4, c_cdi_nid=0.25, output="tCl,pCl,lCl", lensing="yes",
+                   modes="s", l_max_scalars=2500)
+G21_NEWT = dict(G21_ISOCORR, gauge="newtonian")
+G31_PERIC = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe="BBN",
+                 reio_parametrization="reio_camb", recombination="RECFAST", ic="ad,cdi",
+                 c_ad_cdi=-0.5, output="tCl,pCl,mPk", l_max_scalars=1200, z_pk="0",
+                 **{"P_k_max_1/Mpc": 1.0})
+ROW2_ISO = dict(ROW2_EXACT, ic="ad,bi,niv", f_bi=0.3, f_niv=0.2, c_ad_niv=0.3)
 CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR,
            "g8_curved": G8_CURVED, "g18_closed": G18_CLOSED, "g5_hyrec": G5_HYREC,
            "g16_injection": G16_INJECTION, "g22_injection_bos": G22_INJECTION_BOS,
@@ -174,9 +196,11 @@ CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3
            "planck_row2_ss005": PLANCK_ROW2_SS005, "ncdm_row3": NCDM_ROW3,
            "g19_ncl_full": G19_NCL_FULL, "g27_pd": G27_PD, "nc_des_y1": NC_DES_Y1,
            "g32_texact": G32_TEXACT, "g9_newt": G9_NEWT, "row2_newt": ROW2_NEWT,
-           "g8_newt": G8_NEWT, "g18_newt": G18_NEWT}
+           "g8_newt": G8_NEWT, "g18_newt": G18_NEWT, "g21_isocorr": G21_ISOCORR,
+           "g21_newt": G21_NEWT, "g31_peric": G31_PERIC, "row2_iso": ROW2_ISO}
 # each Newtonian twin and the synchronous configuration it is held to
-NEWT_TWIN = {"row2_newt": "row2_exact", "g8_newt": "g8_curved", "g18_newt": "g18_closed"}
+NEWT_TWIN = {"row2_newt": "row2_exact", "g8_newt": "g8_curved", "g18_newt": "g18_closed",
+             "g21_newt": "g21_isocorr"}
 THERMO_ONLY = {"hyrec_full": HYREC_FULL}
 TENSOR_ONLY = {"texact_ncdm3": TEXACT_NCDM3}
 GOLDEN_ONLY = {"g29_open01": G29_OPEN01, "g30_closed01": G30_CLOSED01, "g7_ncl": G7_NCL,

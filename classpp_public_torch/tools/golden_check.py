@@ -18,13 +18,17 @@ g33_tphotons (tests/test_tensor_method.py), g1_lcdm (tests/test_endtoend.py:37-8
 and the growth factor of tests/test_background.py:77-92; g1_lcdm_halofit is the
 same configuration with halofit on, as test_endtoend.py runs it), g1h_halofit
 (tests/test_endtoend.py:83-100), g2_ncdm (tests/test_ncdm.py:39-97),
-g8s_curved (tests/test_curved.py:39-89) and g9_newt (the Newtonian gauge,
-tests/test_newt_golden.py); and the probe rows of
+g8s_curved (tests/test_curved.py:39-89), g9_newt (the Newtonian gauge,
+tests/test_newt_golden.py), and the isocurvature goldens g21_isocorr
+(tests/test_isocurvature.py; each ic pair's C_l under tests/test_peric_output.py's
+contract) and g31_peric (tests/test_peric_output.py: the pair C_l, the ad and
+cdi P(k), the total P(k) and the sum total = ad + cdi + 2 cross); and the probe
+rows of
 tests/golden/bench_probe.json (`probe_rel`; lcdm_row1 here, the others in
 chip_smoke.py, which uses this module for its golden paths).
 
 `gauge_check(name, newt, sync)` holds a Newtonian-gauge twin (configs.NEWT_TWIN:
-row2_newt, g8_newt, g18_newt) to its synchronous configuration under
+row2_newt, g8_newt, g18_newt, g21_newt) to its synchronous configuration under
 tests/test_gauge.py's contract; the script runs both of a twin.
 
 Run as a script it drives configurations through Class(device="cuda") and
@@ -37,6 +41,7 @@ Usage (from the repository root, needs one card and nvcc):
     python3 -m classpp_public_torch.tools.golden_check g32_texact g33_tphotons g1_lcdm \
         g1_lcdm_halofit g1h_halofit g2_ncdm g8s_curved lcdm_row1
     python3 -m classpp_public_torch.tools.golden_check g9_newt row2_newt g8_newt g18_newt
+    python3 -m classpp_public_torch.tools.golden_check g21_isocorr g31_peric g21_newt
 """
 
 import json
@@ -171,6 +176,93 @@ class Golden:
         return float(err.max()), tol, int(ell[err.argmax()])
 
 
+def pair_cls(cls, lmax):
+    """{(ic1, ic2): C_l (lmax + 1, 7) indexed by l} of each initial-condition
+    pair of a Class run: the pair's C_l on the sparse l list splined to every
+    integer l as the JAX output writer does (output.py:136-142)."""
+    import torch
+
+    from ..ops.splines import spline_d2, spline_eval
+
+    sp = cls.cosmo.spectra
+    l_f = sp.l_list.to(torch.float64)
+    ells = torch.arange(2, lmax + 1, dtype=torch.float64, device=l_f.device)
+    out = {}
+    for pair, rows in sp.cl_pairs.items():
+        vals = spline_eval(l_f, rows, spline_d2(l_f, rows), ells).cpu().numpy()
+        out[pair] = np.concatenate([np.zeros((2, vals.shape[1])), vals])
+    return out
+
+
+def sum_identity(cls, lmax):
+    """(max over l = 2..lmax and the TT, EE, TE columns of |total - (sum of
+    the diagonal pairs + 2 sum of the others)| / max |total| of the column,
+    its l): the raw C_l against its pairs (spectra_module.cpp:305-308)."""
+    pairs = pair_cls(cls, lmax)
+    tot = cls.cosmo.spectra.cl.cpu().numpy()[: lmax - 1]
+    s = sum((1.0 if a == b else 2.0) * v[2:] for (a, b), v in pairs.items())
+    worst = (0.0, 0)
+    for c in range(3):
+        err = np.abs(s[:, c] - tot[:, c]) / np.abs(tot[:, c]).max()
+        worst = max(worst, (float(err.max()), int(err.argmax()) + 2))
+    return worst
+
+
+def pk_mode(cls, ic):
+    """P(k, z) of the initial condition `ic` alone (the JAX writer's
+    pk_<ic>.dat, output.py:178-200), log-log in k."""
+    from ..models.nonlinear import pair_primordial_pk, pk_ic_deltas
+
+    def pk(k, z):
+        bg, _ = cls.cosmo.background
+        pert = cls.cosmo.perturbations
+        delta = pk_ic_deltas(pert, bg, float(z))[ic]
+        val = 2.0 * np.pi**2 / pert.k**3 * pair_primordial_pk(cls.cosmo.primordial, ic, ic,
+                                                                pert.k) * delta**2
+        return float(np.exp(np.interp(np.log(k), np.log(pert.k_np),
+                                      np.log(val.cpu().numpy()))))
+    return pk
+
+
+def iso_golden_check(name, g, raw, lensed, pk_lin, h, cls):
+    """The contracts of the isocurvature goldens: g21_isocorr
+    (tests/test_isocurvature.py: raw TT/EE 3e-3 to l = 2500, TE 3e-3 of
+    sqrt(TT EE), lensed TT/EE 3e-3 to 2400) and g31_peric
+    (tests/test_peric_output.py: total, ad and cdi P(k) 1e-2 over 1e-3 < k <
+    0.6 h/Mpc, total = ad + cdi + 2 cross to 1e-10); each pair's C_l over
+    l = 2..1100 (tests/test_peric_output.py): the autos 3e-3 relative, the
+    crosses 3e-3 of the ad auto's largest value."""
+    rel = {}
+    if name == "g21_isocorr":
+        rel["raw_tt"] = (*g.rel("cl", "TT", raw["tt"], 2, 2500), CL_TOL)
+        rel["raw_ee"] = (*g.rel("cl", "EE", raw["ee"], 2, 2500), CL_TOL)
+        rel["raw_te"] = (*g.rel_te("cl", raw["te"], 2500), CL_TOL)
+        for n in ("tt", "ee"):
+            rel[f"lensed_{n}"] = (*g.rel("cl_lensed", n.upper(), lensed[n], 2, 2400), CL_TOL)
+    else:
+        k_lo, k_hi = 1e-3 * h, 0.6 * h
+        rel["pk"] = (*g.rel_pk(pk_lin, h, k_hi, "pk", 0.0, k_lo), PK_TOL)
+        for ic in ("ad", "cdi"):
+            rel[f"pk_{ic}"] = (*g.rel_pk(pk_mode(cls, ic), h, k_hi, f"pk_{ic}", 0.0, k_lo),
+                               PK_TOL)
+        v, at = sum_identity(cls, 1200)
+        rel["sum_identity"] = (v, at, 1e-10)
+    ell = np.arange(2, 1101)
+    fac = ell * (ell + 1) / (2 * np.pi)
+    for (n1, n2), cl in pair_cls(cls, 1100).items():
+        tab = f"cls_{n1}" if n1 == n2 else f"cls_{n1}_{n2}"
+        for c, col in ((0, "TT"), (1, "EE")):
+            lr, ref = g.col(tab, col)
+            mine, want = fac * cl[2:1101, c], np.interp(ell, lr, ref)
+            if n1 == n2:
+                err = np.abs(mine / want - 1)
+            else:
+                env = np.interp(ell, *g.col("cls_ad", col))
+                err = np.abs(mine - want) / np.abs(env).max()
+            rel[f"{tab}_{col}"] = (float(err.max()), int(ell[err.argmax()]), CL_TOL)
+    return {k: (v, tol, at) for k, (v, at, tol) in rel.items()}
+
+
 def nc_golden_check(name, raw):
     """The contracts of tests/test_numbercounts.py for g7_ncl, g19_ncl_full
     and g27_pd: {measure: (error, limit, l)}. raw: the raw_cl dict to l >= 300."""
@@ -233,6 +325,8 @@ def golden_check(name, raw, lensed, pk_lin, h, thermo=None, cls=None):
 
     if name in ("g7_ncl", "g19_ncl_full", "g27_pd"):
         return nc_golden_check(name, raw)
+    if name in ("g21_isocorr", "g31_peric"):
+        return iso_golden_check(name, Golden(name), raw, lensed, pk_lin, h, cls)
     if name in VARIANTS:
         fname, pre, xe_table, (zmin, zmax), xe_tol, tau_ref = VARIANTS[name]
         g = Golden(fname)
@@ -364,9 +458,10 @@ def gauge_check(name, newt, sync):
     synchronous configuration, each a gauge_summary: {measure: (relative
     difference, limit, where)}. row2_newt: raw TT/EE/phiphi and TE (against
     sqrt(TT EE)) to l = 600, lensed TT/EE to 598, P(k) at 24 k in
-    1e-3-0.9/Mpc and sigma8 (:35-68); g8_newt, g18_newt: raw TT to l = 400
-    (:71-90). Beside each gated measure, `<measure>_full` is the same over the
-    whole range (to 2500, lensed 2400), printed and not held (limit None)."""
+    1e-3-0.9/Mpc and sigma8 (:35-68); g21_newt the same C_l (it has no P(k));
+    g8_newt, g18_newt: raw TT to l = 400 (:71-90). Beside each gated
+    measure, `<measure>_full` is the same over the whole range (to 2500,
+    lensed 2400), printed and not held (limit None)."""
 
     def rel(key, spec, lmax, tol):
         a, b = np.asarray(sync[key][spec]), np.asarray(newt[key][spec])
@@ -382,7 +477,7 @@ def gauge_check(name, newt, sync):
         return (float(err.max()), tol, int(ell[err.argmax()]))
 
     out = {}
-    if name == "row2_newt":
+    if name in ("row2_newt", "g21_newt"):
         for spec in ("tt", "ee", "pp"):
             out[f"raw_{spec}"] = rel("raw", spec, 600, GAUGE_CL_TOL)
             out[f"raw_{spec}_full"] = rel("raw", spec, 2500, None)
@@ -391,9 +486,10 @@ def gauge_check(name, newt, sync):
         for spec in ("tt", "ee"):
             out[f"lensed_{spec}"] = rel("lensed", spec, 598, GAUGE_CL_TOL)
             out[f"lensed_{spec}_full"] = rel("lensed", spec, 2400, None)
-        err = np.abs(newt["pk"] / sync["pk"] - 1.0)
-        out["pk"] = (float(err.max()), GAUGE_PK_TOL, float(GAUGE_PK_K[err.argmax()]))
-        out["sigma8"] = (abs(newt["sigma8"] / sync["sigma8"] - 1.0), GAUGE_S8_TOL, 8.0)
+        if newt["pk"] is not None:
+            err = np.abs(newt["pk"] / sync["pk"] - 1.0)
+            out["pk"] = (float(err.max()), GAUGE_PK_TOL, float(GAUGE_PK_K[err.argmax()]))
+            out["sigma8"] = (abs(newt["sigma8"] / sync["sigma8"] - 1.0), GAUGE_S8_TOL, 8.0)
     else:
         out["raw_tt"] = rel("raw", "tt", 400, GAUGE_CL_TOL)
         out["raw_tt_full"] = rel("raw", "tt", 2500, None)
@@ -426,7 +522,7 @@ def main():
         if name in NEWT_TWIN:
             newt = gauge_summary(c)
             rel = gauge_check(name, newt, gauge_summary(run(NEWT_TWIN[name])))
-            if name != "row2_newt":
+            if name in ("g8_newt", "g18_newt"):
                 # the curved twins against the synchronous golden: printed
                 ref = golden_check(NEWT_TWIN[name], newt["raw"], newt["lensed"], c.pk_lin,
                                    c.cosmo.params.h)
