@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card.
 
-Runs twenty-four configurations through `classpp_public_torch.Class(device="cuda")`,
+Runs twenty-six configurations through `classpp_public_torch.Class(device="cuda")`,
 stage by stage, at full width and depth, the thermodynamics of a seventeenth
 and the tensor stage of an eighteenth:
 
@@ -45,6 +45,10 @@ and the tensor stage of an eighteenth:
   l = 2500), `g21_newt` (the same in the Newtonian gauge), `g31_peric`
   (g31_peric.ini: ad and cdi, tCl, pCl, P(k) to 1/Mpc) and `row2_iso`
   (row2_exact with ad, bi and niv: one ncdm species and halofit);
+- HMcode-2016: `g6_hmcode` (tests/golden/gen/g6_hmcode.ini: mPk only, P(k) to
+  20/Mpc at z = 0, 1, 3) and `row2_hmcode` (row2_exact with `non linear =
+  hmcode` and c_min = 2.6: the HMcode ratio on the phi+psi source of its
+  lensed C_l; its perturbations are row2_exact's);
 
 and checks:
 
@@ -53,8 +57,11 @@ and checks:
    and a curved path none of the flat scans (and a flat one none of the
    curved scans), a HyRec path hyrec_history and not recfast_history (and a
    RECFAST path the reverse), and a path with isocurvature modes perturb_ark
-   once, transfer_los once per initial condition and lensing_wigner once:
-   launch counters, set to 0 just before the path and read just after;
+   once, transfer_los once per initial condition and lensing_wigner once, an
+   HMcode path hmcode_sigma four times and hmcode_onehalo once per nonlinear
+   computation (the P(k) stage, and the phi+psi ratio with C_l) and
+   halofit_sigma never (any other path neither HMcode kernel): launch
+   counters, set to 0 just before the path and read just after;
 3. each result against the reference C++ build: the probe
    tests/golden/bench_probe.json for planck_row2 (and planck_row2_ss005),
    row2_exact and ncdm_row3 (rel TT/EE/TE <= 3e-3 at l = 220, 1000, 2000,
@@ -68,13 +75,17 @@ and checks:
    tests/test_tensor_method.py; g9_newt: tests/test_newt_golden.py;
    g21_isocorr: tests/test_isocurvature.py with each initial-condition pair
    under tests/test_peric_output.py's contract; g31_peric:
-   tests/test_peric_output.py), for nc_des_y1 positive autos and every cross
+   tests/test_peric_output.py; g6_hmcode: tests/test_hmcode.py), for
+   nc_des_y1 positive autos and every cross
    inside the Cauchy-Schwarz envelope of its autos, for row2_iso positive
    autos and every initial-condition pair's cross inside its envelope, and
    for each Newtonian twin its synchronous
    configuration's run in this process under tests/test_gauge.py's contract
    (golden_check.gauge_check; g8_newt and g18_newt also print their errors
-   against the synchronous golden);
+   against the synchronous golden), and for row2_hmcode its k and tau grids
+   and source table equal to row2_exact's bit for bit and its raw TT/TE/EE to
+   1e-13 (REUSES: the plain integrator does not run again; its lensed C_l and
+   P_nl against halofit's are printed);
 4. each kernel against its plain PyTorch version on the very tensors each
    path fed it (hyrec_history in both models, recfast_history with and
    without injection, tb_march through every reionization profile,
@@ -86,8 +97,9 @@ and checks:
    Newtonian paths also the two lowest-k and the slowest scalar lanes, and at
    least one P(k)-tail lane; on the isocurvature paths the two lowest-k
    lanes of every isocurvature mode, the slowest lane and, with P(k), a
-   P(k)-tail lane), beside the least time the card could take for the same
-   work (`bound_ms`);
+   P(k)-tail lane; the two HMcode kernels on every call the path made, per
+   element), beside the least time the card could take for the same work
+   (`bound_ms`);
 5. the three LOS scans that no path above runs past 1024 tau samples
    (transfer_tensor_los, transfer_los_curved, transfer_tensor_los_curved) on
    g3_tensor's and g8_curved's captured inputs refined fourfold in tau
@@ -137,10 +149,26 @@ CL_TOL, PK_TOL = 3e-3, 1e-2
 # shows, the last-bit spread of the band does not.
 NC_SCAN_TOL = 6e-7
 GROWTH_TOL = 1e-12
+# The two HMcode kernels are held per element, relative to the plain value
+# (sigma^2, sigma_d^2 and the one-halo integral are sums of positive terms;
+# dsigma^2/dR of terms of one sign where it matters): both are float64 and
+# differ in the order of the sums, FMA contraction and libm's last bits, where
+# the NFW window's terms cancel at small k r_v / c. The host build of the
+# kernels' code (csrc/hmcode_host.cpp) differs from the plain versions by
+# 2.4e-14 (dsigma^2/dR) and 3.9e-16 (one-halo) on the CPU tests' inputs.
+HMCODE_TOL = 1e-11
 KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-11,
               "transfer_tensor_los": 1e-6, "tb_march": 1e-10, "transfer_los_curved": 1e-6,
               "transfer_tensor_los_curved": 1e-6, "nc_scan": NC_SCAN_TOL,
-              "growth_march": GROWTH_TOL}
+              "growth_march": GROWTH_TOL, "hmcode_sigma": HMCODE_TOL,
+              "hmcode_onehalo": HMCODE_TOL}
+# A path whose perturbations must equal another path's bit for bit (the same
+# cosmology and k grid; only the nonlinear method differs, which enters after
+# the perturbation stage): the equality is held instead of a second plain
+# integration, and the raw TT/TE/EE, which the nonlinear ratio does not touch
+# (it scales the phi+psi source alone), to REUSE_CL_TOL relative.
+REUSES = {"row2_hmcode": "row2_exact"}
+REUSE_CL_TOL = 1e-13
 # recfast_history, per row and column relative to the plain loop: libm's and
 # the card's exp/pow differ in the last bit, which the explicit RK4 through
 # the stiff HeI equation amplifies (measured against the JAX package's XLA
@@ -267,13 +295,16 @@ def timed(fn, reps=3, warmup=True):
     return sorted(times)[len(times) // 2], out
 
 
-def spy(module, name, captured, size=lambda args: 0):
+def spy(module, name, captured, size=lambda args: 0, every=False):
     """Wrap module.name so that its calls record their arguments in
     captured[name], keeping the call of the largest size(args) (the latest
-    among equals); returns the original function."""
+    among equals), and with `every` each call in order in captured[name +
+    "/all"]; returns the original function."""
     orig = getattr(module, name)
 
     def wrapper(*args, **kwargs):
+        if every:
+            captured.setdefault(name + "/all", []).append((args, kwargs))
         if name not in captured or size(args) >= size(captured[name][0]):
             captured[name] = (args, kwargs)
         return orig(*args, **kwargs)
@@ -319,9 +350,10 @@ class Kernel:
     main path calls (spied on to capture its arguments; `size` picks the
     largest of several calls), its source and the JAX program it replaces."""
 
-    def __init__(self, name, module, counter, fn, source, replaces, size=lambda args: 0):
+    def __init__(self, name, module, counter, fn, source, replaces, size=lambda args: 0,
+                 every=False):
         self.name, self.module, self.counter, self.fn = name, module, counter, fn
-        self.source, self.replaces, self.size = source, replaces, size
+        self.source, self.replaces, self.size, self.every = source, replaces, size, every
 
 
 def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=()):
@@ -359,15 +391,27 @@ def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(
             names.add("lensing_wigner")
     if out.has_nc:
         names.add("nc_scan")
-    if out.has_pk:
-        names.add("halofit_sigma")
+    # the nonlinear stage with mPk, the phi+psi ratio with C_l and a method
+    # (each one compute_nonlinear: halofit's sums, or HMcode's four sigma
+    # launches and one one-halo launch)
+    nl_calls = int(out.has_pk) + int(bool(out.non_linear) and out.has_cls)
+    hmcode = {"hmcode_sigma", "hmcode_onehalo"}
+    if out.non_linear == "hmcode":
+        names |= hmcode
+        exact.update(hmcode_sigma=4 * nl_calls, hmcode_onehalo=nl_calls)
+        other_nl = {"halofit_sigma"}
+    else:
+        if nl_calls:
+            names.add("halofit_sigma")
+        other_nl = hmcode
     if "t" in out.modes:
         names.add("tensor_rkck")
     curved = {f"{n}_curved" for n in scans}
     if sgnK:
-        return names | curved, {"transfer_los", "transfer_tensor_los"} | other_reco, exact
-    return (names | scans, {"transfer_los_curved", "transfer_tensor_los_curved"} | other_reco,
-            exact)
+        return (names | curved, {"transfer_los", "transfer_tensor_los"} | other_reco | other_nl,
+                exact)
+    return (names | scans,
+            {"transfer_los_curved", "transfer_tensor_los_curved"} | other_reco | other_nl, exact)
 
 
 def run_config(name, params, kernels, last="lensing"):
@@ -388,7 +432,7 @@ def run_config(name, params, kernels, last="lensing"):
     c.set(dict(params))
     cosmo = c.cosmo
     captured = {}
-    originals = {k.name: spy(k.module, k.fn, captured, k.size) for k in kernels}
+    originals = {k.name: spy(k.module, k.fn, captured, k.size, k.every) for k in kernels}
     for k in kernels:
         setattr(k.module, k.counter, 0)
     t_all = time.time()
@@ -427,7 +471,8 @@ def run_config(name, params, kernels, last="lensing"):
     t0 = time.time()
     out = cosmo.out
     cl = c.lensed_cl(2500) if out.lensing else None
-    raw = c.raw_cl(2500 if out.has_cls else out.l_lss_max)
+    raw = c.raw_cl(2500 if out.has_cls else out.l_lss_max) if out.has_cls or out.has_nc \
+        else None
     has_pk = cosmo.out.has_pk
     if has_pk:
         pk = c.pk_lin(0.1, 0.0)
@@ -472,12 +517,16 @@ def run_config(name, params, kernels, last="lensing"):
 
     if name in NEWT_TWIN or name in NEWT_TWIN.values():
         GAUGE_RUNS[name] = gauge_summary(c)
+    if name in REUSES.values():
+        REUSE_RUNS[name] = reuse_summary(c, raw, cl)
     if name == "nc_des_y1":
         pass                        # no golden: check_nc_output held it
     elif name == "row2_iso":
         check_iso_output(name, c)   # no golden
     elif name in NEWT_TWIN:
         check_gauge_twin(name, NEWT_TWIN[name], c)
+    elif name in REUSES:
+        check_reuse(name, REUSES[name], c, raw, cl)   # no golden
     elif name not in PROBE_ROW:
         from classpp_public_torch.tools.golden_check import Golden, golden_check
 
@@ -507,6 +556,62 @@ def run_config(name, params, kernels, last="lensing"):
 
 
 GAUGE_RUNS = {}   # gauge_summary of each Newtonian twin and its synchronous configuration
+REUSE_RUNS = {}   # reuse_summary of each path that a path of REUSES is held to
+
+
+def reuse_summary(c, raw, lensed):
+    """What a path of REUSES is held to: the perturbation grids and source
+    table (on the card), the raw C_l, and for the record the lensed C_l and
+    the nonlinear P(k, z = 0) at k = 0.1, 1 and 10/Mpc."""
+    import numpy as np
+
+    pert = c.cosmo.perturbations
+    return dict(k=pert.k_np, tau=pert.tau_np, sources=pert.sources,
+                raw={s: np.asarray(raw[s]) for s in ("tt", "te", "ee", "pp")},
+                lensed={s: np.asarray(lensed[s]) for s in ("tt", "ee", "pp")},
+                pk_nl={kk: c.pk(kk, 0.0) for kk in (0.1, 1.0, 10.0)},
+                method=c.cosmo.out.non_linear)
+
+
+def check_reuse(name, twin, c, raw, lensed):
+    """A path of REUSES against the path whose perturbations it shares, run
+    earlier in this process: the k and tau grids and the source table equal
+    bit for bit, and raw TT, EE (per multipole) and TE (against sqrt(TT EE))
+    within REUSE_CL_TOL relative on l = 2..2500. Printed and not held: raw
+    phiphi, lensed TT/EE/phiphi and the nonlinear P(k = 0.1, 1, 10/Mpc, z = 0)
+    of this path against the other's (the nonlinear methods' difference)."""
+    import numpy as np
+    import torch
+
+    if twin not in REUSE_RUNS:
+        raise RuntimeError(f"{name}: {twin}, whose perturbations it reuses, did not run before it")
+    ref, pert = REUSE_RUNS[twin], c.cosmo.perturbations
+    same = (np.array_equal(pert.k_np, ref["k"]) and np.array_equal(pert.tau_np, ref["tau"])
+            and pert.sources.shape == ref["sources"].shape
+            and bool(torch.equal(pert.sources, ref["sources"])))
+    print(f"[reuse] {name}: k, tau and the source table {tuple(pert.sources.shape)} equal to "
+          f"{twin}'s bit for bit: {same}", flush=True)
+    if not same:
+        raise RuntimeError(f"{name}: its perturbations differ from {twin}'s")
+    ell = slice(2, 2501)
+    mine = {s: np.asarray(raw[s])[ell] for s in ("tt", "te", "ee")}
+    want = {s: ref["raw"][s][ell] for s in ("tt", "te", "ee")}
+    rel = {s: float(np.max(np.abs(mine[s] - want[s]) / np.abs(want[s]))) for s in ("tt", "ee")}
+    rel["te"] = float(np.max(np.abs(mine["te"] - want["te"]) / np.sqrt(want["tt"] * want["ee"])))
+    info = {"raw_pp": float(np.max(np.abs(np.asarray(raw["pp"])[ell] / ref["raw"]["pp"][ell]
+                                           - 1.0)))}
+    for s in ("tt", "ee", "pp"):
+        info[f"lensed_{s}"] = float(np.max(np.abs(np.asarray(lensed[s])[ell]
+                                                  / ref["lensed"][s][ell] - 1.0)))
+    for kk, p_ref in ref["pk_nl"].items():
+        info[f"pk_nl_k{kk:g}"] = c.pk(kk, 0.0) / p_ref - 1.0
+    print(f"[reuse] {name}: raw TT/EE/TE against {twin}'s {json.dumps(rel)} (limit "
+          f"{REUSE_CL_TOL}); not held, {c.cosmo.out.non_linear} against {ref['method']}, "
+          f"largest relative difference on l = 2..2500 and P_nl(k, z = 0) / P_nl - 1: "
+          f"{json.dumps(info)}", flush=True)
+    bad = {s: v for s, v in rel.items() if not v <= REUSE_CL_TOL}
+    if bad:
+        raise RuntimeError(f"{name}: raw C_l differ from {twin}'s beyond {REUSE_CL_TOL}: {bad}")
 
 
 def check_gauge_twin(name, twin, c):
@@ -614,8 +719,8 @@ def check_launches(name, counts, must, must_not, exact):
         raise RuntimeError(f"{name}: launches (counted, expected) {off}")
     stray = sorted(n for n in must_not if counts[n] != 0)
     if stray:
-        raise RuntimeError(f"{name}: kernels of another geometry or recombination code "
-                           f"launched: {stray}")
+        raise RuntimeError(f"{name}: kernels of another geometry, recombination code or "
+                           f"nonlinear method launched: {stray}")
 
 
 def read_counts(name, kernels, originals):
@@ -778,6 +883,83 @@ def check_perturb_ark(solve, args, tag, curved=False):
                 gauge=idx.gauge, nsteps_max=int(nsteps[slow]), nsteps_max_k=float(lanes.k[slow]),
                 tail_lanes_compared=n_tail, scaled_err=worst,
                 **({} if ic is None else dict(iso_steps_equal=iso_equal)))
+
+
+def each_call(kname, captured, kernel, plain):
+    """Every call the path made of a kernel's wrapper, again through the
+    kernel and through its plain version: (max |kernel - plain|, the largest
+    per-element |kernel - plain| / |plain|, the rows of all calls)."""
+    import torch
+
+    max_abs, worst, rows = 0.0, 0.0, 0
+    for args, kw in captured[kname + "/all"]:
+        kout, pout = kernel(*args, **kw), plain(*args, **kw)
+        if kout.shape != pout.shape or not bool(torch.isfinite(kout).all()):
+            raise RuntimeError(f"{kname}: kernel output of shape {tuple(kout.shape)} against "
+                               f"{tuple(pout.shape)}, or not finite")
+        diff = (kout - pout).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        worst = max(worst, float((diff / pout.abs().clamp_min(1e-300)).max()))
+        rows += args[0].shape[0]
+    return max_abs, worst, rows
+
+
+def check_hmcode_sigma(nonlinear, captured, tag):
+    """hmcode_sigma against its plain version on every call the path made
+    (every row's radii, the two Newton steps and r_nl, of each
+    compute_nonlinear), per element; timed on the largest call. Work: per
+    (spectrum, R, k) a sincos and ~30 operations above x = 0.01, ~15 below."""
+    max_abs, worst, rows = each_call("hmcode_sigma", captured, nonlinear.hmcode_sigma,
+                                     nonlinear.hmcode_sigma_plain)
+    base, k, lnk, R = captured["hmcode_sigma"][0]
+    ms, kout = timed(lambda: nonlinear.hmcode_sigma(base, k, lnk, R))
+    plain_ms, _ = timed(lambda: nonlinear.hmcode_sigma_plain(base, k, lnk, R), 1, False)
+    n = base.shape[0] * R.shape[1] * k.shape[0]
+    small = int(sum(int((k[None, :] * R[i][:, None] < 0.01).sum()) for i in range(R.shape[0])))
+    bms, bby = bound(nbytes(base, k, lnk, R, kout), 70.0 * (n - small) + 15.0 * small)
+    calls = len(captured["hmcode_sigma/all"])
+    print(f"[hmcode_sigma] {tag}: {calls} calls, {rows} spectra in all; the largest: base "
+          f"{tuple(base.shape)} R {tuple(R.shape)} ({small} of {n} nodes below x = 0.01); "
+          f"per-element error {worst:.3e} (limit {HMCODE_TOL}); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, max_abs_err=max_abs,
+                scaled_err=worst, calls=calls, spectra=rows, nspec=int(base.shape[0]),
+                nR=int(R.shape[1]), nk=int(k.shape[0]))
+
+
+def check_hmcode_onehalo(nonlinear, captured, tag):
+    """hmcode_onehalo against its plain version on every call the path made
+    (every row of each compute_nonlinear), per element; timed on the largest
+    call. Work, counted from the run's data over the nodes with nu <= 10: two
+    Si/Ci per node, the series (30 terms, ~12 operations each, and a log)
+    below x = 4, else the Lentz steps (60, ~35 operations each, and a
+    sincos), and ~200 more for the mass function, the powers and the window."""
+    import torch
+
+    max_abs, worst, rows = each_call("hmcode_onehalo", captured, nonlinear.hmcode_onehalo,
+                                     nonlinear.hmcode_onehalo_plain)
+    nu, m, rv, conc, eta, k = captured["hmcode_onehalo"][0]
+    ms, kout = timed(lambda: nonlinear.hmcode_onehalo(nu, m, rv, conc, eta, k))
+    plain_ms, _ = timed(lambda: nonlinear.hmcode_onehalo_plain(nu, m, rv, conc, eta, k), 1,
+                        False)
+    ks = nu[:, None, :] ** eta[:, None, None] * k[None, :, None] * rv[:, None, :] \
+        / conc[:, None, :]
+
+    def si_ci_ops(x):
+        return torch.where(x < 4.0, 30 * 12.0 + 20.0, 60 * 35.0 + 40.0)
+
+    live = (nu <= 10.0)[:, None, :]
+    ops = (si_ci_ops(ks) + si_ci_ops(ks * (1.0 + conc[:, None, :])) + 200.0) * live
+    bms, bby = bound(nbytes(nu, m, rv, conc, eta, k, kout), float(ops.sum()))
+    calls = len(captured["hmcode_onehalo/all"])
+    print(f"[hmcode_onehalo] {tag}: {calls} calls, {rows} rows in all; the largest: nu "
+          f"{tuple(nu.shape)} k {tuple(k.shape)}, {int(live.sum())} of {nu.numel()} masses at "
+          f"nu <= 10, {float((ks < 4.0).double().mean()):.3f} of first arguments below 4; "
+          f"per-element error {worst:.3e} (limit {HMCODE_TOL}); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, max_abs_err=max_abs,
+                scaled_err=worst, calls=calls, rows=rows, nrow=int(nu.shape[0]),
+                nm=int(nu.shape[1]), nk=int(k.shape[0]))
 
 
 def host_timed(fn):
@@ -1007,9 +1189,17 @@ def check_kernels(tag, captured, mods, curved):
     if "hyrec_history" in captured:
         out["hyrec_history"] = check_hyrec(mods["hyrec_history"], captured["hyrec_history"][0],
                                            tag)
-    if "integrate_sources" in captured:
+    if "integrate_sources" in captured and tag in REUSES:
+        print(f"[perturb_ark] {tag}: no plain comparison; its source table equals "
+              f"{REUSES[tag]}'s bit for bit (check_reuse)", flush=True)
+    elif "integrate_sources" in captured:
         out["perturb_ark"] = check_perturb_ark(mods["perturb_ark"],
                                                captured["integrate_sources"][0], tag, curved)
+
+    if "hmcode_sigma" in captured:
+        out["hmcode_sigma"] = check_hmcode_sigma(mods["hmcode_sigma"], captured, tag)
+    if "hmcode_onehalo" in captured:
+        out["hmcode_onehalo"] = check_hmcode_onehalo(mods["hmcode_onehalo"], captured, tag)
 
     if "halofit_sums" in captured:
         nonlinear = mods["halofit_sigma"]
@@ -1246,7 +1436,7 @@ def compare_prior():
 
 
 def kernel_table():
-    """The thirteen kernels, each with the wrapper the main path calls."""
+    """The fifteen kernels, each with the wrapper the main path calls."""
     from classpp_public_torch.models import (background, hyrec, lensing, nonlinear,
                                              numbercounts, thermodynamics, transfer)
     from classpp_public_torch.models.perturbations import solve, tensors
@@ -1280,6 +1470,12 @@ def kernel_table():
                tpu + "numbercounts.py:629", size=lambda a: a[0].numel()),
         Kernel("growth_march", background, "growth_launches", "growth_march",
                src + "growth_march.cu", "classpp_public_tpu/ops/ode.py:305"),
+        Kernel("hmcode_sigma", nonlinear, "hmcode_sigma_launches", "hmcode_sigma",
+               src + "hmcode_sigma.cu", tpu + "nonlinear.py:211",
+               size=lambda a: a[0].shape[0] * a[3].shape[1], every=True),
+        Kernel("hmcode_onehalo", nonlinear, "hmcode_onehalo_launches", "hmcode_onehalo",
+               src + "hmcode_onehalo.cu", tpu + "nonlinear.py:349",
+               size=lambda a: a[0].numel() * a[5].numel(), every=True),
     ]
 
 

@@ -2,7 +2,8 @@
 `Class.set` :76, `_m_ncdm_from_omega` :863, `compute` :976, `raw_cl` :1007,
 `lensed_cl` :1086, `pk_lin` :1221, `pk` :1257, `pk_cb` :1275, `sigma8` :1319),
 for the inputs of the LambdaCDM slice with Fermi-Dirac massive neutrinos,
-halofit and tensor modes (`modes`, `r`, `n_t`, `alpha_t`, `l_max_tensors`,
+halofit, HMcode (`non linear = hmcode` with `feedback model` or `eta_0` /
+`c_min`: classy.py:535-564) and tensor modes (`modes`, `r`, `n_t`, `alpha_t`, `l_max_tensors`,
 `tensor method`: classy.py:149-163, 565-630), the thermodynamics variants
 (`recombination` = HyRec / hyrec_full, `annihilation`, `decay` and their
 modifiers, `on the spot`, `reio_parametrization` with its node lists:
@@ -187,12 +188,9 @@ class Class:
         out.non_linear = str(p.pop("non linear", p.pop("non_linear", ""))).strip().lower()
         if nl_explicit and output.strip() in ("", "none"):
             raise CosmoSevereError("Class did not read input parameter(s): non linear")
-        if out.non_linear == "hmcode":
-            raise NotImplementedError(
-                "non linear = hmcode is not ported "
-                "(classpp_public_tpu/models/nonlinear.py:203, classy.py:546-564)")
-        if out.non_linear not in ("", "halofit"):
+        if out.non_linear not in ("", "halofit", "hmcode"):
             raise CosmoSevereError(f"unknown non linear method {out.non_linear!r}")
+        self._parse_feedback(p, out)
         self._parse_modes(p, out, kw)
         iso, corr = self._parse_ics(p, out)
         self._parse_pk_ini(p, kw)
@@ -213,10 +211,35 @@ class Class:
         pr = PrecisionParams(**prkw)
         if out.non_linear:
             # the sigma(R) integrals need k beyond the requested P(k) range
-            # (input_module.cpp:2806-2811)
-            out.P_k_max = max(out.P_k_max, pr.nonlinear_min_k_max, pr.halofit_min_k_max)
+            # (input_module.cpp:2806-2811): nonlinear_min_k_max and the
+            # method's own floor
+            method_min = (pr.hmcode_min_k_max if out.non_linear == "hmcode"
+                          else pr.halofit_min_k_max)
+            out.P_k_max = max(out.P_k_max, pr.nonlinear_min_k_max, method_min)
         return Cosmology(CosmoParams(**kw), pr, out, device=self.device, iso_primordial=iso,
                          iso_corr=corr)
+
+    @staticmethod
+    def _parse_feedback(p: dict, out: OutputSelection) -> None:
+        """HMcode's baryonic feedback (classy.py:545-564,
+        input_module.cpp:2814-2867): a named model, or eta_0 and c_min, each
+        implying the other by eta_0 = 0.98 - 0.12 c_min when given alone."""
+        from .models.nonlinear import HMCODE_FEEDBACK
+
+        if "feedback model" in p or "feedback_model" in p:
+            name = str(p.pop("feedback model", p.pop("feedback_model", ""))).strip().lower()
+            p.pop("feedback_model", None)
+            if name not in HMCODE_FEEDBACK:
+                raise CosmoSevereError(f"unknown feedback model {name!r}")
+            out.hm_eta0, out.hm_cmin = HMCODE_FEEDBACK[name]
+        if "eta_0" in p and "c_min" in p:
+            out.hm_eta0, out.hm_cmin = float(p.pop("eta_0")), float(p.pop("c_min"))
+        elif "eta_0" in p:
+            out.hm_eta0 = float(p.pop("eta_0"))
+            out.hm_cmin = (0.98 - out.hm_eta0) / 0.12
+        elif "c_min" in p:
+            out.hm_cmin = float(p.pop("c_min"))
+            out.hm_eta0 = 0.98 - 0.12 * out.hm_cmin
 
     @staticmethod
     def _parse_thermo(p: dict, kw: dict) -> None:
@@ -590,7 +613,7 @@ class Class:
         return float(np.exp(np.interp(np.log(k), lnk, self._pk_nl_row(z, pk_table))))
 
     def pk(self, k, z):
-        """P_m(k, z): halofit if 'non linear' was requested, else linear."""
+        """P_m(k, z): halofit or HMcode if 'non linear' was requested, else linear."""
         self._require_mpk()
         if self.cosmo.out.non_linear:
             return self._pk_nl(k, z, self.cosmo.nonlinear.pk_nl)

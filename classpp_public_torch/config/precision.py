@@ -147,11 +147,23 @@ class PrecisionParams:
     selection_sampling_bessel_los: float = 20.0
 
     # --- nonlinear (precisions.h:418-449)
+    sigma_k_per_decade: float = 80.0
     nonlinear_min_k_max: float = 20.0
+    # per-method floors of the P(k) k_max (input_module.cpp:2806-2811)
     halofit_min_k_max: float = 5.0
+    hmcode_min_k_max: float = 5.0
     halofit_min_k_nonlinear: float = 1.0e-4
     halofit_k_per_decade: float = 80.0
     sBBN_file: str = "sBBN_2017.dat"
+
+    # --- hmcode (precisions.h:459-485)
+    hmcode_max_k_extra: float = 1.0e6
+    n_hmcode_tables: int = 64
+    ainit_for_growtab: float = 1.0e-3
+    amax_for_growtab: float = 1.0
+    nsteps_for_p1h_integral: int = 256
+    mmin_for_p1h_integral: float = 1.0e3
+    mmax_for_p1h_integral: float = 1.0e18
 
     # --- lensing (precisions.h:492-495)
     accurate_lensing: bool = False

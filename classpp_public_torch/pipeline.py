@@ -47,7 +47,9 @@ class OutputSelection:
     P_k_max: float = 1.0
     z_pk: tuple = (0.0,)
     z_max_pk: float = 0.0
-    non_linear: str = ""   # "" or "halofit"
+    non_linear: str = ""   # "", "halofit" or "hmcode"
+    hm_eta0: float = 0.603  # HMcode feedback (default emu_dmonly, input_module.cpp:3411)
+    hm_cmin: float = 3.13
     modes: tuple = ("s",)  # "s" scalars, "t" tensors
     l_tensor_max: int = 500
     ics: tuple = ("ad",)   # initial conditions: "ad" and any of bi, cdi, nid, niv
@@ -120,6 +122,10 @@ class Cosmology:
         check_lcdm(params)
         self.params = params
         self.pr = precision or PrecisionParams()
+        if self.pr.evolver != "imex":
+            raise NotImplementedError(
+                f"evolver = {self.pr.evolver} is not ported: only the imex evolver is "
+                "(classpp_public_tpu/ops/ode.py:44 rkck)")
         self.out = output or OutputSelection()
         check_ics(self.out.ics, params.Omega_k)
         if "t" in self.out.modes:
@@ -133,10 +139,11 @@ class Cosmology:
 
     def set_stage(self, name: str, result):
         """Seed a stage with a result computed elsewhere, e.g. the JAX
-        package's, moved across with classpp_public_torch.interop. name:
-        "background" ((BackgroundResult, BgIdx)), "thermodynamics" or
-        "tensor_perturbations"."""
-        keys = {"background": "bg", "thermodynamics": "th", "tensor_perturbations": "tpt"}
+        package's, moved across with classpp_public_torch.interop, or another
+        Cosmology's. name: "background" ((BackgroundResult, BgIdx)),
+        "thermodynamics", "perturbations" or "tensor_perturbations"."""
+        keys = {"background": "bg", "thermodynamics": "th", "perturbations": "pt",
+                "tensor_perturbations": "tpt"}
         if name not in keys:
             raise ValueError(f"set_stage: {name!r} is not one of {sorted(keys)}")
         self._cache[keys[name]] = result
@@ -182,10 +189,13 @@ class Cosmology:
                 tau1 = float(tau_of_z(bg, float(self.out.selection_mean[0])))
                 k_max_cl_extra = self.pr.k_max_tau0_over_l_max * self.out.l_lss_max \
                     / (float(bg.tau0) - tau1)
+            # a nonlinear method samples k to P_k_max (its floor
+            # nonlinear_min_k_max) with or without mPk, as the reference does
+            # (input_module.cpp:2806, perturbations_module.cpp:1739)
             self._cache["pt"] = compute_perturbations(
                 self.params, self.pr, bg, bidx, self.thermodynamics,
                 l_scalar_max=self.l_max_internal, k_max_for_pk=self.out.P_k_max,
-                has_cls=self.out.has_cls, has_pk=self.out.has_pk,
+                has_cls=self.out.has_cls, has_pk=self.out.has_pk or bool(self.out.non_linear),
                 z_max_pk=self.out.z_max_pk,
                 has_lcmb=self.out.lCl and self.out.has_cls,
                 k_max_cl_extra=k_max_cl_extra, has_nc=self.out.has_nc, ics=self.out.ics,
@@ -209,7 +219,8 @@ class Cosmology:
             bg, bidx = self.background
             self._cache["nl"] = compute_nonlinear(
                 self.perturbations, bg, bidx, self.primordial, self.pr, self.params,
-                z_pk=self.out.z_pk, method=self.out.non_linear or "halofit")
+                z_pk=self.out.z_pk, method=self.out.non_linear or "halofit",
+                hm_eta0=self.out.hm_eta0, hm_cmin=self.out.hm_cmin)
         return self._cache["nl"]
 
     @property
@@ -227,7 +238,8 @@ class Cosmology:
             pert = self.perturbations
             z_grid = np.concatenate([[0.0], np.geomspace(0.05, 10.0, 23)])
             nl = compute_nonlinear(pert, bg, bidx, self.primordial, self.pr, self.params,
-                                   z_pk=tuple(z_grid), method=self.out.non_linear or "halofit")
+                                   z_pk=tuple(z_grid), method=self.out.non_linear or "halofit",
+                                   hm_eta0=self.out.hm_eta0, hm_cmin=self.out.hm_cmin)
             ratio = torch.sqrt(nl.pk_nl / torch.clamp(nl.pk_lin, min=1e-300))
             ratio = torch.where(torch.isfinite(ratio) & (ratio > 0), ratio, 1.0)
             tau_z = tau_of_z(bg, torch.as_tensor(z_grid)).to(ratio.device)
@@ -244,7 +256,7 @@ class Cosmology:
     def _pert_for_transfer(self, pert):
         """The scalar-source table entering the CMB transfer integrals: with a
         nonlinear method on, phi+psi (the lensing source) carries the halofit
-        correction as the reference's copied sources do
+        or HMcode correction as the reference's copied sources do
         (transfer_module.cpp:566-588); without one it is the linear table."""
         if not self.out.non_linear:
             return pert

@@ -75,6 +75,16 @@ to 1/Mpc, l_max 1200) and `row2_iso` (row2_exact with ic = ad, bi, niv,
 f_bi 0.3, f_niv 0.2, c_ad_niv 0.3: the other two isocurvature modes with a
 massive neutrino and halofit; no golden holds it).
 
+HMcode-2016: `g6_hmcode` (tests/golden/gen/g6_hmcode.ini uncut: mPk only,
+`non linear = hmcode` with the default feedback emu_dmonly, P(k) to 20/Mpc at
+z = 0, 1, 3; held to its golden under tests/test_hmcode.py's contract) and
+`row2_hmcode` (row2_exact with `non linear = hmcode` and c_min = 2.6, so
+eta_0 = 0.98 - 0.12 c_min = 0.668: a baryon feedback inside the KiDS-1000
+cosmic-shear prior A_bary in [2, 3.13], arXiv:2007.15633; lensed C_l whose
+phi+psi source carries the HMcode ratio; no golden holds it). Both sample k
+to 20/Mpc, as row2_exact does, so row2_hmcode's perturbations are
+row2_exact's.
+
 The output-file keys of the .ini files (headers, format, root, write
 thermodynamics, *_verbose) are left out.
 """
@@ -189,6 +199,10 @@ G31_PERIC = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe="BBN",
                  c_ad_cdi=-0.5, output="tCl,pCl,mPk", l_max_scalars=1200, z_pk="0",
                  **{"P_k_max_1/Mpc": 1.0})
 ROW2_ISO = dict(ROW2_EXACT, ic="ad,bi,niv", f_bi=0.3, f_niv=0.2, c_ad_niv=0.3)
+G6_HMCODE = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe="BBN", reio_parametrization="reio_camb",
+                 recombination="RECFAST", output="mPk", z_pk="0., 1., 3.",
+                 **{"non linear": "hmcode", "P_k_max_1/Mpc": 20.0})
+ROW2_HMCODE = dict(ROW2_EXACT, c_min=2.6, **{"non linear": "hmcode"})
 CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR,
            "g8_curved": G8_CURVED, "g18_closed": G18_CLOSED, "g5_hyrec": G5_HYREC,
            "g16_injection": G16_INJECTION, "g22_injection_bos": G22_INJECTION_BOS,
@@ -197,7 +211,8 @@ CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3
            "g19_ncl_full": G19_NCL_FULL, "g27_pd": G27_PD, "nc_des_y1": NC_DES_Y1,
            "g32_texact": G32_TEXACT, "g9_newt": G9_NEWT, "row2_newt": ROW2_NEWT,
            "g8_newt": G8_NEWT, "g18_newt": G18_NEWT, "g21_isocorr": G21_ISOCORR,
-           "g21_newt": G21_NEWT, "g31_peric": G31_PERIC, "row2_iso": ROW2_ISO}
+           "g21_newt": G21_NEWT, "g31_peric": G31_PERIC, "row2_iso": ROW2_ISO,
+           "g6_hmcode": G6_HMCODE, "row2_hmcode": ROW2_HMCODE}
 # each Newtonian twin and the synchronous configuration it is held to
 NEWT_TWIN = {"row2_newt": "row2_exact", "g8_newt": "g8_curved", "g18_newt": "g18_closed",
              "g21_newt": "g21_isocorr"}

@@ -22,7 +22,10 @@ g8s_curved (tests/test_curved.py:39-89), g9_newt (the Newtonian gauge,
 tests/test_newt_golden.py), and the isocurvature goldens g21_isocorr
 (tests/test_isocurvature.py; each ic pair's C_l under tests/test_peric_output.py's
 contract) and g31_peric (tests/test_peric_output.py: the pair C_l, the ad and
-cdi P(k), the total P(k) and the sum total = ad + cdi + 2 cross); and the probe
+cdi P(k), the total P(k) and the sum total = ad + cdi + 2 cross), and HMcode's
+g6_hmcode (tests/test_hmcode.py: the linear P(k) within 1e-2 and the HMcode
+P(k) within 3e-2 at z = 0, 1, 3 on 1e-2 < k < 18/Mpc, k_nl rising with z,
+0.05 < k_nl(0) < 1/Mpc); and the probe
 rows of
 tests/golden/bench_probe.json (`probe_rel`; lcdm_row1 here, the others in
 chip_smoke.py, which uses this module for its golden paths).
@@ -42,6 +45,7 @@ Usage (from the repository root, needs one card and nvcc):
         g1_lcdm_halofit g1h_halofit g2_ncdm g8s_curved lcdm_row1
     python3 -m classpp_public_torch.tools.golden_check g9_newt row2_newt g8_newt g18_newt
     python3 -m classpp_public_torch.tools.golden_check g21_isocorr g31_peric g21_newt
+    python3 -m classpp_public_torch.tools.golden_check g6_hmcode
 """
 
 import json
@@ -308,6 +312,33 @@ VARIANTS = {
 }
 
 
+def hmcode_golden_check(g, h, nl):
+    """g6_hmcode under tests/test_hmcode.py's contract: the linear and the
+    HMcode P(k) tables at z = 0, 1, 3 (log-interpolated in k, every golden k
+    in 1e-2 < k < 18/Mpc) within 1e-2 and 3e-2, k_nl rising with z
+    (measure: the larger of k_nl(0)/k_nl(1) and k_nl(1)/k_nl(3), limit 1) and
+    0.05 < k_nl(0) < 1/Mpc (measure: the larger of 0.05/k_nl(0) and k_nl(0),
+    limit 1)."""
+    lnk = np.log(nl.k.cpu().numpy())
+
+    def row(table, iz):
+        lnp = np.log(table[iz].cpu().numpy())
+        return lambda k, z: float(np.exp(np.interp(np.log(k), lnk, lnp)))
+
+    rel = {}
+    for iz, z in enumerate((0.0, 1.0, 3.0)):
+        rel[f"pk_lin_z{z:g}"] = g.rel_pk(row(nl.pk_lin, iz), h, 18.0, f"z{iz + 1}_pk", z, 1e-2, 1) \
+            + (PK_TOL,)
+        rel[f"pk_nl_z{z:g}"] = g.rel_pk(row(nl.pk_nl, iz), h, 18.0, f"z{iz + 1}_pk_nl", z, 1e-2,
+                                        1) + (3e-2,)
+    rel = {k: (v, tol, at) for k, (v, at, tol) in rel.items()}
+    k_nl = nl.k_nl.cpu().numpy()
+    rel["k_nl_rising"] = (float(max(k_nl[0] / k_nl[1], k_nl[1] / k_nl[2])), 1.0,
+                          [float(v) for v in k_nl])
+    rel["k_nl0_in_0.05_1"] = (float(max(0.05 / k_nl[0], k_nl[0])), 1.0, float(k_nl[0]))
+    return rel
+
+
 def golden_check(name, raw, lensed, pk_lin, h, thermo=None, cls=None):
     """The contract of the golden `name`: {measure: (relative error, limit,
     where)}, where is the multipole (or k, or z) of the largest error. raw
@@ -370,6 +401,8 @@ def golden_check(name, raw, lensed, pk_lin, h, thermo=None, cls=None):
         return {"raw_tt": item(g.rel("cl", "TT", raw["tt"], 2, 1200), CL_TOL),
                 "raw_ee": item(g.rel("cl", "EE", raw["ee"], 2, 1200), CL_TOL),
                 "raw_bb": item(g.rel("cl", "BB", raw["bb"], 2, 400), 1e-2)}
+    if name == "g6_hmcode":
+        return hmcode_golden_check(g, h, cls.cosmo.nonlinear)
     if name == "g1h_halofit":
         # halofit P(k) at z = 0, 1, 3 for 1e-2 < k < 9/Mpc
         return {f"pk_nl_z{z:g}": item(g.rel_pk(cls.pk, h, 9.0, tab, z, 1e-2, 1), 2.5e-2)

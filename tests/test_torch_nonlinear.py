@@ -139,6 +139,14 @@ def test_compute_nonlinear_matches_jax(stage_inputs, z_pk):
 
 
 def test_unported_methods_raise(stage_inputs):
+    """The Pk_equal method is not ported (HMcode is, tests/test_torch_hmcode.py),
+    and a method name neither halofit nor hmcode is refused."""
+    import dataclasses
+
     params, pr, bg, bidx, pm, pert = stage_inputs
-    with pytest.raises(NotImplementedError, match="hmcode"):
-        tnl.compute_nonlinear(None, None, None, None, None, None, method="hmcode")
+    tp = interop.cosmo_params(dataclasses.asdict(params))
+    with pytest.raises(NotImplementedError, match="Pk_equal"):
+        tnl.compute_nonlinear(None, None, None, None, None,
+                              dataclasses.replace(tp, pk_eq=True, use_fld=True, wa_fld=0.1))
+    with pytest.raises(ValueError, match="unknown non linear method"):
+        tnl.compute_nonlinear(None, None, None, None, None, tp, method="bogus")
