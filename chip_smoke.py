@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card.
 
-Runs twenty-six configurations through `classpp_public_torch.Class(device="cuda")`,
+Runs twenty-seven configurations through `classpp_public_torch.Class(device="cuda")`,
 stage by stage, at full width and depth, the thermodynamics of a seventeenth
 and the tensor stage of an eighteenth:
 
@@ -49,6 +49,10 @@ and the tensor stage of an eighteenth:
   20/Mpc at z = 0, 1, 3) and `row2_hmcode` (row2_exact with `non linear =
   hmcode` and c_min = 2.6: the HMcode ratio on the phi+psi source of its
   lensed C_l; its perturbations are row2_exact's);
+- scalar-field dark energy: `g13_scf` (tests/golden/gen/g13_scf.ini: the
+  quintessence field closes the budget; the Klein-Gordon march in the
+  Omega_scf shooting of lambda, and the scf instance of perturb_ark; lensed
+  C_l to l = 1200, P(k) to 1/Mpc);
 
 and checks:
 
@@ -60,8 +64,9 @@ and checks:
    once, transfer_los once per initial condition and lensing_wigner once, an
    HMcode path hmcode_sigma four times and hmcode_onehalo once per nonlinear
    computation (the P(k) stage, and the phi+psi ratio with C_l) and
-   halofit_sigma never (any other path neither HMcode kernel): launch
-   counters, set to 0 just before the path and read just after;
+   halofit_sigma never (any other path neither HMcode kernel), an scf path
+   scf_march (any other path not): launch counters, set to 0 just before the
+   path and read just after;
 3. each result against the reference C++ build: the probe
    tests/golden/bench_probe.json for planck_row2 (and planck_row2_ss005),
    row2_exact and ncdm_row3 (rel TT/EE/TE <= 3e-3 at l = 220, 1000, 2000,
@@ -75,7 +80,9 @@ and checks:
    tests/test_tensor_method.py; g9_newt: tests/test_newt_golden.py;
    g21_isocorr: tests/test_isocurvature.py with each initial-condition pair
    under tests/test_peric_output.py's contract; g31_peric:
-   tests/test_peric_output.py; g6_hmcode: tests/test_hmcode.py), for
+   tests/test_peric_output.py; g6_hmcode: tests/test_hmcode.py; g13_scf:
+   tests/test_scf.py, with the tuned lambda printed beside the reference's
+   2.085983), for
    nc_des_y1 positive autos and every cross
    inside the Cauchy-Schwarz envelope of its autos, for row2_iso positive
    autos and every initial-condition pair's cross inside its envelope, and
@@ -98,8 +105,10 @@ and checks:
    least one P(k)-tail lane; on the isocurvature paths the two lowest-k
    lanes of every isocurvature mode, the slowest lane and, with P(k), a
    P(k)-tail lane; the two HMcode kernels on every call the path made, per
-   element), beside the least time the card could take for the same work
-   (`bound_ms`);
+   element; scf_march on the first bisection batch and the final shot, per
+   element, and the shooting walked again with the plain loop: the same
+   tree path as on the card, or the two tuned lambda within 1e-10), beside
+   the least time the card could take for the same work (`bound_ms`);
 5. the three LOS scans that no path above runs past 1024 tau samples
    (transfer_tensor_los, transfer_los_curved, transfer_tensor_los_curved) on
    g3_tensor's and g8_curved's captured inputs refined fourfold in tau
@@ -149,6 +158,19 @@ CL_TOL, PK_TOL = 3e-3, 1e-2
 # shows, the last-bit spread of the band does not.
 NC_SCAN_TOL = 6e-7
 GROWTH_TOL = 1e-12
+# The Klein-Gordon march, per chain and column (phi, phi'), relative to the
+# column's max |plain|: 8190 dependent RK4 sub-steps of a right-hand side with
+# an exp, a sqrt and two float64 divisions (two pow when alpha != 0); the
+# background coefficients are the same formulas in both versions. They differ
+# in FMA contraction and in the last bit of the card's exp/sqrt/pow against
+# libm's; the attractor solution damps a perturbation of its path, so those
+# bits do not grow along the chain. The host build of the kernel's code equals
+# the plain loop bit for bit (tests/test_torch_scf.py). A float32 intermediate
+# would show at ~1e-7, a dropped term far above.
+SCF_MARCH_TOL = 1e-10
+# the tuned lambda of the card's shooting against the plain one's, where their
+# walks part (a midpoint whose f is within the last bits of 0)
+SCF_LAMBDA_TOL = 1e-10
 # The two HMcode kernels are held per element, relative to the plain value
 # (sigma^2, sigma_d^2 and the one-halo integral are sums of positive terms;
 # dsigma^2/dR of terms of one sign where it matters): both are float64 and
@@ -161,7 +183,7 @@ KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-
               "transfer_tensor_los": 1e-6, "tb_march": 1e-10, "transfer_los_curved": 1e-6,
               "transfer_tensor_los_curved": 1e-6, "nc_scan": NC_SCAN_TOL,
               "growth_march": GROWTH_TOL, "hmcode_sigma": HMCODE_TOL,
-              "hmcode_onehalo": HMCODE_TOL}
+              "hmcode_onehalo": HMCODE_TOL, "scf_march": SCF_MARCH_TOL}
 # A path whose perturbations must equal another path's bit for bit (the same
 # cosmology and k grid; only the nonlinear method differs, which enters after
 # the perturbation stage): the equality is held instead of a second plain
@@ -250,6 +272,9 @@ ISO_PATHS = ("g21_isocorr", "g21_newt", "g31_peric", "row2_iso")
 # 1e-2. On these paths that multipole is printed beside its limit and the
 # gate holds raw phiphi over l = 3..2500.
 SAMPLING_DRAW = ("g9_newt",)
+# the scalar-field paths: perturb_ark's scf instance prints the step counts of
+# its compared lanes beside the plain integrator's
+SCF_PATHS = ("g13_scf",)
 # The plain integrator steps all its lanes in lockstep (~6 ms a step on the
 # card with the ncdm block), so a lane of more steps than this is left out of
 # the comparison: the k = 22.6/Mpc tail lane of row2_exact (~31 000 steps, the
@@ -356,12 +381,13 @@ class Kernel:
         self.source, self.replaces, self.size, self.every = source, replaces, size, every
 
 
-def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=()):
+def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(), scf=False):
     """(the kernels a path with OutputSelection `out`, curvature sign sgnK and
     `recombination` must launch, those it must not launch): a curved path
     runs the hyperspherical scans and not the flat ones, a flat path the
     reverse; a HyRec path hyrec_history and not recfast_history, a RECFAST
-    path the reverse. Every path launches growth_march. A path that stops
+    path the reverse; a path with a scalar field (`scf`) scf_march, any other
+    path not. Every path launches growth_march. A path that stops
     after the thermodynamics (`last`) launches its recombination kernel,
     tb_march and growth_march, and none else of `every`; one that runs the
     tensor perturbations alone, those and tensor_rkck. The third item holds
@@ -371,7 +397,7 @@ def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(
     hyrec = recombination in ("hyrec", "hyrec_full")
     reco = {"hyrec_history"} if hyrec else {"recfast_history"}
     other_reco = {"recfast_history"} if hyrec else {"hyrec_history"}
-    early = reco | {"tb_march", "growth_march"}
+    early = reco | {"tb_march", "growth_march"} | ({"scf_march"} if scf else set())
     if last == "thermodynamics":
         return early, set(every) - early, {}
     if last == "tensor_perturbations":
@@ -407,11 +433,10 @@ def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(
     if "t" in out.modes:
         names.add("tensor_rkck")
     curved = {f"{n}_curved" for n in scans}
+    other = other_reco | other_nl | (set() if scf else {"scf_march"})
     if sgnK:
-        return (names | curved, {"transfer_los", "transfer_tensor_los"} | other_reco | other_nl,
-                exact)
-    return (names | scans,
-            {"transfer_los_curved", "transfer_tensor_los_curved"} | other_reco | other_nl, exact)
+        return names | curved, {"transfer_los", "transfer_tensor_los"} | other, exact
+    return names | scans, {"transfer_los_curved", "transfer_tensor_los_curved"} | other, exact
 
 
 def run_config(name, params, kernels, last="lensing"):
@@ -445,11 +470,15 @@ def run_config(name, params, kernels, last="lensing"):
         torch.cuda.synchronize()
         stage_s[st] = time.time() - t0
         phase(f"{name} stage {st}", t0)
+    scf = cosmo.params.Omega_scf != 0.0
+    if scf:
+        # the shooting's walk and target, for check_scf_march
+        captured["scf_background"] = (cosmo.background[0], cosmo.params)
     if last in ("thermodynamics", "tensor_perturbations"):
         phase(f"{name} total", t_all)
         counts = read_counts(name, kernels, originals)
         check_launches(name, counts, *expected_kernels(
-            cosmo.out, cosmo.sgnK, cosmo.params.recombination, last, counts))
+            cosmo.out, cosmo.sgnK, cosmo.params.recombination, last, counts, scf))
         if last == "thermodynamics":
             th = cosmo.thermodynamics
             if not (bool(torch.isfinite(th.xe_of_z).all())
@@ -483,7 +512,7 @@ def run_config(name, params, kernels, last="lensing"):
     phase(f"{name} total", t_all)
     counts = read_counts(name, kernels, originals)
     check_launches(name, counts, *expected_kernels(cosmo.out, cosmo.sgnK,
-                                                   cosmo.params.recombination))
+                                                   cosmo.params.recombination, scf=scf))
     pt = cosmo.perturbations
     tr_shape = tuple(cosmo.transfer.delta.shape) if out.has_cls else None
     print(f"[shapes] {name} k {tuple(pt.k.shape)} tau {tuple(pt.tau.shape)} sources "
@@ -847,7 +876,7 @@ def check_perturb_ark(solve, args, tag, curved=False):
                            + "\n".join(bad))
     dn = (nsteps[sel] - np_).abs()
     dn_rel = float((dn / np_).max())
-    if curved or tag in NEWT_PATHS:
+    if curved or tag in NEWT_PATHS or tag in SCF_PATHS:
         print_lane_steps("perturb_ark", tag, lanes.k[sel], nsteps[sel], np_)
     iso_equal = None
     if ic_sel is not None:
@@ -1158,6 +1187,76 @@ def check_growth(background, args, tag):
                 scaled_err=float(rel.max()))
 
 
+def check_scf_march(background, captured, tag):
+    """scf_march against its plain loop on two launches of the path, the first
+    (the bisection's lo and hi) and the last (the final shot), per chain and
+    column relative to the column's max |plain|; a launch of the bisection's
+    31 midpoints timed; then the shooting walked again on the host with the
+    plain loop, one shot at a time as JAX's loop walks it: the walks must be
+    equal, or the two tuned values within SCF_LAMBDA_TOL where they part."""
+    import torch
+
+    from classpp_public_torch.tools.golden_check import SCF_LAMBDA
+
+    calls = captured["scf_march/all"]
+    res, worst, max_abs = {}, 0.0, 0.0
+    for which, (args, kw) in (("first", calls[0]), ("final", calls[-1])):
+        ms, kout = timed(lambda: background.scf_march(*args, **kw))
+        plain_ms, pout = host_timed(lambda: background.scf_march_plain(*args, **kw))
+        kout = kout.cpu()
+        if kout.shape != pout.shape or not bool(torch.isfinite(kout).all()):
+            raise RuntimeError(f"scf_march ({tag}, {which}): shape {tuple(kout.shape)} against "
+                               f"{tuple(pout.shape)}, or not finite")
+        diff = (kout - pout).abs()
+        err = float((diff / pout.abs().amax(dim=1, keepdim=True).clamp_min(1e-300)).max())
+        worst, max_abs = max(worst, err), max(max_abs, float(diff.max()))
+        nc, n = int(kout.shape[0]), int(kout.shape[1])
+        # per chain: 2 (n - 1) sub-steps of four right-hand sides (~45
+        # operations: the exp ~20, the sqrt, two divisions) and the update
+        # (~20); the table: 6 (n - 1) times of two exp and ~15 more
+        flops = nc * 2.0 * (n - 1) * (4 * 45.0 + 20.0) + 6.0 * (n - 1) * 55.0
+        bms, bby = bound(nbytes(*args[:4], kout), flops)
+        res[which] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, chains=nc,
+                          scaled_err=err)
+        print(f"[scf_march] {tag} {which} launch: {nc} chains x {n} nodes, kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.0f} ms, bound {bms:.4f} ms ({bby}); worst |kernel - plain| "
+              f"{err:.3e} of a column's max (limit {SCF_MARCH_TOL})", flush=True)
+    batch = [c for c in calls if c[0][0].shape[0] > 2]
+    ms_batch = timed(lambda: background.scf_march(*batch[0][0]))[0] if batch else None
+    bg, params = captured["scf_background"]
+    ti = params.scf_tuning_index
+    pars0 = list(params.scf_parameters) or [10.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+    args = calls[0][0]
+    t0 = time.time()
+    f_plain = background.scf_omega_err(lambda p4: background.scf_march_plain(p4, *args[1:]),
+                                       pars0, ti, float(args[2][-1]), bg.H0, bg.scf_target)
+    x_plain, walk_plain = background.shoot_scf(f_plain, pars0, ti, bg.scf_target,
+                                               params.attractor_ic_scf, 0)
+    plain_s = time.time() - t0
+    x_card, walk = bg.scf_parameters[ti], list(bg.scf_walk)
+    same = walk == walk_plain
+    part = next((i for i, (a, b) in enumerate(zip(walk, walk_plain)) if a != b),
+                min(len(walk), len(walk_plain)))
+    rel = abs(x_card - x_plain) / abs(x_plain)
+    print(f"[scf_march] {tag}: {len(calls)} launches, the walk read {len(walk)} shots; "
+          f"tuned scf_parameters[{ti}] {x_card!r} (reference {SCF_LAMBDA}, rel "
+          f"{abs(x_card / SCF_LAMBDA - 1):.2e}); the plain walk ({len(walk_plain)} shots, "
+          f"{plain_s:.1f} s on the host) "
+          + ("is the same tree path" if same else
+             f"parts from the card's at shot {part}: card {walk[part:part + 2]}, plain "
+             f"{walk_plain[part:part + 2]}")
+          + f"; plain tuned value {x_plain!r}, rel {rel:.2e}; a launch of "
+          f"{batch[0][0][0].shape[0] if batch else 0} chains {ms_batch} ms", flush=True)
+    if not same and not rel <= SCF_LAMBDA_TOL:
+        raise RuntimeError(f"scf_march ({tag}): the card's shooting found {x_card!r}, the plain "
+                           f"one {x_plain!r}")
+    final = res.pop("final")
+    return dict(max_abs_err=max_abs, scaled_err=worst, **{k: v for k, v in final.items()
+                                                             if k != "scaled_err"},
+                first_launch=res["first"], ms_31_chains=ms_batch, walk_shots=len(walk),
+                same_walk=same, tuned=x_card, tuned_plain=x_plain)
+
+
 def scan_work(q, taus, tau0, l_emit, curved):
     """Float64 operations of a LOS scan on its (q, tau) grid: per point ~8 per
     l of the recurrence (~12 curved, with its division) and ~60 per emitted l
@@ -1275,6 +1374,8 @@ def check_kernels(tag, captured, mods, curved):
 
     if "growth_march" in captured:
         out["growth_march"] = check_growth(mods["growth_march"], captured["growth_march"][0], tag)
+    if "scf_march" in captured:
+        out["scf_march"] = check_scf_march(mods["scf_march"], captured, tag)
     if "tensor_rkck" in captured:
         out["tensor_rkck"] = check_tensor_rkck(mods["tensor_rkck"],
                                                captured["tensor_rkck"][0], tag, curved)
@@ -1436,7 +1537,7 @@ def compare_prior():
 
 
 def kernel_table():
-    """The fifteen kernels, each with the wrapper the main path calls."""
+    """The sixteen kernels, each with the wrapper the main path calls."""
     from classpp_public_torch.models import (background, hyrec, lensing, nonlinear,
                                              numbercounts, thermodynamics, transfer)
     from classpp_public_torch.models.perturbations import solve, tensors
@@ -1476,6 +1577,8 @@ def kernel_table():
         Kernel("hmcode_onehalo", nonlinear, "hmcode_onehalo_launches", "hmcode_onehalo",
                src + "hmcode_onehalo.cu", tpu + "nonlinear.py:349",
                size=lambda a: a[0].numel() * a[5].numel(), every=True),
+        Kernel("scf_march", background, "scf_launches", "scf_march", src + "scf_march.cu",
+               tpu + "background.py:302", every=True),
     ]
 
 

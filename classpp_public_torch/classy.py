@@ -12,7 +12,9 @@ classy.py:139-150, :173-206), and the number counts and galaxy lensing
 keys: classy.py:455-510; `raw_cl`'s number-count and cross keys :1008-1075,
 `density_cl` :1077), and the isocurvature initial conditions (`ic`, `f_X`,
 `n_X`, `alpha_X`, `c_X_Y`, `n_X_Y`, `alpha_X_Y`: classy.py:630-669) with the
-primordial spectra `P_k_ini type` analytic_Pk and two_scales (:720-737).
+primordial spectra `P_k_ini type` analytic_Pk and two_scales (:720-737), and
+scalar-field dark energy (`Omega_scf`, `scf_parameters`, `scf_tuning_index`,
+`attractor_ic_scf`: classy.py:413-429).
 
 Every other input key raises with the JAX file and line that implements it.
 """
@@ -59,6 +61,8 @@ _REIO_SCHEMES = ("reio_camb", "reio_half_tanh", "reio_bins_tanh", "reio_many_tan
                  "reio_none")
 _OUTPUT_TOKENS = ("tCl", "pCl", "lCl", "mPk", "nCl", "dCl", "sCl")
 _NC_CONTRIBUTIONS = ("density", "rsd", "lensing", "gr")
+# the reference's per-coefficient scf keys, which the JAX classy refuses too
+_SCF_LEGACY = ("scf_lambda", "scf_alpha", "scf_A", "scf_B")
 
 
 class Class:
@@ -156,6 +160,8 @@ class Class:
                 raise CosmoSevereError(
                     f"N_ncdm = {n_ncdm} but {len(kw['m_ncdm'])} masses were given")
 
+        self._parse_scf(p, kw)
+
         out = OutputSelection()
         output = str(p.pop("output", ""))
         extra = [t for t in output.replace(",", " ").split() if t not in _OUTPUT_TOKENS]
@@ -218,6 +224,32 @@ class Class:
             out.P_k_max = max(out.P_k_max, pr.nonlinear_min_k_max, method_min)
         return Cosmology(CosmoParams(**kw), pr, out, device=self.device, iso_primordial=iso,
                          iso_corr=corr)
+
+    @staticmethod
+    def _parse_scf(p: dict, kw: dict) -> None:
+        """Scalar-field dark energy (classy.py:413-429, input_module.cpp:1204-1263):
+        Omega_scf with its scf_parameters, scf_tuning_index and
+        attractor_ic_scf; Omega_scf < 0 means that the field closes the
+        budget, which requires Omega_Lambda = Omega_fld = 0. The legacy
+        per-coefficient keys are refused as the JAX classy refuses them
+        (classy.py:53-54)."""
+        legacy = sorted(k for k in _SCF_LEGACY if k in p)
+        if legacy:
+            raise CosmoSevereError("parameters of reference features not implemented yet: "
+                                   + ", ".join(repr(k) for k in legacy))
+        if "Omega_scf" not in p:
+            return
+        kw["Omega_scf"] = float(p.pop("Omega_scf"))
+        if "scf_parameters" not in p:
+            raise CosmoSevereError("Omega_scf requires scf_parameters")
+        kw["scf_parameters"] = tuple(_parse_list(p.pop("scf_parameters")))
+        kw["scf_tuning_index"] = int(float(p.pop("scf_tuning_index", 0)))
+        att = str(p.pop("attractor_ic_scf", "yes")).strip().lower()
+        kw["attractor_ic_scf"] = att in ("yes", "y", "true", "1")
+        if kw["Omega_scf"] < 0.0:
+            if float(p.pop("Omega_Lambda", 0.0)) != 0.0 or float(p.pop("Omega_fld", 0.0)) != 0.0:
+                raise CosmoSevereError("Omega_scf < 0 (budget closure by scf) requires "
+                                       "Omega_Lambda = 0 and Omega_fld = 0")
 
     @staticmethod
     def _parse_feedback(p: dict, out: OutputSelection) -> None:

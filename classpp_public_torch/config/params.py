@@ -172,8 +172,8 @@ class CosmoParams:
 def check_lcdm(params: CosmoParams) -> None:
     """Raise for every parameter that switches on physics outside the ported
     slice (LambdaCDM + massive neutrinos, open, flat or closed, synchronous
-    or Newtonian gauge; RECFAST or HyRec, energy injection, every
-    reionization scheme),
+    or Newtonian gauge; scalar-field dark energy in the synchronous gauge;
+    RECFAST or HyRec, energy injection, every reionization scheme),
     naming the JAX code that implements it."""
     bad = []
     if any(params.ksi_ncdm) or any(params.ncdm_psd_files):
@@ -187,8 +187,11 @@ def check_lcdm(params: CosmoParams) -> None:
         bad.append("dark-energy fluid (classpp_public_tpu/models/background.py:693)")
     if params.Omega_ini_dcdm > 0.0 or params.Omega_dcdmdr > 0.0:
         bad.append("decaying dark matter (classpp_public_tpu/models/background.py:439)")
-    if params.Omega_scf != 0.0:
-        bad.append("scalar-field dark energy (classpp_public_tpu/models/background.py:602)")
+    if params.Omega_scf != 0.0 and params.gauge == "newtonian":
+        bad.append("scalar-field dark energy in the Newtonian gauge (the psi correction of "
+                   "delta_rho_scf and delta_p_scf, "
+                   "classpp_public_tpu/models/perturbations/equations.py:401-407, and the scf "
+                   "gauge shift of the initial conditions, :1374-1385)")
     if params.Omega_idm_dr > 0.0:
         bad.append("interacting dark matter (classpp_public_tpu/models/background.py:421)")
     if tuple(params.temp_contributions) != (1.0,) * 5 or params.eisw_lisw_split_z != 120.0:

@@ -16,7 +16,10 @@
 // 2 cdi, 3 nid, 4 niv; null: all adiabatic): the JAX package runs one solve
 // per initial condition (solve.py:739-750), here the lanes of every initial
 // condition go in one launch, and only the first state of a lane depends on
-// it (perturb_ark.cuh isocurvature_ic).
+// it (perturb_ark.cuh isocurvature_ic). A layout with a scalar field
+// (Layout::phi_scf >= 0, synchronous gauge only) selects the third instance,
+// perturb_ark_kernel<false, true>, whose scf terms the other two do not
+// compile.
 //
 // Design: one lane per warp, one warp per block. Each lane runs its own
 // while loop to its last sample: no lockstep between lanes, no host reads, no
@@ -65,7 +68,7 @@ namespace {
 
 constexpr int kWarp = 32;
 
-template <bool kNewt>
+template <bool kNewt, bool kScf>
 __global__ void __launch_bounds__(kWarp)
 perturb_ark_kernel(pk::Layout L, pk::Tables T,
                    const double* __restrict__ lanes,  // (6, nl): k, tau_ini, t_tca, t_ufa, t_rsa, t_ncfa
@@ -96,7 +99,7 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
   ln.sgnK = sgnK;
   ln.sl = nullptr;
   long long steps = 0;
-  const int st = pk::integrate_lane<kNewt>(
+  const int st = pk::integrate_lane<kNewt, kScf>(
       L, T, tm, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n, atol + (long)lane * L.n,
       max_steps, work, S + (long)lane * ntau * pk::kNSrc, &steps,
       PK_PROFILE_OUT(lane, nlanes));
@@ -106,19 +109,19 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
   }
 }
 
-// One launch of the instance kNewt; its shared-memory limit is raised past
-// 48 KB when the lane scratch needs it.
-template <bool kNewt>
+// One launch of the instance (kNewt, kScf); its shared-memory limit is raised
+// past 48 KB when the lane scratch needs it.
+template <bool kNewt, bool kScf>
 int launch(const pk::Layout& L, const pk::Tables& T, size_t smem, const double* lanes,
            const double* taus, const double* rtol, const double* atol, const int* ic,
            const int* order, double k_eta_split, double K, int sgnK, long max_steps, int nlanes,
            int ntau, double* S, long long* nsteps, int* status, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        perturb_ark_kernel<kNewt>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        perturb_ark_kernel<kNewt, kScf>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  perturb_ark_kernel<kNewt><<<nlanes, kWarp, smem, stream>>>(
+  perturb_ark_kernel<kNewt, kScf><<<nlanes, kWarp, smem, stream>>>(
       L, T, lanes, taus, rtol, atol, ic, order, k_eta_split, K, sgnK, max_steps, nlanes, ntau, S,
       nsteps, status);
   return (int)cudaGetLastError();
@@ -130,7 +133,8 @@ int launch(const pk::Layout& L, const pk::Tables& T, size_t smem, const double* 
 // device pointer. ncdm: q (nq), w (ns, nq), dlnf0 (ns, nq), x_fac (ns),
 // pref (ns) packed in this order (unused when ns = 0). K: the spatial
 // curvature in 1/Mpc^2, sgnK its sign; gauge 0 synchronous, 1 Newtonian
-// (any other value is refused). ic: each lane's initial condition (null: all
+// (any other value is refused, and so is a scalar field in the Newtonian
+// gauge). ic: each lane's initial condition (null: all
 // adiabatic); order: the lane of each block (null: block b runs lane b), a
 // permutation of 0..nlanes-1. The lane's scratch is dynamic shared
 // memory, sized from the layout (any number of species): a state too wide for
@@ -149,19 +153,23 @@ extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const 
   int* li = reinterpret_cast<int*>(&L);
   for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
   const size_t smem = (size_t)pk::work_doubles(L) * sizeof(double);
-  if (nlanes < 1 || smem > 232448 || gauge < 0 || gauge > 1 || (gauge == 1) != (L.theta_cdm >= 0))
+  if (nlanes < 1 || smem > 232448 || gauge < 0 || gauge > 1 || (gauge == 1) != (L.theta_cdm >= 0)
+      || (gauge == 1 && L.phi_scf >= 0))
     return (int)cudaErrorInvalidValue;
   pk::Tables T;
   T.bg_y = bg_y; T.bg_y2 = bg_y2; T.bg_x0 = bg_x0; T.bg_dx = bg_dx; T.bg_n = bg_n;
-  T.bg_ncol = pk::kNBgBase + 3 * L.ns;
+  T.bg_ncol = pk::bg_cols(L);
   T.th_y = th_y; T.th_y2 = th_y2; T.th_x0 = th_x0; T.th_dx = th_dx; T.th_n = th_n;
   const long nsq = (long)L.ns * L.nq;
   T.q = ncdm; T.w = ncdm + L.nq; T.dlnf0 = T.w + nsq; T.x_fac = T.dlnf0 + nsq;
   T.pref = T.x_fac + L.ns;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return gauge == 1
-      ? launch<true>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K, sgnK,
-                     (long)max_steps, nlanes, ntau, S, nsteps, status, st)
-      : launch<false>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K, sgnK,
-                      (long)max_steps, nlanes, ntau, S, nsteps, status, st);
+  if (gauge == 1)
+    return launch<true, false>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K,
+                               sgnK, (long)max_steps, nlanes, ntau, S, nsteps, status, st);
+  if (L.phi_scf >= 0)
+    return launch<false, true>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K,
+                               sgnK, (long)max_steps, nlanes, ntau, S, nsteps, status, st);
+  return launch<false, false>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K,
+                              sgnK, (long)max_steps, nlanes, ntau, S, nsteps, status, st);
 }

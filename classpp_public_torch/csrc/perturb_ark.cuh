@@ -35,6 +35,14 @@
 // the species see metric_continuity = -3 phi', metric_euler = k^2 psi,
 // metric_shear = 0 and metric_ufa = -6 phi' (equations.py rhs_full).
 //
+// A quintessence scalar field (synchronous gauge only) is a second template
+// parameter kScf: its (delta phi, delta phi') pair sits after the ncdm block
+// (Layout::phi_scf, -1 without the field), its four background columns
+// (rho_scf, phi', dV, ddV) after the ncdm columns of the frame, and every scf
+// term behind `if constexpr (kScf)`, so that the instances without it are the
+// arithmetic they were (equations.py rhs_full; JAX equations.py:301-306,
+// :395-410, :847-851, :928-929).
+//
 // Curvature K (sign sgnK) enters through s_l = sqrt(max(1 - K (l^2 - 1)/k^2,
 // 0)), s2 = 1 - 3 K/k^2 and cotKgen = sqrt|K| cot_K(sqrt|K| tau)/k. The s_l
 // of a lane are computed once, into its table `sl` in shared memory, so a step
@@ -64,6 +72,7 @@ namespace pk {
 constexpr int kNSrc = 27;        // SrcIdx.n
 constexpr int kNBgBase = 10;     // BG_COLS without the ncdm columns
 constexpr int kNTh = 6;          // TH_COLS
+constexpr int kNScf = 4;         // SCF_COLS: rho_scf, phi_prime_scf, dV_scf, ddV_scf
 constexpr int kStages = 6;
 
 // status word of a lane
@@ -126,15 +135,16 @@ struct Layout {
   int F_ur, n_F_ur;             // l = 3..l_max_ur
   int ncdm, ns, nq, nl;         // ncdm block: (ns, nq, nl)
   int eta;
+  int phi_scf;                  // delta phi, delta phi' of a scalar field; -1 without one
 };
-constexpr int kLayoutInts = 22;
+constexpr int kLayoutInts = 23;
 
 // The two table splines over ln(tau) and the ncdm momentum data.
 struct Tables {
   const double* bg_y;
   const double* bg_y2;
   double bg_x0, bg_dx;
-  int bg_n, bg_ncol;            // bg_ncol = kNBgBase + 3 ns
+  int bg_n, bg_ncol;            // bg_ncol = bg_cols(L): kNBgBase + 3 ns (+ kNScf)
   const double* th_y;
   const double* th_y2;
   double th_x0, th_dx;
@@ -161,6 +171,8 @@ struct Frame {
   // rho, p and p' of ncdm species s: nc[3 s], nc[3 s + 1], nc[3 s + 2], the
   // ncdm columns of the frame buffer (valid until the next frame_at)
   const double* nc;
+  // with a scalar field its kNScf columns, after the ncdm ones
+  const double* scf;
 };
 
 struct Flags {
@@ -207,9 +219,22 @@ PK_FN Flags flags_at(const Lane& ln, double t) {
   return Flags{t < ln.t_tca, t >= ln.t_rsa, t >= ln.t_ufa, t >= ln.t_ncfa};
 }
 
-// Doubles of the frame buffer: the background columns (3 per ncdm species)
-// and the thermodynamics columns.
-PK_HOST_FN int frame_cols(const Layout& L) { return kNBgBase + 3 * L.ns + kNTh; }
+// Background columns of the tables: the base ones, 3 per ncdm species and
+// the scalar field's.
+PK_HOST_FN int bg_cols(const Layout& L) {
+  return kNBgBase + 3 * L.ns + (L.phi_scf >= 0 ? kNScf : 0);
+}
+
+// Doubles of the frame buffer of the instance kScf: the background columns
+// and the thermodynamics columns; frame_cols(L), that of the layout's.
+template <bool kScf>
+PK_HOST_FN int frame_cols_of(const Layout& L) {
+  if constexpr (kScf) return kNBgBase + 3 * L.ns + kNScf + kNTh;
+  return kNBgBase + 3 * L.ns + kNTh;
+}
+PK_HOST_FN int frame_cols(const Layout& L) {
+  return L.phi_scf >= 0 ? frame_cols_of<true>(L) : frame_cols_of<false>(L);
+}
 
 // Table values at tau, the same in every thread. `buf` (frame_cols doubles,
 // shared by the team) carries the table row across (team::table_row).
@@ -223,6 +248,7 @@ PK_FN void frame_at(const Tables& T, const Team& tm, double tau, double* buf, Fr
   f.rho_cdm = bgv[5]; f.rho_ur = bgv[6]; f.rho_tot = bgv[7]; f.p_tot = bgv[8];
   f.p_tot_prime = bgv[9];
   f.nc = bgv + kNBgBase;
+  f.scf = bgv + nbg - kNScf;
   f.kap = thv[0]; f.kapp = thv[1]; f.g = thv[2]; f.dg = thv[3]; f.emk = thv[4];
   f.cb2 = thv[5];
 }
@@ -255,7 +281,7 @@ PK_FN void ncdm_sums(const Layout& L, const Tables& T, const Team& tm, double a,
 // approximation with one species only the three fluid slots of the ncdm block
 // are written: the caller skips the rest of the block (its state and
 // derivative are zero). Ends with team_sync() when it wrote dy.
-template <bool kNewt>
+template <bool kNewt, bool kScf>
 PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
                     const Lane& ln, const Flags& fl, const Vec y, const Vec dy, bool want_dy,
                     Locals& loc) {
@@ -324,6 +350,18 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
     rho_plus_p_theta += sum_rpt;
     rho_plus_p_shear += sum_rps;
     delta_p += sum_dp;
+  }
+  // the scalar field's stress-energy (JAX equations.py:395-410, synchronous)
+  double dphi = 0.0, dphip = 0.0, phip_bg = 0.0, ddV_bg = 0.0;
+  if constexpr (kScf) {
+    dphi = y[L.phi_scf];
+    dphip = y[L.phi_scf + 1];
+    phip_bg = fr.scf[1];
+    ddV_bg = fr.scf[3];
+    const double dV_bg = fr.scf[2];
+    delta_rho += (phip_bg * dphip / a2 + dV_bg * dphi) / 3.0;
+    rho_plus_p_theta += k2 / a2 * phip_bg * dphi / 3.0;
+    delta_p += (phip_bg * dphip / a2 - dV_bg * dphi) / 3.0;
   }
 
   // Einstein equations, the radiation-streaming values and the metric terms
@@ -467,6 +505,11 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
       const double d_shear_ur_ufa = -3.0 / tau * shear_ur
                                     + 2.0 / 3.0 * (theta_ur + metric_ufa);
       dy[L.shear_ur] = ur_on ? (ufa ? d_shear_ur_ufa : d_shear_ur_full) : 0.0;
+      if constexpr (kScf) {   // Klein-Gordon (JAX equations.py:847-851)
+        dy[L.phi_scf] = dphip;
+        dy[L.phi_scf + 1] = -2.0 * aH * dphip - metric_continuity * phip_bg
+                            - (k2 + a2 * ddV_bg) * dphi;
+      }
       dy[L.eta] = eta_prime;
     }
 
@@ -604,7 +647,10 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   loc.delta_g_eff = d_g; loc.theta_g_eff = t_g;
   loc.delta_ur_eff = rsa ? rsa_delta_ur : delta_ur;
   loc.theta_ur_eff = rsa ? rsa_theta_ur : theta_ur;
-  loc.delta_tot = delta_rho / (rho_g + rho_b + rho_cdm + rho_ur + sum_rho_nc);
+  if constexpr (kScf)
+    loc.delta_tot = delta_rho / (rho_g + rho_b + rho_cdm + rho_ur + sum_rho_nc + fr.scf[0]);
+  else
+    loc.delta_tot = delta_rho / (rho_g + rho_b + rho_cdm + rho_ur + sum_rho_nc);
   loc.theta_tot = rho_plus_p_theta / rpp_tot;
   loc.H_T_Nb_prime = 3.0 * aH / rpp_tot * (
       -delta_p + fr.p_tot_prime * rho_plus_p_theta / (rpp_tot * k2) + rho_plus_p_shear);
@@ -859,12 +905,12 @@ PK_FN void isocurvature_ic(const Layout& L, const Tables& T, const Team& tm, con
 // Photon hierarchy from its tight-coupling values (remap_tca_off). `fl` are
 // the flags at the switch time; the shear is evaluated with tca forced on.
 // Ends with team_sync().
-template <bool kNewt>
+template <bool kNewt, bool kScf>
 PK_FN void remap_tca_off(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
                          const Lane& ln, Flags fl, const Vec y) {
   Locals loc;
   fl.tca = true;
-  rhs_full<kNewt>(L, T, tm, fr, ln, fl, y, y, false, loc);
+  rhs_full<kNewt, kScf>(L, T, tm, fr, ln, fl, y, y, false, loc);
   team_sync(tm);   // every thread has read y
   if (tm.tid == 0) {
     const double kk = ln.k / fr.kap, s_l2 = ln.sl[2], s_l3 = ln.sl[3];
@@ -916,11 +962,11 @@ PK_FN void remap_ncdmfa_on(const Layout& L, const Tables& T, const Team& tm, con
 // The 27 source columns at (k, fr.tau) (compute_sources), SrcIdx order, in
 // the efficient form of the gauge, written by thread 0 to `out` (which no
 // thread of the team reads).
-template <bool kNewt>
+template <bool kNewt, bool kScf>
 PK_FN void compute_sources(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
                            const Lane& ln, const Flags& fl, const Vec y, double* out) {
   Locals c;
-  rhs_full<kNewt>(L, T, tm, fr, ln, fl, y, y, false, c);
+  rhs_full<kNewt, kScf>(L, T, tm, fr, ln, fl, y, y, false, c);
   if (tm.tid != 0) return;
   const double k = ln.k, k2 = k * k;
   const double g = fr.g, dg = fr.dg, emk = fr.emk;
@@ -953,7 +999,7 @@ PK_FN void compute_sources(const Layout& L, const Tables& T, const Team& tm, con
 
 // Scratch of one lane, in doubles: y, Y, ynew (n each), FE (6 n), FI (6 nst),
 // E (nst), with nst = theta_b + 1 the stiff range, the frame buffer and the
-// s_l table.
+// s_l table (the layout's instance).
 PK_HOST_FN long work_doubles(const Layout& L) {
   return 9L * L.n + 7L * (L.theta_b + 1) + frame_cols(L) + sl_count(L);
 }
@@ -963,7 +1009,7 @@ PK_HOST_FN long work_doubles(const Layout& L) {
 // rtol/atol: this lane's per-component tolerances; work: the lane's scratch,
 // shared by the team (ln.sl is set to its s_l table). Every thread returns the
 // same status word and step count.
-template <bool kNewt>
+template <bool kNewt, bool kScf>
 PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane ln,
                          double tau_ini, const double* taus, int ntau, const double* rtol,
                          const double* atol, long max_steps, const Vec work, double* S,
@@ -972,7 +1018,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
   const int n = L.n, nst = L.theta_b + 1, ns = L.ns;
   const Vec y = work, Y = work + n, ynew = work + 2L * n, FE = work + 3L * n;
   const Vec FI = work + 9L * n, E = work + 9L * n + 6L * nst, fbuf = E + nst;
-  const Vec sl = fbuf + frame_cols(L);
+  const Vec sl = fbuf + frame_cols_of<kScf>(L);
   const double sw[4] = {ln.t_tca, ln.t_ufa, ln.t_rsa, ln.t_ncfa};
   const int nsw = ns ? 4 : 3;
   const double inf = INFINITY;
@@ -1036,7 +1082,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       Locals unused;
       stiff_apply(L, tm, fr, fl, sl2, Ys, fi);
       PK_PROF(3)
-      rhs_full<kNewt>(L, T, tm, fr, ln, fl, Ys, fe, true, unused);
+      rhs_full<kNewt, kScf>(L, T, tm, fr, ln, fl, Ys, fe, true, unused);
       PK_PROF(4)
       for (int c = tid; c < nst; c += nt) fe[c] -= fi[c];
       team_sync(tm);
@@ -1107,7 +1153,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       if (any) {
         const Flags fn = flags_at(ln, t_new);
         frame_at(T, tm, t_new, fbuf, fr);
-        if (crossed[0]) remap_tca_off<kNewt>(L, T, tm, fr, ln, fn, y);
+        if (crossed[0]) remap_tca_off<kNewt, kScf>(L, T, tm, fr, ln, fn, y);
         if (crossed[1]) remap_ufa_on(L, tm, y);
         if (crossed[2]) remap_rsa_on(L, tm, y);
         if (ns && crossed[3]) remap_ncdmfa_on(L, T, tm, fr, ln, y);
@@ -1115,7 +1161,8 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       t = t_new;
       if (t_new >= t_b * (1.0 - 1e-15)) {
         frame_at(T, tm, t_b, fbuf, fr);
-        compute_sources<kNewt>(L, T, tm, fr, ln, flags_at(ln, t_b), y, S + (long)j * kNSrc);
+        compute_sources<kNewt, kScf>(L, T, tm, fr, ln, flags_at(ln, t_b), y,
+                                     S + (long)j * kNSrc);
         t = t_b;
         ++j;
       }

@@ -8,18 +8,21 @@
 //
 // The arguments of perturb_ark_host_ic are those of perturb_ark_launch
 // (perturb_ark.cu) with host pointers and a scratch of work_doubles, without
-// the block order and the stream; perturb_ark_host_gauge is its case of
-// adiabatic lanes (ic null), perturb_ark_host_curved that case in the
-// synchronous gauge and perturb_ark_host the flat synchronous one (K = 0).
-// The package never loads this library; tests/test_torch_perturbations.py,
-// tests/test_torch_curved.py, tests/test_torch_newtonian.py and
-// tests/test_torch_isocurvature.py do.
+// the block order and the stream; like the card's launcher it runs the
+// instance of the layout's scalar field (Layout::phi_scf) and gauge.
+// perturb_ark_host_gauge is its case of adiabatic lanes (ic null),
+// perturb_ark_host_curved that case in the synchronous gauge,
+// perturb_ark_host the flat synchronous one (K = 0), and perturb_ark_host_scf
+// the synchronous case that requires a scalar field in the layout. The
+// package never loads this library; tests/test_torch_perturbations.py,
+// tests/test_torch_curved.py, tests/test_torch_newtonian.py,
+// tests/test_torch_isocurvature.py and tests/test_torch_scf.py do.
 
 #include "perturb_ark.cuh"
 
 namespace {
 
-template <bool kNewt>
+template <bool kNewt, bool kScf>
 void run_lanes(const pk::Layout& L, const pk::Tables& T, const double* lanes, const double* taus,
                const double* rtol, const double* atol, const int* ic, double k_eta_split,
                double K, int sgnK,
@@ -38,7 +41,7 @@ void run_lanes(const pk::Layout& L, const pk::Tables& T, const double* lanes, co
     ln.K = K;
     ln.sgnK = sgnK;
     ln.sl = nullptr;
-    status[lane] = pk::integrate_lane<kNewt>(
+    status[lane] = pk::integrate_lane<kNewt, kScf>(
         L, T, pk::Team{0, 1}, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n,
         atol + (long)lane * L.n, (long)max_steps, work, S + (long)lane * ntau * pk::kNSrc,
         &nsteps[lane]);
@@ -60,19 +63,38 @@ extern "C" int perturb_ark_host_ic(const int* layout, const double* lanes, const
   for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
   pk::Tables T;
   T.bg_y = bg_y; T.bg_y2 = bg_y2; T.bg_x0 = bg_x0; T.bg_dx = bg_dx; T.bg_n = bg_n;
-  T.bg_ncol = pk::kNBgBase + 3 * L.ns;
+  T.bg_ncol = pk::bg_cols(L);
   T.th_y = th_y; T.th_y2 = th_y2; T.th_x0 = th_x0; T.th_dx = th_dx; T.th_n = th_n;
   const long nsq = (long)L.ns * L.nq;
   T.q = ncdm; T.w = ncdm + L.nq; T.dlnf0 = T.w + nsq; T.x_fac = T.dlnf0 + nsq;
   T.pref = T.x_fac + L.ns;
-  if (gauge < 0 || gauge > 1 || (gauge == 1) != (L.theta_cdm >= 0)) return 1;
+  if (gauge < 0 || gauge > 1 || (gauge == 1) != (L.theta_cdm >= 0)
+      || (gauge == 1 && L.phi_scf >= 0))
+    return 1;
   if (gauge == 1)
-    run_lanes<true>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps, nlanes,
-                    ntau, work, S, nsteps, status);
+    run_lanes<true, false>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps,
+                           nlanes, ntau, work, S, nsteps, status);
+  else if (L.phi_scf >= 0)
+    run_lanes<false, true>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps,
+                           nlanes, ntau, work, S, nsteps, status);
   else
-    run_lanes<false>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps, nlanes,
-                     ntau, work, S, nsteps, status);
+    run_lanes<false, false>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps,
+                            nlanes, ntau, work, S, nsteps, status);
   return 0;
+}
+
+extern "C" int perturb_ark_host_scf(const int* layout, const double* lanes, const double* taus,
+                                    const double* bg_y, const double* bg_y2, double bg_x0,
+                                    double bg_dx, int bg_n, const double* th_y,
+                                    const double* th_y2, double th_x0, double th_dx, int th_n,
+                                    const double* ncdm, const double* rtol, const double* atol,
+                                    double k_eta_split, double K, int sgnK, long long max_steps,
+                                    int nlanes, int ntau, double* work, double* S,
+                                    long long* nsteps, int* status) {
+  if (layout[pk::kLayoutInts - 1] < 0) return 1;   // no scalar field in the layout
+  return perturb_ark_host_ic(layout, lanes, taus, bg_y, bg_y2, bg_x0, bg_dx, bg_n, th_y, th_y2,
+                             th_x0, th_dx, th_n, ncdm, rtol, atol, nullptr, k_eta_split, K, sgnK,
+                             0, max_steps, nlanes, ntau, work, S, nsteps, status);
 }
 
 extern "C" int perturb_ark_host_gauge(const int* layout, const double* lanes,

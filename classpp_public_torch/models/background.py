@@ -1,5 +1,5 @@
 """Background cosmology: LambdaCDM, open, flat or closed, with massless and
-massive neutrinos.
+massive neutrinos and a quintessence scalar field.
 
 Counterpart of classpp_public_tpu/models/background.py
 (`_compute_background_impl` :364, the ncdm momentum integrals :113-262,
@@ -14,8 +14,12 @@ JAX package, a lax.scan program) runs where the stage is asked to run: on a
 CUDA device it is one launch of the hand-written kernel
 csrc/growth_march.cu (the spline of (rho_m, a, H) moved to the card, D and f
 read back into the table), on the CPU its plain version, the host loop
-`growth_march_plain`. The finished tables move to the requested device once,
-at the end.
+`growth_march_plain`. With a scalar field, the shooting of Omega_scf
+(`shoot_scf`, JAX :600-691) runs its Klein-Gordon marches (`scf_march`,
+`_integrate_scf` :302-363 in the JAX package) the same way: a batch of shots
+a launch of the kernel csrc/scf_march.cu on a CUDA device, the plain loop
+`scf_march_plain` on the CPU. The finished tables move to the requested
+device once, at the end.
 """
 
 from __future__ import annotations
@@ -40,12 +44,18 @@ HOST = torch.device("cpu")
 
 class BgIdx:
     """Column indices of the background runtime table (index_bg_*,
-    source/background_module.h:40-99), LambdaCDM + ur + ncdm layout: three
-    columns (rho, p, pseudo-pressure) per ncdm species after rho_ur."""
+    source/background_module.h:40-99), LambdaCDM + ur (+ scf) + ncdm layout:
+    the scalar field's seven columns after rho_ur (background.py:50-52), then
+    three columns (rho, p, pseudo-pressure) per ncdm species."""
 
-    def __init__(self, n_ncdm: int = 0):
-        self.key = (n_ncdm, False, False, False, False, 0, 0)
+    SCF_NAMES = ("rho_scf", "p_scf", "phi_scf", "phi_prime_scf", "V_scf", "dV_scf", "ddV_scf")
+
+    def __init__(self, n_ncdm: int = 0, has_scf: bool = False):
+        self.key = (n_ncdm, False, False, has_scf, False, 0, 0)
+        self.has_scf = has_scf
         names = ["a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm", "rho_lambda", "rho_ur"]
+        if has_scf:
+            names += list(self.SCF_NAMES)
         for i in range(n_ncdm):
             names += [f"rho_ncdm{i}", f"p_ncdm{i}", f"pseudo_p_ncdm{i}"]
         names += ["rho_tot", "p_tot", "p_tot_prime", "rho_crit", "Omega_m", "Omega_r",
@@ -81,6 +91,13 @@ class BackgroundResult(NamedTuple):
     Omega0_ur: float
     Omega0_ncdm_tot: float = 0.0
     rho_ncdm0: tuple = ()       # today's rho per ncdm species
+    # the scalar field's potential parameters after the shooting (the tuned
+    # entry scf_parameters[scf_tuning_index] included), the shooting's target
+    # Omega_scf and its walk: the tune values whose f it read, in order
+    # (bisection: lo, hi, then each midpoint; secant: each x)
+    scf_parameters: tuple = ()
+    scf_target: float = 0.0
+    scf_walk: tuple = ()
 
     def to(self, device) -> "BackgroundResult":
         return self._replace(loga=self.loga.to(device),
@@ -241,6 +258,247 @@ def growth_march(spl: UniformSpline, ts: torch.Tensor, aH: torch.Tensor, y0: tup
     return out[0], out[1]
 
 
+# --- scalar-field dark energy (background.py:281-363, :600-691) ------------
+
+SCF_TREE_LEVELS = 5  # bisection levels one scf_march launch evaluates on a card (31 midpoints)
+
+scf_launches = 0  # scf_march kernel launches (scf_march on CUDA tensors)
+
+
+def _scf_potential(phi, lam, alpha, A, B):
+    """(V, dV, ddV) of the CLASS quintessence potential V = V_e V_p, V_e =
+    exp(-lambda phi), V_p = (phi - B)^alpha + A (background_module.cpp:2065-2150)
+    with the reference's dV_e = -lambda V (the full V), as the JAX
+    `_scf_potential` (:281-299). phi: a tensor; the parameters: floats or
+    tensors that broadcast with it."""
+    alpha = torch.as_tensor(alpha, dtype=phi.dtype)
+    V_e = torch.exp(-lam * phi)
+    x = phi - B
+    ax = torch.abs(x)
+    off = alpha == 0.0
+    V_p = torch.where(off, 1.0, ax ** alpha) + A
+    V = V_e * V_p
+    dV_p = torch.where(off, 0.0, alpha * ax ** (alpha - 1.0) * torch.sign(x))
+    ddV_p = torch.where(off, 0.0, alpha * (alpha - 1.0) * ax ** (alpha - 2.0))
+    dV_e = -lam * V
+    ddV_e = lam * lam * V
+    dV = dV_e * V_p + V_e * dV_p
+    ddV = ddV_e * V_p + 2.0 * dV_e * dV_p + V_e * ddV_p
+    return V, dV, ddV
+
+
+class _Libm:
+    """Python floats and libm: the fast arithmetic of the plain march."""
+
+    num, exp, log, sqrt = float, math.exp, math.log, math.sqrt
+
+
+class _Ieee:
+    """numpy float64 scalars: IEEE arithmetic (inf and nan, no exceptions) for
+    a chain that overflows the Python float functions."""
+
+    num, exp, log, sqrt = np.float64, np.exp, np.log, np.sqrt
+
+
+def _scf_chain(coef, n: int, h: float, a0: float, c4, start, fl):
+    """One chain of the plain march in the arithmetic `fl`: the start
+    (JAX _integrate_scf :324-333) and the dependent RK4 sub-steps on the
+    coefficient rows `coef`, in the order of csrc/scf_march.cuh (`start`,
+    `potential`, `rhs`, `march`). Returns [(phi, phi')] at every node."""
+    lam, alpha, A, B = (fl.num(v) for v in c4)
+    rho_rad_ini, phi_ini, phi_prime_ini, attractor = start
+    exp = fl.exp
+
+    def V_p(ax):
+        return (1.0 if alpha == 0.0 else ax ** alpha) + A
+
+    def rhs(t, phi, phip):
+        V_e = exp(-lam * phi)
+        x = phi - B
+        ax = abs(x)
+        vp = V_p(ax)
+        V = V_e * vp
+        sgn = 1.0 if x > 0.0 else (-1.0 if x < 0.0 else 0.0)
+        dV_p = 0.0 if alpha == 0.0 else alpha * ax ** (alpha - 1.0) * sgn
+        dV = -lam * V * vp + V_e * dV_p
+        rho_s = (phip * phip / t[1] + V) / 3.0
+        e = t[3] + rho_s + t[4]
+        aH = t[0] * fl.sqrt(e if e > 1e-300 else 1e-300)
+        return phip / aH, (-2.0 * aH * phip - t[2] * dV) / aH
+
+    if attractor:
+        arg = rho_rad_ini * 4.0 / (3.0 * lam * lam - 12.0)
+        y0 = -1.0 / lam * fl.log(abs(arg)) * phi_ini if 3.0 * lam * lam - 12.0 > 0.0 \
+            else 1.0 / lam
+        y1 = 2.0 * a0 * fl.sqrt(abs(exp(-lam * y0) * V_p(abs(y0 - B)))) * phi_prime_ini
+    else:
+        y0, y1 = fl.num(phi_ini), fl.num(phi_prime_ini)
+    h2, h6 = h / 2.0, h / 6.0
+    Y = [(y0, y1)]
+    p = 0
+    for _ in range(n - 1):
+        for _ in range(2):
+            t0, t1, t2 = coef[p], coef[p + 1], coef[p + 2]
+            p += 3
+            k1 = rhs(t0, y0, y1)
+            k2 = rhs(t1, y0 + h2 * k1[0], y1 + h2 * k1[1])
+            k3 = rhs(t1, y0 + h2 * k2[0], y1 + h2 * k2[1])
+            k4 = rhs(t2, y0 + h * k3[0], y1 + h * k3[1])
+            y0 = y0 + h6 * (k1[0] + 2.0 * k2[0] + 2.0 * k3[0] + k4[0])
+            y1 = y1 + h6 * (k1[1] + 2.0 * k2[1] + 2.0 * k3[1] + k4[1])
+        Y.append((y0, y1))
+    return Y
+
+
+def scf_march_plain(p4, loga, a, lnrho, rhoK0: float, rho_rad_ini: float, phi_ini: float,
+                    phi_prime_ini: float, attractor: bool) -> torch.Tensor:
+    """Plain version of `scf_march`: the host RK4 loop of the JAX
+    `_integrate_scf` (:302-355), chain after chain, with the kernel's two
+    phases (the background at every sub-step time, then the dependent
+    sub-steps), in Python floats (libm), or for a chain that overflows them in
+    numpy float64 scalars. Returns (n_c, n, 2) (phi, phi') at every node as a
+    CPU tensor, whatever the device of the inputs."""
+    lg, av, lr = (t.cpu().tolist() for t in (loga, a, lnrho))
+    n = len(lg)
+    x_first, dx = lg[0], lg[1] - lg[0]
+    h = dx / 2.0
+    coef = []
+    for i in range(n - 1):
+        lga = x_first + float(i) * dx
+        for s in range(2):
+            x0 = lga + float(s) * h
+            for x in (x0, x0 + h / 2.0, x0 + h):
+                f = (x - x_first) / dx
+                j = min(max(int(math.floor(f)), 0), n - 2)
+                w = f - float(j)
+                aa = math.exp(x)
+                coef.append((aa, 2.0 * aa * aa, aa * aa,
+                             math.exp((1.0 - w) * lr[j] + w * lr[j + 1]), rhoK0 / (aa * aa)))
+    start = (rho_rad_ini, phi_ini, phi_prime_ini, attractor)
+    out = []
+    for c4 in p4.cpu().tolist():
+        try:
+            Y = _scf_chain(coef, n, h, av[0], c4, start, _Libm)
+        except (OverflowError, ValueError, ZeroDivisionError):
+            with np.errstate(all="ignore"):
+                Y = _scf_chain(coef, n, h, av[0], c4, start, _Ieee)
+        out.append(Y)
+    return torch.tensor(out, dtype=torch.float64)
+
+
+def scf_march(p4, loga, a, lnrho, rhoK0: float, rho_rad_ini: float, phi_ini: float,
+              phi_prime_ini: float, attractor: bool) -> torch.Tensor:
+    """phi and phi' = dphi/dtau at every node of the uniform ln a grid `loga`
+    ((n_c, n, 2)) for each of the n_c <= 32 potential parameter rows p4
+    ((n_c, 4): lambda, alpha, A, B), by RK4 with two sub-steps per interval
+    (JAX `_integrate_scf`, background.py:302-355) against the background
+    rho_base (its log `lnrho` at the nodes, interpolated linearly) and the
+    curvature rhoK0 = Omega_k H0^2. With `attractor`, phi_ini and
+    phi_prime_ini scale the attractor values (rho_rad_ini: the radiation
+    density at a[0]). CUDA tensors: one launch of the scf_march kernel; CPU
+    tensors: the plain version."""
+    global scf_launches
+    dev = loga.device
+    if dev.type == "cpu":
+        return scf_march_plain(p4, loga, a, lnrho, rhoK0, rho_rad_ini, phi_ini, phi_prime_ini,
+                               attractor)
+    if dev.type != "cuda":
+        raise ValueError(f"scf_march: unsupported device {dev}")
+    n, nc = loga.shape[0], p4.shape[0]
+    if p4.shape != (nc, 4) or not 1 <= nc <= 32 or a.shape != (n,) or lnrho.shape != (n,):
+        raise ValueError(f"scf_march: bad shapes p4 {tuple(p4.shape)} loga {tuple(loga.shape)} "
+                         f"a {tuple(a.shape)} lnrho {tuple(lnrho.shape)} (1 to 32 chains)")
+    for t in (p4, loga, a, lnrho):
+        if t.dtype != torch.float64 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"scf_march: every input must be contiguous float64 on {dev}")
+    lib = cuda.library()
+    coef = torch.empty((n - 1) * 2 * 3 * 5, dtype=torch.float64, device=dev)   # sm::coef_doubles
+    Y = torch.empty((nc, n, 2), dtype=torch.float64, device=dev)
+    err = lib.scf_march_launch(loga.data_ptr(), a.data_ptr(), lnrho.data_ptr(), n, float(rhoK0),
+                               p4.data_ptr(), nc, float(rho_rad_ini), float(phi_ini),
+                               float(phi_prime_ini), int(bool(attractor)), coef.data_ptr(),
+                               Y.data_ptr(), cuda.stream_ptr(dev))
+    cuda.check(err, "scf_march")
+    scf_launches += 1
+    return Y
+
+
+def _bisection_midpoints(lo: float, hi: float, levels: int) -> list:
+    """The midpoints of the next `levels` levels of the bisection tree below
+    [lo, hi], each computed as the sequential bisection computes it."""
+    if levels == 0:
+        return []
+    mid = 0.5 * (lo + hi)
+    return [mid] + _bisection_midpoints(lo, mid, levels - 1) \
+        + _bisection_midpoints(mid, hi, levels - 1)
+
+
+def scf_omega_err(march, pars0, ti: int, a_today: float, H0: float, target: float):
+    """f_of(tune values) -> f values of the shooting (JAX `omega_err`,
+    background.py:643-645): log(Omega_scf today / target) from the last node
+    of march(p4), p4 the (n, 4) potential rows of scf_parameters with entry
+    ti set to each tune value."""
+
+    def f_of(xs):
+        rows = []
+        for x in xs:
+            pp = list(pars0)
+            pp[ti] = x
+            rows.append(pp[:4])
+        p4 = torch.tensor(rows, dtype=torch.float64)
+        last = march(p4)[:, -1].cpu()
+        V = _scf_potential(last[:, 0], *p4.unbind(1))[0]
+        rho = (last[:, 1] * last[:, 1] / (2.0 * a_today * a_today) + V) / 3.0
+        return torch.log(rho / (H0 * H0) / target).tolist()
+
+    return f_of
+
+
+def shoot_scf(f_of, pars0, ti: int, target: float, attractor: bool, levels: int):
+    """The Omega_scf shooting of the JAX package (background.py:649-683) on
+    f_of(tune values) -> f values (scf_omega_err): with attractor initial
+    conditions and the tuning on lambda, a bisection on (2.0005,
+    max(30, 4 sqrt(3 / target))), whose tree is walked as JAX's loop walks it
+    (the |f| < 1e-10 break, 48 steps at most, the closer end when both ends
+    have one sign) with the midpoints of the next `levels` levels evaluated
+    together whenever the walk needs one it lacks; otherwise a secant from the
+    passed value, one shot at a time. Returns (the tuned value, the walk: the
+    tune values whose f it read, in order)."""
+    walk = []
+    if ti == 0 and attractor:
+        lo, hi = 2.0005, max(30.0, math.sqrt(3.0 / max(target, 1e-3)) * 4.0)
+        f_lo, f_hi = f_of([lo, hi])
+        walk += [lo, hi]
+        if f_lo * f_hi > 0:
+            return (lo if abs(f_lo) < abs(f_hi) else hi), walk
+        known = {}
+        for _ in range(48):
+            mid = 0.5 * (lo + hi)
+            if mid not in known:
+                xs = _bisection_midpoints(lo, hi, max(levels, 1))
+                known.update(zip(xs, f_of(xs)))
+            f_m = known[mid]
+            walk.append(mid)
+            if abs(f_m) < 1e-10:
+                break
+            if f_lo * f_m <= 0:
+                hi, f_hi = mid, f_m
+            else:
+                lo, f_lo = mid, f_m
+        return 0.5 * (lo + hi), walk
+    x0 = float(pars0[ti])
+    (f0,) = f_of([x0])
+    x1 = x0 * 1.02 + 1e-3
+    walk.append(x0)
+    for _ in range(30):
+        (f1,) = f_of([x1])
+        walk.append(x1)
+        if abs(f1) < 1e-9 or f1 == f0:
+            break
+        x0, f0, x1 = x1, f1, x1 - f1 * (x1 - x0) / (f1 - f0)
+    return x1, walk
+
+
 def compute_background(params: CosmoParams, pr: PrecisionParams,
                        device="cuda") -> tuple:
     """Build all background tables on the host, the growth march on `device`;
@@ -288,12 +546,65 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     rho_ncdm0 = tuple(float(r[-1]) for r in rho_ncdm)
     Omega0_ncdm_tot = sum(rho_ncdm0) / H0**2
 
-    Omega0_others = Omega0_g + Omega0_b + Omega0_cdm + Omega0_ur + Omega0_ncdm_tot
+    # --- scalar-field dark energy (background.py:600-691): the Klein-Gordon
+    # march (`scf_march`, one kernel launch a batch of shots on a card) inside
+    # the shooting of scf_parameters[scf_tuning_index] for Omega_scf today
+    has_scf = params.Omega_scf != 0.0
+    scf_pars, walk, target = (), [], 0.0
+    if has_scf:
+        base_all = rho_g + rho_b + rho_cdm + rho_ur
+        for i in range(n_ncdm):
+            base_all = base_all + rho_ncdm[i]
+        Omega0_pre = Omega0_g + Omega0_b + Omega0_cdm + Omega0_ur + Omega0_ncdm_tot
+        if params.Omega_scf > 0.0:
+            target = float(params.Omega_scf)
+            lam_budget = 1.0 - params.Omega_k - Omega0_pre - target
+        else:
+            # the field closes the budget (Omega_Lambda = 0)
+            lam_budget = 0.0
+            target = 1.0 - params.Omega_k - Omega0_pre
+        rho_rad_ini = float(rho_g[0] + rho_ur[0])
+        for i in range(n_ncdm):
+            rho_rad_ini += float(rho_ncdm[i][0])   # still relativistic at a[0]
+        pars0 = list(params.scf_parameters) or [10.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+        ti = params.scf_tuning_index
+        att = params.attractor_ic_scf
+        # with attractor ICs the trailing entries scale the attractor values
+        # and default to 1 (input_module.cpp:3201-3203)
+        phi_ini, phip_ini = (1.0, 1.0) if att else (pars0[-2], pars0[-1])
+        loga_d, a_d = loga.to(device), a.to(device)
+        lnrho_d = torch.log(base_all + lam_budget * H0**2).to(device)
+
+        def march(p4):
+            return scf_march(p4.to(device), loga_d, a_d, lnrho_d, params.Omega_k * (H0 * H0),
+                             rho_rad_ini, phi_ini, phip_ini, att)
+
+        levels = SCF_TREE_LEVELS if torch.device(device).type == "cuda" else 0
+        x1, walk = shoot_scf(scf_omega_err(march, pars0, ti, float(a[-1]), H0, target),
+                             pars0, ti, target, att, levels)
+        pp = list(pars0)
+        pp[ti] = x1
+        Y = march(torch.tensor([pp[:4]], dtype=f64))[0].cpu()
+        phi_scf, phi_prime_scf = Y[:, 0].contiguous(), Y[:, 1].contiguous()
+        scf_pars = tuple(float(v) for v in pars0[:ti]) + (x1,) \
+            + tuple(float(v) for v in pars0[ti + 1:])
+        V_scf, dV_scf, ddV_scf = _scf_potential(phi_scf, *scf_pars[:4])
+        kin = phi_prime_scf * phi_prime_scf / (2.0 * a * a)
+        rho_scf = (kin + V_scf) / 3.0
+        p_scf = (kin - V_scf) / 3.0
+        Omega0_scf = float(rho_scf[-1]) / H0**2
+    else:
+        Omega0_scf = 0.0
+
+    Omega0_others = Omega0_g + Omega0_b + Omega0_cdm + Omega0_ur + Omega0_ncdm_tot + Omega0_scf
     Omega0_lambda = 1.0 - params.Omega_k - Omega0_others
     rho_lambda = torch.full_like(a, Omega0_lambda * H0**2)
 
     rho_tot = rho_g + rho_b + rho_cdm + rho_ur + rho_lambda
     p_tot = (rho_g + rho_ur) / 3.0 - rho_lambda
+    if has_scf:
+        rho_tot = rho_tot + rho_scf
+        p_tot = p_tot + p_scf
     for i in range(n_ncdm):
         rho_tot = rho_tot + rho_ncdm[i]
         p_tot = p_tot + p_ncdm[i]
@@ -303,6 +614,10 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     aH = a * H
     H_prime = -1.5 * a * (rho_tot + p_tot) - params.Omega_k * H0**2 / a
     p_tot_prime = -(4.0 / 3.0) * aH * (rho_g + rho_ur)
+    if has_scf:
+        # p_scf' = phi'(-phi' H/a - 2/3 dV) (background_functions :564-568)
+        p_tot_prime = p_tot_prime + phi_prime_scf * (-phi_prime_scf * H / a
+                                                     - 2.0 / 3.0 * dV_scf)
     for i in range(n_ncdm):
         # dp_ncdm/dtau = aH (pseudo_p - 5 p)  (tools/non_cold_dark_matter.cpp)
         p_tot_prime = p_tot_prime + aH * (pp_ncdm[i] - 5.0 * p_ncdm[i])
@@ -344,6 +659,11 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     # --- z_eq (radiation-matter equality)
     rho_r_tot = rho_g + rho_ur
     rho_m_tot = rho_b + rho_cdm
+    if has_scf:
+        # the field's pressure counts as radiation, the rest as matter
+        # (background_functions :364-365)
+        rho_r_tot = rho_r_tot + 3.0 * p_scf
+        rho_m_tot = rho_m_tot + (rho_scf - 3.0 * p_scf)
     for i in range(n_ncdm):
         rho_r_tot = rho_r_tot + 3.0 * p_ncdm[i]
         rho_m_tot = rho_m_tot + (rho_ncdm[i] - 3.0 * p_ncdm[i])
@@ -354,7 +674,7 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     z_eq = float(torch.exp(-loga_eq) - 1.0)
     tau_eq = float(interp(loga_eq, loga, tau))
 
-    idx = BgIdx(n_ncdm)
+    idx = BgIdx(n_ncdm, has_scf)
     cols = {
         "a": a, "H": H, "H_prime": H_prime,
         "rho_g": rho_g, "rho_b": rho_b, "rho_cdm": rho_cdm,
@@ -366,6 +686,9 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
         "lum_distance": lum_distance,
         "time": t / const.Gyr_over_Mpc, "rs": rs, "D": D, "f": f,
     }
+    if has_scf:
+        cols.update(rho_scf=rho_scf, p_scf=p_scf, phi_scf=phi_scf, phi_prime_scf=phi_prime_scf,
+                    V_scf=V_scf, dV_scf=dV_scf, ddV_scf=ddV_scf)
     for i in range(n_ncdm):
         cols[f"rho_ncdm{i}"] = rho_ncdm[i]
         cols[f"p_ncdm{i}"] = p_ncdm[i]
@@ -389,7 +712,8 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
         Omega0_m=Omega0_b + Omega0_cdm + Omega0_ncdm_tot, Omega0_r=Omega0_g + Omega0_ur,
         Omega0_g=Omega0_g, Omega0_b=Omega0_b, Omega0_cdm=Omega0_cdm,
         Omega0_lambda=Omega0_lambda, Omega0_ur=Omega0_ur,
-        Omega0_ncdm_tot=Omega0_ncdm_tot, rho_ncdm0=rho_ncdm0)
+        Omega0_ncdm_tot=Omega0_ncdm_tot, rho_ncdm0=rho_ncdm0, scf_parameters=scf_pars,
+        scf_target=target, scf_walk=tuple(walk))
     return res, idx
 
 

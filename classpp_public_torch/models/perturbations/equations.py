@@ -9,7 +9,8 @@ Counterpart of classpp_public_tpu/models/perturbations/equations.py
 `remap_tca_off` :1421, `remap_ufa_on` :1448, `remap_ncdmfa_on` :1456,
 `remap_rsa_on` :1482, `compute_sources` :1501), restricted to photons,
 polarization, baryons, cdm, massless neutrinos, massive neutrinos (ncdm: the
-Psi_l(q) hierarchy on a shared momentum grid, or its fluid approximation) and
+Psi_l(q) hierarchy on a shared momentum grid, or its fluid approximation), in
+the synchronous gauge a quintessence scalar field (delta phi, delta phi') and
 the metric, in open, flat and closed universes, in the synchronous or the
 Newtonian gauge. The curvature enters through the free-streaming factors
 s_l = sqrt(1 - K (l^2 - 1)/k^2), s2 = 1 - 3 K/k^2 and cotKgen =
@@ -42,6 +43,8 @@ from .indices import PtIdx, SrcIdx
 BG_COLS = ("a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm", "rho_ur",
            "rho_tot", "p_tot", "p_tot_prime")
 TH_COLS = ("dkappa", "ddkappa", "g", "dg", "exp_m_kappa", "cb2")
+# the scalar field's background columns, after the ncdm ones (Frame.scf)
+SCF_COLS = ("rho_scf", "phi_prime_scf", "dV_scf", "ddV_scf")
 # the initial conditions; a lane's IC code is its index here (PertCtx.ic)
 IC_KINDS = ("ad", "bi", "cdi", "nid", "niv")
 
@@ -97,13 +100,17 @@ class Frame(NamedTuple):
     rho_nc: torch.Tensor = None   # (L, ns) per ncdm species
     p_nc: torch.Tensor = None
     pp_nc: torch.Tensor = None
+    scf: tuple = None             # SCF_COLS per lane, with a scalar field
 
 
 def make_tables(bg, bidx, th, idx: PtIdx, ncdm: NcdmCtx = None, K: float = 0.0) -> PertTables:
-    """Restrict the runtime splines to BG_COLS (+ ncdm columns) / TH_COLS."""
+    """Restrict the runtime splines to BG_COLS (+ ncdm columns, + SCF_COLS) /
+    TH_COLS."""
     bi = [bidx[n] for n in BG_COLS]
     for i in range(idx.n_ncdm):
         bi += [bidx[f"rho_ncdm{i}"], bidx[f"p_ncdm{i}"], bidx[f"pseudo_p_ncdm{i}"]]
+    if idx.has_scf:
+        bi += [bidx[n] for n in SCF_COLS]
     ti = [ThIdx.ix[n] for n in TH_COLS]
     b, t = bg.lntau_spline, th.lntau_spline
     return PertTables(
@@ -116,9 +123,11 @@ def frame_at(tau: torch.Tensor, tables: PertTables) -> Frame:
     lntau = torch.log(tau)
     bgv = tables.bg.eval(lntau)
     thv = tables.th.eval(lntau).unbind(-1)
-    nb = len(BG_COLS)
-    nc = bgv[:, nb:].reshape(bgv.shape[0], -1, 3).unbind(-1) if tables.idx.n_ncdm else ()
-    return Frame(tau, *bgv[:, :nb].unbind(-1), *thv, *nc)
+    nb, idx = len(BG_COLS), tables.idx
+    ne = nb + 3 * idx.n_ncdm
+    nc = bgv[:, nb:ne].reshape(bgv.shape[0], -1, 3).unbind(-1) if idx.n_ncdm else (None,) * 3
+    scf = bgv[:, ne:].unbind(-1) if idx.has_scf else None
+    return Frame(tau, *bgv[:, :nb].unbind(-1), *thv, *nc, scf)
 
 
 class PertCtx(NamedTuple):
@@ -135,6 +144,7 @@ class PertCtx(NamedTuple):
     tables: PertTables
     ncdmfa_on: torch.Tensor = None   # ncdm fluid approximation (bool)
     ic: torch.Tensor = None          # IC_KINDS index per lane (int)
+    kf: "KFactors" = None            # the lanes' k-only factors (k_factors), or computed per call
 
 
 def _ncdm_moments(fr: Frame, y: torch.Tensor, ctx: PertCtx):
@@ -160,13 +170,75 @@ def _w(cond, a, b):
     return torch.where(cond, a, b)
 
 
-class Curvature(NamedTuple):
-    """The curvature factors of the equations at (k, tau) per lane
-    (equations.py:257-272; perturb_workspace :2532 s_l, :7966 cotKgen, :5856
-    s2_squared)."""
+class Hierarchy(NamedTuple):
+    """The k-only factors of one hierarchy's free streaming over its
+    multipoles l, per lane (L, nl): s_l, s_{l+1}, l s_l, (l + 1) s_{l+1} and
+    k/(2 l + 1) (for ncdm, whose factor is q k/eps, 2 l + 1 alone)."""
 
-    s2: torch.Tensor        # s_l[2]^2 = 1 - 3 K/k^2
-    s_of_l: object          # l -> s_l = sqrt(max(1 - K (l^2 - 1)/k^2, 0)), (L, nl)
+    sl: torch.Tensor
+    sl1: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    kd: torch.Tensor
+
+
+class KFactors(NamedTuple):
+    """The factors of the equations that depend on k alone, per lane
+    (equations.py:257-272; perturb_workspace :2532 s_l, :5856 s2_squared): s2
+    = s_l[2]^2 = 1 - 3 K/k^2, s_l2, s_l3, and each hierarchy's, with s_l =
+    sqrt(max(1 - K (l^2 - 1)/k^2, 0)). The plain integrator computes them
+    once for its lanes (`k_factors`), not at every right-hand side; each is
+    the expression it stands for, so that it rounds alike."""
+
+    s2: torch.Tensor
+    s_l2: torch.Tensor
+    s_l3: torch.Tensor
+    g: Hierarchy           # photons, l = 3..l_max_g
+    p: Hierarchy           # polarization, l = 0..l_max_pol_g
+    u: Hierarchy           # massless neutrinos, l = 3..l_max_ur
+    n: Hierarchy = None    # ncdm, l = 0..l_max_ncdm
+
+
+def _s_of_l(k2: torch.Tensor, K: float):
+    """l -> s_l = sqrt(max(1 - K (l^2 - 1)/k^2, 0)) per lane, (L, nl)."""
+    def s_of_l(lv):
+        return torch.sqrt(torch.clamp(1.0 - K * (lv * lv - 1.0) / k2[:, None], min=0.0))
+    return s_of_l
+
+
+def k_factors(k: torch.Tensor, K: float, idx: PtIdx) -> KFactors:
+    k2 = k * k
+    s_of_l = _s_of_l(k2, K)
+
+    def hier(l0, l1, ncdm=False):
+        lv = torch.arange(l0, l1 + 1, dtype=k.dtype, device=k.device)
+        sl, sl1 = s_of_l(lv), s_of_l(lv + 1.0)
+        return Hierarchy(sl, sl1, lv * sl, (lv + 1.0) * sl1,
+                         2.0 * lv + 1.0 if ncdm else k[:, None] / (2.0 * lv + 1.0))
+
+    s2 = 1.0 - 3.0 * K / k2
+    return KFactors(s2, torch.sqrt(torch.clamp(s2, min=0.0)),
+                    torch.sqrt(torch.clamp(1.0 - K * 8.0 / k2, min=0.0)),
+                    hier(3, idx.l_max_g), hier(0, idx.l_max_pol_g), hier(3, idx.l_max_ur),
+                    hier(0, idx.n_l_ncdm - 1, True) if idx.n_ncdm else None)
+
+
+def cot_kgen(k: torch.Tensor, tau: torch.Tensor, K: float, sgnK: int) -> torch.Tensor:
+    """sqrt|K| cot_K(sqrt|K| tau) / k per lane (perturb_workspace :7966);
+    1/(k tau) when flat."""
+    if sgnK == 0:
+        return 1.0 / (k * tau)
+    sab = math.sqrt(abs(K))
+    tanK = torch.tan(sab * tau) if sgnK > 0 else torch.tanh(sab * tau)
+    return sab / (k * tanK)
+
+
+class Curvature(NamedTuple):
+    """The curvature factors at (k, tau) per lane, with s_l as a function of
+    l (the tensor integrator's hierarchies)."""
+
+    s2: torch.Tensor
+    s_of_l: object
     s_l2: torch.Tensor
     s_l3: torch.Tensor
     cotKgen: torch.Tensor
@@ -174,23 +246,19 @@ class Curvature(NamedTuple):
 
 def curvature(k: torch.Tensor, tau: torch.Tensor, K: float, sgnK: int) -> Curvature:
     k2 = k * k
-
-    def s_of_l(lv):
-        return torch.sqrt(torch.clamp(1.0 - K * (lv * lv - 1.0) / k2[:, None], min=0.0))
-
     s2 = 1.0 - 3.0 * K / k2
-    if sgnK == 0:
-        cotKgen = 1.0 / (k * tau)
-    else:
-        sab = math.sqrt(abs(K))
-        tanK = torch.tan(sab * tau) if sgnK > 0 else torch.tanh(sab * tau)
-        cotKgen = sab / (k * tanK)
-    return Curvature(s2, s_of_l, torch.sqrt(torch.clamp(s2, min=0.0)),
-                     torch.sqrt(torch.clamp(1.0 - K * 8.0 / k2, min=0.0)), cotKgen)
+    return Curvature(s2, _s_of_l(k2, K), torch.sqrt(torch.clamp(s2, min=0.0)),
+                     torch.sqrt(torch.clamp(1.0 - K * 8.0 / k2, min=0.0)),
+                     cot_kgen(k, tau, K, sgnK))
 
 
-def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
-    """dy/dtau (L, n) plus the local quantities the sources need."""
+def _kf(ctx: PertCtx) -> KFactors:
+    return ctx.kf if ctx.kf is not None else k_factors(ctx.k, ctx.tables.K, ctx.tables.idx)
+
+
+def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx, want_loc: bool = True):
+    """dy/dtau (L, n) plus the local quantities the sources need (None
+    without `want_loc`: what only they read is then not computed)."""
     idx = ctx.tables.idx
     k = ctx.k
     k2 = k * k
@@ -204,8 +272,9 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     aH_prime = Hp * a + aH * aH
     R = 4.0 / 3.0 * rho_g / rho_b
     K = ctx.tables.K
-    cv = curvature(k, tau, K, idx.sgnK)
-    s2, s_l2, s_l3, cotKgen = cv.s2, cv.s_l2, cv.s_l3, cv.cotKgen
+    kf = _kf(ctx)
+    s2, s_l2, s_l3 = kf.s2, kf.s_l2, kf.s_l3
+    cotKgen = cot_kgen(k, tau, K, idx.sgnK)
     tca, rsa, ufa = ctx.tca_on, ctx.rsa_on, ctx.ufa_on
     zero = torch.zeros_like(k)
 
@@ -250,12 +319,24 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     delta_rho = rho_g * d_g + rho_b * delta_b + rho_cdm * delta_cdm + rho_ur * d_ur
     rho_plus_p_theta = 4.0 / 3.0 * rho_g * t_g + rho_b * theta_b + 4.0 / 3.0 * rho_ur * t_ur
     rho_plus_p_shear = 4.0 / 3.0 * rho_g * s_g + 4.0 / 3.0 * rho_ur * s_ur
-    delta_p = 1.0 / 3.0 * rho_g * d_g + cb2 * rho_b * delta_b + 1.0 / 3.0 * rho_ur * d_ur
+    if want_loc:
+        delta_p = 1.0 / 3.0 * rho_g * d_g + cb2 * rho_b * delta_b + 1.0 / 3.0 * rho_ur * d_ur
     if idx.n_ncdm:
         delta_rho = delta_rho + rho_delta_nc.sum(dim=1)
         rho_plus_p_theta = rho_plus_p_theta + rpt_nc.sum(dim=1)
         rho_plus_p_shear = rho_plus_p_shear + rps_nc.sum(dim=1)
-        delta_p = delta_p + dp_nc.sum(dim=1)
+        if want_loc:
+            delta_p = delta_p + dp_nc.sum(dim=1)
+    if idx.has_scf:
+        # the scalar field's stress-energy, synchronous gauge
+        # (perturb_total_stress_energy :6438-6476; equations.py:395-410)
+        dphi_scf = y[:, idx.phi_scf_pt]
+        dphip_scf = y[:, idx.phi_prime_scf_pt]
+        rho_scf, phip_scf_bg, dV_scf_bg, ddV_scf_bg = fr.scf
+        delta_rho = delta_rho + (phip_scf_bg * dphip_scf / a2 + dV_scf_bg * dphi_scf) / 3.0
+        rho_plus_p_theta = rho_plus_p_theta + k2 / a2 * phip_scf_bg * dphi_scf / 3.0
+        if want_loc:
+            delta_p = delta_p + (phip_scf_bg * dphip_scf / a2 - dV_scf_bg * dphi_scf) / 3.0
 
     if newt:
         # Einstein equations, Newtonian gauge (perturb_einstein :5870-5905):
@@ -310,10 +391,11 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         metric_continuity = 0.5 * h_prime
         metric_shear = k2 * alpha
         metric_shear_prime = k2 * alpha_prime
-        phi = eta - aH * alpha
-        psi = aH * alpha + alpha_prime
-        phi_prime = eta_prime - aH_prime * alpha - aH * alpha_prime
-        phi_plus_psi = eta + alpha_prime
+        if want_loc:
+            phi = eta - aH * alpha
+            psi = aH * alpha + alpha_prime
+            phi_prime = eta_prime - aH_prime * alpha - aH * alpha_prime
+            phi_plus_psi = eta + alpha_prime
         metric_ufa = metric_continuity
 
     d_g = _w(rsa, rsa_delta_g, delta_g)
@@ -369,7 +451,6 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     dy[:, idx.theta_g] = _w(rsa, zero, _w(tca, theta_g_prime_tca, theta_g_prime_full))
 
     hier_on = (~(tca | rsa))[:, None]
-    kc = k[:, None]
     kapc = kap[:, None]
     d_shear_g = 0.5 * (8.0 / 15.0 * (theta_g + metric_shear)
                        - 3.0 / 5.0 * k * s_l3 / s_l2 * F_g[:, 0]
@@ -379,26 +460,24 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     # photon moments l = 3..l_max_g (perturb_derivs :8152-8215): the l
     # couplings carry s_l, and F_2 enters the l = 3 equation as 2 s_2 shear_g
     lmax_g = idx.l_max_g
-    ls = torch.arange(3, lmax_g + 1, dtype=y.dtype, device=y.device)
-    sl_g, sl_g_p1 = cv.s_of_l(ls), cv.s_of_l(ls + 1.0)
+    hg = kf.g
     F_lm1 = torch.cat([(2.0 * s_l2 * shear_g)[:, None], F_g[:, :-1]], dim=1)
     F_lp1 = torch.cat([F_g[:, 1:], zero[:, None]], dim=1)
-    dF = kc / (2.0 * ls + 1.0) * (ls * sl_g * F_lm1 - (ls + 1.0) * sl_g_p1 * F_lp1) - kapc * F_g
-    dF[:, -1] = k * (sl_g[:, -1] * F_g[:, -2] - (lmax_g + 1.0) * cotKgen * F_g[:, -1]) \
+    dF = hg.kd * (hg.lo * F_lm1 - hg.hi * F_lp1) - kapc * F_g
+    dF[:, -1] = k * (hg.sl[:, -1] * F_g[:, -2] - (lmax_g + 1.0) * cotKgen * F_g[:, -1]) \
         - kap * F_g[:, -1]
     dy[:, idx.F_g: idx.F_g + idx.n_F_g] = _w(hier_on, dF, 0.0)
 
     # polarization l = 0..l_max_pol_g (:8180-8213)
     lmax_p = idx.l_max_pol_g
-    lp = torch.arange(0, lmax_p + 1, dtype=y.dtype, device=y.device)
-    sl_p, sl_p_p1 = cv.s_of_l(lp), cv.s_of_l(lp + 1.0)
+    hp = kf.p
     G_lm1 = torch.cat([zero[:, None], G[:, :-1]], dim=1)
     G_lp1 = torch.cat([G[:, 1:], zero[:, None]], dim=1)
-    dG = kc / (2.0 * lp + 1.0) * (lp * sl_p * G_lm1 - (lp + 1.0) * sl_p_p1 * G_lp1) - kapc * G
+    dG = hp.kd * (hp.lo * G_lm1 - hp.hi * G_lp1) - kapc * G
     dG[:, 0] = -k * G[:, 1] - kap * (G[:, 0] - 4.0 * P0)
     dG[:, 2] = k / 5.0 * (2.0 * s_l2 * G[:, 1] - 3.0 * s_l3 * G[:, 3]) \
         - kap * (G[:, 2] - 4.0 / 5.0 * P0)
-    dG[:, -1] = k * (sl_p[:, -1] * G[:, -2] - (lmax_p + 1.0) * cotKgen * G[:, -1]) \
+    dG[:, -1] = k * (hp.sl[:, -1] * G[:, -2] - (lmax_p + 1.0) * cotKgen * G[:, -1]) \
         - kap * G[:, -1]
     dy[:, idx.G_g: idx.G_g + idx.n_G_g] = _w(hier_on, dG, 0.0)
 
@@ -422,12 +501,11 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
     d_shear_ur_ufa = -3.0 / tau * shear_ur + 2.0 / 3.0 * (theta_ur + metric_ufa)
     dy[:, idx.shear_ur] = _w(ur_on, _w(ufa, d_shear_ur_ufa, d_shear_ur_full), zero)
     lmax_u = idx.l_max_ur
-    lu = torch.arange(3, lmax_u + 1, dtype=y.dtype, device=y.device)
-    sl_u, sl_u_p1 = cv.s_of_l(lu), cv.s_of_l(lu + 1.0)
+    hu = kf.u
     Fu_lm1 = torch.cat([(2.0 * s_l2 * shear_ur)[:, None], F_ur[:, :-1]], dim=1)
     Fu_lp1 = torch.cat([F_ur[:, 1:], zero[:, None]], dim=1)
-    dFu = kc / (2.0 * lu + 1.0) * (lu * sl_u * Fu_lm1 - (lu + 1.0) * sl_u_p1 * Fu_lp1)
-    dFu[:, -1] = k * (sl_u[:, -1] * F_ur[:, -2] - (lmax_u + 1.0) * cotKgen * F_ur[:, -1])
+    dFu = hu.kd * (hu.lo * Fu_lm1 - hu.hi * Fu_lp1)
+    dFu[:, -1] = k * (hu.sl[:, -1] * F_ur[:, -2] - (lmax_u + 1.0) * cotKgen * F_ur[:, -1])
     dy[:, idx.F_ur: idx.F_ur + idx.n_F_ur] = _w((ur_on & ~ufa)[:, None], dFu, 0.0)
 
     # ncdm (perturb_derivs :8725-8894)
@@ -436,12 +514,12 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         nl = idx.n_l_ncdm
         qk_eps = (k[:, None, None] * nc.q[None, None, :] / eps_nc)[..., None]   # (L, ns, nq, 1)
         dl0 = nc.dlnf0[None]
-        ln_ = torch.arange(0, nl, dtype=y.dtype, device=y.device)
-        sl_n, sl_n_p1 = cv.s_of_l(ln_)[:, None, None, :], cv.s_of_l(ln_ + 1.0)[:, None, None, :]
+        hn = kf.n
         zcol = torch.zeros_like(Psi[..., :1])
         Ps_m1 = torch.cat([zcol, Psi[..., :-1]], dim=-1)
         Ps_p1 = torch.cat([Psi[..., 1:], zcol], dim=-1)
-        dPsi = qk_eps / (2.0 * ln_ + 1.0) * (ln_ * sl_n * Ps_m1 - (ln_ + 1.0) * sl_n_p1 * Ps_p1)
+        dPsi = qk_eps / hn.kd * (hn.lo[:, None, None, :] * Ps_m1
+                                 - hn.hi[:, None, None, :] * Ps_p1)
         dPsi[..., 0] = -qk_eps[..., 0] * Psi[..., 1] \
             + metric_continuity[:, None, None] * dl0 / 3.0
         if newt:
@@ -470,7 +548,14 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         dPsi = _w(ctx.ncdmfa_on[:, None, None, None], dPsi_fl, dPsi)
         dy[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block] = dPsi.reshape(y.shape[0], -1)
 
+    if idx.has_scf:
+        # Klein-Gordon (perturb_derivs :8556-8570; equations.py:847-851)
+        dy[:, idx.phi_scf_pt] = dphip_scf
+        dy[:, idx.phi_prime_scf_pt] = (-2.0 * aH * dphip_scf - metric_continuity * phip_scf_bg
+                                       - (k2 + a2 * ddV_scf_bg) * dphi_scf)
     dy[:, idx.eta] = eta_prime
+    if not want_loc:
+        return dy, None
 
     # gauge-invariant matter variables (perturb_einstein :5986-6006); in the
     # Newtonian gauge alpha = 0 and the cdm velocity enters the sums
@@ -492,6 +577,8 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
         rho_tot_species = rho_tot_species + sum_rho_nc
     else:
         delta_m, theta_m, delta_nc, theta_nc = delta_cb, theta_cb, zero, zero
+    if idx.has_scf:
+        rho_tot_species = rho_tot_species + rho_scf   # (equations.py:928-929)
     P = _w(rsa, zero, _w(tca, 5.0 * s_l2 * tca_shear_g / 8.0, P0))
     rpp_tot = fr.rho_tot + fr.p_tot
     loc = dict(
@@ -511,7 +598,7 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx):
 
 
 def rhs(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
-    return rhs_full(fr, y, ctx)[0]
+    return rhs_full(fr, y, ctx, want_loc=False)[0]
 
 
 # --- stiff (Thomson-drag) split for the IMEX evolver ------------------------
@@ -530,7 +617,9 @@ def _stiff_kap(fr: Frame, ctx: PertCtx):
 
 
 def _s_l2(ctx: PertCtx) -> torch.Tensor:
-    """s_l[2] per lane (equations.py:1012-1014), as `curvature` computes it."""
+    """s_l[2] per lane (equations.py:1012-1014), as `k_factors` computes it."""
+    if ctx.kf is not None:
+        return ctx.kf.s_l2
     return torch.sqrt(torch.clamp(1.0 - 3.0 * ctx.tables.K / (ctx.k * ctx.k), min=0.0))
 
 
@@ -789,8 +878,8 @@ def remap_tca_off(y: torch.Tensor, fr: Frame, ctx: PertCtx) -> torch.Tensor:
     idx = ctx.tables.idx
     _, loc = rhs_full(fr, y, ctx._replace(tca_on=torch.ones_like(ctx.tca_on)))
     kk = ctx.k / fr.kap
-    cv = curvature(ctx.k, fr.tau, ctx.tables.K, idx.sgnK)
-    s_l2, s_l3 = cv.s_l2, cv.s_l3
+    kf = _kf(ctx)
+    s_l2, s_l3 = kf.s_l2, kf.s_l3
     shear_g = 8.0 / 5.0 * loc["P"] / s_l2      # P = 5 s_2 shear_g / 8 under TCA
     y = y.clone()
     y[:, idx.shear_g] = shear_g

@@ -4,7 +4,8 @@ classpp_public_tpu/models/perturbations/indices.py).
 One fixed maximal layout: slots inactive under the current approximation
 carry zero derivative and are re-initialised by a remap at the switch. The
 port holds the LambdaCDM + ur layout in the synchronous or the Newtonian
-gauge (open, flat or closed) plus the ncdm phase-space block; the other
+gauge (open, flat or closed) plus the ncdm phase-space block and, in the
+synchronous gauge, the scalar field's (delta phi, delta phi'); the other
 species' flags of the JAX PtIdx raise.
 """
 
@@ -42,8 +43,7 @@ class PtIdx:
     nbody: bool = False
 
     # the JAX line of each species flag that is not ported
-    _NOT_PORTED = {"has_fld": 35, "has_dcdm": 45, "has_scf": 51, "has_idm_dr": 56,
-                   "nbody": 89}
+    _NOT_PORTED = {"has_fld": 35, "has_dcdm": 45, "has_idm_dr": 56, "nbody": 89}
 
     def __post_init__(self):
         for name, line in self._NOT_PORTED.items():
@@ -53,6 +53,10 @@ class PtIdx:
                     f"(classpp_public_tpu/models/perturbations/indices.py:{line})")
         if self.gauge not in ("synchronous", "newtonian"):
             raise ValueError(f"unknown gauge {self.gauge!r}")
+        if self.has_scf and self.gauge == "newtonian":
+            raise NotImplementedError(
+                "scalar-field dark energy in the Newtonian gauge is not ported "
+                "(classpp_public_tpu/models/perturbations/equations.py:401-407, :1374-1385)")
 
     delta_g = 0
     theta_g = 1
@@ -126,9 +130,23 @@ class PtIdx:
     def n_ncdm_block(self):
         return self.n_ncdm * self.q_size_ncdm * self.n_l_ncdm
 
+    # scalar-field dark energy: delta phi and its conformal derivative
+    # (indices.py:258-269), after the ncdm block
+    @property
+    def phi_scf_pt(self):
+        return self.ncdm + self.n_ncdm_block
+
+    @property
+    def phi_prime_scf_pt(self):
+        return self.phi_scf_pt + 1
+
+    @property
+    def n_scf(self):
+        return 2 if self.has_scf else 0
+
     @property
     def eta(self):
-        return self.ncdm + self.n_ncdm_block
+        return self.ncdm + self.n_ncdm_block + self.n_scf
 
     @property
     def size(self):

@@ -25,7 +25,10 @@ only every `SYNC_EVERY` iterations, to stop, drop finished lanes and skip the
 TCA remap once no lane can cross that switch any more.
 
 The gauge is the layout's (`PtIdx.gauge`): the kernel runs its synchronous or
-its Newtonian instance, the plain version the same equations. In the
+its Newtonian instance, the plain version the same equations; a layout with a
+scalar field (`PtIdx.has_scf`, synchronous only) runs the kernel's scf
+instance, whose (delta phi, delta phi') rows are not radiation rows and so
+keep the tight rtol on the P(k) tail, as in JAX solve.py:614-620. In the
 Newtonian gauge no lane stores eta - 1 (`_eta_off`) and the P(k)-tail lanes
 keep the CMB tolerances (`_tolerances`).
 
@@ -113,10 +116,10 @@ class PerturbResult(NamedTuple):
     sources_iso: dict = None   # {ic: (nk, ntau, SrcIdx.n)} isocurvature modes, in ics order
 
 
-def _ctx(lanes: Lanes, t, eta_off, tables, ic=None):
+def _ctx(lanes: Lanes, t, eta_off, tables, ic=None, kf=None):
     return eq.PertCtx(k=lanes.k, tca_on=t < lanes.t_tca, rsa_on=t >= lanes.t_rsa,
                       ufa_on=t >= lanes.t_ufa, eta_off=eta_off, tables=tables,
-                      ncdmfa_on=t >= lanes.t_ncfa, ic=ic)
+                      ncdmfa_on=t >= lanes.t_ncfa, ic=ic, kf=kf)
 
 
 def curvature_of(params: CosmoParams, bg) -> tuple:
@@ -154,8 +157,9 @@ class _LaneState:
         return Lanes(self.k, self.tau_ini, self.t_tca, self.t_ufa, self.t_rsa, self.t_ncfa)
 
 
-def _step(s: _LaneState, tables, taus_ext, Yflat, ntau: int, need_tca: bool):
-    """One adaptive step of every lane, in place (solve.py:268-312)."""
+def _step(s: _LaneState, tables, taus_ext, Yflat, ntau: int, need_tca: bool, kf=None):
+    """One adaptive step of every lane, in place (solve.py:268-312); kf: the
+    lanes' eq.k_factors."""
     ln = s.lanes()
     t, y, h, j, done = s.t, s.y, s.h, s.j, s.done
     sw = torch.stack([ln.t_tca, ln.t_ufa, ln.t_rsa, ln.t_ncfa], dim=1)
@@ -163,7 +167,7 @@ def _step(s: _LaneState, tables, taus_ext, Yflat, ntau: int, need_tca: bool):
     cand = torch.where(sw > (t * (1.0 + 1e-14))[:, None], sw, torch.inf)
     t_stop = torch.minimum(cand.min(dim=1).values, t_b)
     h_eff = torch.minimum(h, t_stop - t)
-    ctx = _ctx(ln, t, s.eta_off, tables)
+    ctx = _ctx(ln, t, s.eta_off, tables, kf=kf)
     y_new, err, k1 = ark43_step(
         lambda fr, yy: eq.rhs(fr, yy, ctx), lambda fr, yy: eq.stiff_apply(fr, yy, ctx),
         lambda fr, gh, r: eq.stiff_solve(fr, gh, r, ctx), t, y, h_eff, ctx,
@@ -181,13 +185,13 @@ def _step(s: _LaneState, tables, taus_ext, Yflat, ntau: int, need_tca: bool):
     crossed = accept[:, None] & (t_new[:, None] >= sw) & (t[:, None] < sw)
     if need_tca:
         remapped = eq.remap_tca_off(y_out, eq.frame_at(t_new, tables),
-                                    _ctx(ln, t_new, s.eta_off, tables))
+                                    _ctx(ln, t_new, s.eta_off, tables, kf=kf))
         y_out = torch.where(crossed[:, 0:1], remapped, y_out)
     y_out = eq.remap_ufa_on(y_out, tables.idx, crossed[:, 1])
     y_out = eq.remap_rsa_on(y_out, tables.idx, crossed[:, 2])
     if tables.idx.n_ncdm:
         y_out = eq.remap_ncdmfa_on(y_out, eq.frame_at(t_new, tables),
-                                   _ctx(ln, t_new, s.eta_off, tables), crossed[:, 3])
+                                   _ctx(ln, t_new, s.eta_off, tables, kf=kf), crossed[:, 3])
     # a lane that reaches its next sample stores its state there; the others
     # write to their spare slot
     arrived = live & (t_new >= t_b * (1.0 - 1e-15))
@@ -248,7 +252,9 @@ def integrate_sources_plain(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTab
     run, it = None, 0
     while True:
         if run is None:
-            run, taken = _runner(lambda: _step(s, tables, taus_ext, Yflat, ntau, need_tca),
+            # the k-only factors of the live lanes, once for the step's graph
+            kf = eq.k_factors(s.k, tables.K, tables.idx)
+            run, taken = _runner(lambda: _step(s, tables, taus_ext, Yflat, ntau, need_tca, kf),
                                  on_card)
             it += taken
         run()
@@ -286,18 +292,20 @@ def integrate_sources_plain(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTab
     return S, nsteps_all
 
 
-LAYOUT_INTS = 22   # pk::kLayoutInts
+LAYOUT_INTS = 23   # pk::kLayoutInts
 GAUGES = {"synchronous": 0, "newtonian": 1}   # the kernel's gauge argument
 
 
 def _layout_ints(idx: PtIdx) -> list:
     """PtIdx as the int fields of the kernel's pk::Layout, in its order
-    (theta_cdm -1 in the synchronous gauge, which has no such slot)."""
+    (theta_cdm -1 in the synchronous gauge, which has no such slot; phi_scf
+    -1 without a scalar field)."""
     return [idx.size, idx.delta_g, idx.theta_g, idx.shear_g, idx.F_g, idx.n_F_g,
             idx.G_g, idx.n_G_g, idx.delta_b, idx.theta_b, idx.delta_cdm,
             idx.theta_cdm if idx.n_theta_cdm else -1, idx.delta_ur, idx.theta_ur,
             idx.shear_ur, idx.F_ur, idx.n_F_ur, idx.ncdm, idx.n_ncdm,
-            idx.q_size_ncdm if idx.n_ncdm else 0, idx.n_l_ncdm if idx.n_ncdm else 0, idx.eta]
+            idx.q_size_ncdm if idx.n_ncdm else 0, idx.n_l_ncdm if idx.n_ncdm else 0, idx.eta,
+            idx.phi_scf_pt if idx.has_scf else -1]
 
 
 def sl_count(idx: PtIdx) -> int:
@@ -312,8 +320,9 @@ def work_doubles(idx: PtIdx) -> int:
     memory per block): y, Y, ynew, 6 explicit stage vectors (9 n) and 6
     implicit ones plus the error over the stiff range [0, theta_b], the
     frame buffer (pk::frame_cols: 10 background columns, 3 per ncdm species,
-    6 thermodynamics columns) and the s_l table."""
-    return 9 * idx.size + 7 * (idx.theta_b + 1) + 16 + 3 * idx.n_ncdm + sl_count(idx)
+    4 of a scalar field, 6 thermodynamics columns) and the s_l table."""
+    return (9 * idx.size + 7 * (idx.theta_b + 1) + 16 + 3 * idx.n_ncdm
+            + len(eq.SCF_COLS) * idx.has_scf + sl_count(idx))
 
 
 # shared memory one block of the card can hold (H100: 227 KB)
@@ -326,7 +335,8 @@ def check_lane_scratch(idx: PtIdx) -> int:
     nbytes = 8 * work_doubles(idx)
     if nbytes > MAX_LANE_SCRATCH_BYTES:
         raise ValueError(
-            f"perturb_ark: N_ncdm = {idx.n_ncdm} ({idx.q_size_ncdm} momenta, state {idx.size}) "
+            f"perturb_ark: N_ncdm = {idx.n_ncdm} ({idx.q_size_ncdm} momenta, state {idx.size}"
+            f"{', a scalar field' if idx.has_scf else ''}) "
             f"needs {nbytes} bytes of lane scratch, above the {MAX_LANE_SCRATCH_BYTES} bytes "
             f"(227 KB) of shared memory a block can hold")
     return nbytes
@@ -356,7 +366,7 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
     rtol, atol = tolerances
     nl, ntau, n = lanes.k.shape[0], taus.shape[0], idx.size
     bg, th = tables.bg, tables.th
-    nbg = len(eq.BG_COLS) + 3 * idx.n_ncdm
+    nbg = len(eq.BG_COLS) + 3 * idx.n_ncdm + len(eq.SCF_COLS) * idx.has_scf
     if rtol.shape != (nl, n) or atol.shape != (nl, n) or bg.y.shape[1] != nbg \
             or th.y.shape[1] != len(eq.TH_COLS):
         raise ValueError(f"integrate_sources: bad shapes rtol{tuple(rtol.shape)} "
@@ -462,7 +472,8 @@ def compute_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th
     K, sgnK = curvature_of(params, bg)
     idx = PtIdx(l_max_g=pr.l_max_g, l_max_pol_g=pr.l_max_pol_g, l_max_ur=pr.l_max_ur,
                 n_ncdm=params.N_ncdm, l_max_ncdm=pr.l_max_ncdm, q_size_ncdm=nq_ncdm,
-                q_gauss=q_gauss, q_max_ncdm=q_max_ncdm, sgnK=sgnK, gauge=params.gauge)
+                q_gauss=q_gauss, q_max_ncdm=q_max_ncdm, sgnK=sgnK, gauge=params.gauge,
+                has_scf=params.Omega_scf != 0.0)
     ncdm = make_ncdm_ctx(params, idx).to(device) if idx.n_ncdm else None
     tables = eq.make_tables(bg, bidx, th, idx, ncdm, K)
     tables = tables._replace(bg=tables.bg.to(device), th=tables.th.to(device))

@@ -85,6 +85,13 @@ phi+psi source carries the HMcode ratio; no golden holds it). Both sample k
 to 20/Mpc, as row2_exact does, so row2_hmcode's perturbations are
 row2_exact's.
 
+Scalar-field dark energy: `g13_scf` (tests/golden/gen/g13_scf.ini uncut:
+Omega_Lambda = Omega_fld = 0 and Omega_scf = -1, so that the quintessence
+field closes the budget, an exponential potential with attractor initial
+conditions, scf_parameters 10, 0, 0, 0, 100, 0 with lambda (index 0) shot
+for; lensed TT/TE/EE/phiphi to l = 1200, P(k) to 1/Mpc; held to its golden
+under tests/test_scf.py's contract).
+
 The output-file keys of the .ini files (headers, format, root, write
 thermodynamics, *_verbose) are left out.
 """
@@ -203,6 +210,11 @@ G6_HMCODE = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe="BBN", reio_parametriza
                  recombination="RECFAST", output="mPk", z_pk="0., 1., 3.",
                  **{"non linear": "hmcode", "P_k_max_1/Mpc": 20.0})
 ROW2_HMCODE = dict(ROW2_EXACT, c_min=2.6, **{"non linear": "hmcode"})
+G13_SCF = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe=0.2454006, recombination="RECFAST",
+               Omega_Lambda=0, Omega_fld=0, Omega_scf=-1, attractor_ic_scf="yes",
+               scf_parameters="10.0, 0.0, 0.0, 0.0, 100.0, 0.0", scf_tuning_index=0,
+               output="tCl,pCl,lCl,mPk", lensing="yes", l_max_scalars=1200, z_pk="0",
+               **{"P_k_max_1/Mpc": 1.0})
 CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR,
            "g8_curved": G8_CURVED, "g18_closed": G18_CLOSED, "g5_hyrec": G5_HYREC,
            "g16_injection": G16_INJECTION, "g22_injection_bos": G22_INJECTION_BOS,
@@ -212,7 +224,7 @@ CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3
            "g32_texact": G32_TEXACT, "g9_newt": G9_NEWT, "row2_newt": ROW2_NEWT,
            "g8_newt": G8_NEWT, "g18_newt": G18_NEWT, "g21_isocorr": G21_ISOCORR,
            "g21_newt": G21_NEWT, "g31_peric": G31_PERIC, "row2_iso": ROW2_ISO,
-           "g6_hmcode": G6_HMCODE, "row2_hmcode": ROW2_HMCODE}
+           "g6_hmcode": G6_HMCODE, "row2_hmcode": ROW2_HMCODE, "g13_scf": G13_SCF}
 # each Newtonian twin and the synchronous configuration it is held to
 NEWT_TWIN = {"row2_newt": "row2_exact", "g8_newt": "g8_curved", "g18_newt": "g18_closed",
              "g21_newt": "g21_isocorr"}

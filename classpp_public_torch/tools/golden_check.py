@@ -25,7 +25,9 @@ contract) and g31_peric (tests/test_peric_output.py: the pair C_l, the ad and
 cdi P(k), the total P(k) and the sum total = ad + cdi + 2 cross), and HMcode's
 g6_hmcode (tests/test_hmcode.py: the linear P(k) within 1e-2 and the HMcode
 P(k) within 3e-2 at z = 0, 1, 3 on 1e-2 < k < 18/Mpc, k_nl rising with z,
-0.05 < k_nl(0) < 1/Mpc); and the probe
+0.05 < k_nl(0) < 1/Mpc), and scalar-field dark energy's g13_scf
+(tests/test_scf.py: rho_scf, H and phi_scf over 0.01 < z < 1e10, Omega_scf
+today, lensed TT and EE to l = 1100, P(k)); and the probe
 rows of
 tests/golden/bench_probe.json (`probe_rel`; lcdm_row1 here, the others in
 chip_smoke.py, which uses this module for its golden paths).
@@ -45,7 +47,7 @@ Usage (from the repository root, needs one card and nvcc):
         g1_lcdm_halofit g1h_halofit g2_ncdm g8s_curved lcdm_row1
     python3 -m classpp_public_torch.tools.golden_check g9_newt row2_newt g8_newt g18_newt
     python3 -m classpp_public_torch.tools.golden_check g21_isocorr g31_peric g21_newt
-    python3 -m classpp_public_torch.tools.golden_check g6_hmcode
+    python3 -m classpp_public_torch.tools.golden_check g6_hmcode g13_scf
 """
 
 import json
@@ -339,6 +341,37 @@ def hmcode_golden_check(g, h, nl):
     return rel
 
 
+SCF_LAMBDA, SCF_OMEGA = 2.085983, 0.690026   # the reference's shooting (tests/test_scf.py)
+
+
+def scf_golden_check(g, lensed, pk_lin, h, cls):
+    """g13_scf under tests/test_scf.py's contract: rho_scf, H and phi_scf
+    within 1e-3, 1e-4, 1e-3 over 0.01 < z < 1e10 of the golden's background
+    (interpolated in ln(1 + z)), Omega_scf today within 1e-4 of the
+    reference's 0.690026, lensed TT and EE within 3e-3 and 6e-3 to l = 1100,
+    P(k) within 1e-2 for 1e-3 < k < 0.9/Mpc."""
+    bg, bidx = cls.cosmo.background
+    t = bg.table.cpu().numpy()
+    z = 1.0 / t[:, bidx["a"]] - 1.0
+    zr = g.col("background", "z")[1]
+    sel = (zr > 0.01) & (zr < 1e10)
+    rel = {}
+    for col, gcol, tol in (("rho_scf", "(.)rho_scf", 1e-3), ("H", "H [1/Mpc]", 1e-4),
+                           ("phi_scf", "phi_scf", 1e-3)):
+        ref = g.col("background", gcol)[1][sel]
+        mine = np.interp(np.log1p(zr[sel]), np.log1p(z[::-1]), t[::-1, bidx[col]])
+        err = np.abs(mine / ref - 1)
+        rel[f"bg_{col}"] = (float(err.max()), tol, float(zr[sel][err.argmax()]))
+    om = float(t[-1, bidx["rho_scf"]] / t[-1, bidx["H"]] ** 2)
+    rel["Omega_scf"] = (abs(om / SCF_OMEGA - 1), 1e-4, 0.0)
+    rel["lensed_tt"] = (*g.rel("cl_lensed", "TT", lensed["tt"], 2, 1100)[:1], 3e-3,
+                        g.rel("cl_lensed", "TT", lensed["tt"], 2, 1100)[1])
+    rel["lensed_ee"] = (*g.rel("cl_lensed", "EE", lensed["ee"], 2, 1100)[:1], 6e-3,
+                        g.rel("cl_lensed", "EE", lensed["ee"], 2, 1100)[1])
+    rel["pk"] = (*g.rel_pk(pk_lin, h)[:1], PK_TOL, g.rel_pk(pk_lin, h)[1])
+    return rel
+
+
 def golden_check(name, raw, lensed, pk_lin, h, thermo=None, cls=None):
     """The contract of the golden `name`: {measure: (relative error, limit,
     where)}, where is the multipole (or k, or z) of the largest error. raw
@@ -403,6 +436,8 @@ def golden_check(name, raw, lensed, pk_lin, h, thermo=None, cls=None):
                 "raw_bb": item(g.rel("cl", "BB", raw["bb"], 2, 400), 1e-2)}
     if name == "g6_hmcode":
         return hmcode_golden_check(g, h, cls.cosmo.nonlinear)
+    if name == "g13_scf":
+        return scf_golden_check(g, lensed, pk_lin, h, cls)
     if name == "g1h_halofit":
         # halofit P(k) at z = 0, 1, 3 for 1e-2 < k < 9/Mpc
         return {f"pk_nl_z{z:g}": item(g.rel_pk(cls.pk, h, 9.0, tab, z, 1e-2, 1), 2.5e-2)
