@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card.
 
-Runs twenty-seven configurations through `classpp_public_torch.Class(device="cuda")`,
+Runs twenty-eight configurations through `classpp_public_torch.Class(device="cuda")`,
 stage by stage, at full width and depth, the thermodynamics of a seventeenth
 and the tensor stage of an eighteenth:
 
@@ -53,6 +53,10 @@ and the tensor stage of an eighteenth:
   quintessence field closes the budget; the Klein-Gordon march in the
   Omega_scf shooting of lambda, and the scf instance of perturb_ark; lensed
   C_l to l = 1200, P(k) to 1/Mpc);
+- interacting dark matter with interacting dark radiation: `g34_idmdr_l`
+  (tests/golden/gen/g34_idmdr_l.ini: ETHOS idm_dr with per-l damping
+  coefficients; the T_idm march and the idm instance of perturb_ark; lensed
+  C_l to l = 1200, P(k) with its dark acoustic oscillations to 1/Mpc);
 
 and checks:
 
@@ -65,8 +69,9 @@ and checks:
    HMcode path hmcode_sigma four times and hmcode_onehalo once per nonlinear
    computation (the P(k) stage, and the phi+psi ratio with C_l) and
    halofit_sigma never (any other path neither HMcode kernel), an scf path
-   scf_march (any other path not): launch counters, set to 0 just before the
-   path and read just after;
+   scf_march (any other path not), an idm_dr path idm_march exactly once (any
+   other path not): launch counters, set to 0 just before the path and read
+   just after;
 3. each result against the reference C++ build: the probe
    tests/golden/bench_probe.json for planck_row2 (and planck_row2_ss005),
    row2_exact and ncdm_row3 (rel TT/EE/TE <= 3e-3 at l = 220, 1000, 2000,
@@ -82,7 +87,7 @@ and checks:
    under tests/test_peric_output.py's contract; g31_peric:
    tests/test_peric_output.py; g6_hmcode: tests/test_hmcode.py; g13_scf:
    tests/test_scf.py, with the tuned lambda printed beside the reference's
-   2.085983), for
+   2.085983; g34_idmdr_l: tests/test_idm_dr.py), for
    nc_des_y1 positive autos and every cross
    inside the Cauchy-Schwarz envelope of its autos, for row2_iso positive
    autos and every initial-condition pair's cross inside its envelope, and
@@ -107,7 +112,9 @@ and checks:
    P(k)-tail lane; the two HMcode kernels on every call the path made, per
    element; scf_march on the first bisection batch and the final shot, per
    element, and the shooting walked again with the plain loop: the same
-   tree path as on the card, or the two tuned lambda within 1e-10), beside
+   tree path as on the card, or the two tuned lambda within 1e-10;
+   idm_march per column; perturb_ark's idm instance on the stride lanes and
+   the dark-acoustic lane nearest 0.03/Mpc), beside
    the least time the card could take for the same work (`bound_ms`);
 5. the three LOS scans that no path above runs past 1024 tau samples
    (transfer_tensor_los, transfer_los_curved, transfer_tensor_los_curved) on
@@ -168,6 +175,15 @@ GROWTH_TOL = 1e-12
 # the plain loop bit for bit (tests/test_torch_scf.py). A float32 intermediate
 # would show at ~1e-7, a dropped term far above.
 SCF_MARCH_TOL = 1e-10
+# The T_idm march, per column (T_idm, c^2_idm) relative to the column's max
+# |plain|: 32 767 dependent implicit-Euler steps, and then the sound speed,
+# which multiplies T's last bits by Gamma/H (up to ~1e17 in the tight-coupling
+# era, where c^2 is rounding noise: a last-bit change of T moves it by O(1)).
+# The kernel rounds every product and sum alone (no FMA contraction) and
+# IEEE-divides, so it is the plain loop's arithmetic, as its host build is
+# (tests/test_torch_idm_dr.py: equal bits); a contraction would show at
+# ~1e-2 of c^2's scale.
+IDM_MARCH_TOL = 1e-12
 # the tuned lambda of the card's shooting against the plain one's, where their
 # walks part (a midpoint whose f is within the last bits of 0)
 SCF_LAMBDA_TOL = 1e-10
@@ -183,7 +199,8 @@ KERNEL_TOL = {"transfer_los": 1e-6, "lensing_wigner": 1e-9, "halofit_sigma": 1e-
               "transfer_tensor_los": 1e-6, "tb_march": 1e-10, "transfer_los_curved": 1e-6,
               "transfer_tensor_los_curved": 1e-6, "nc_scan": NC_SCAN_TOL,
               "growth_march": GROWTH_TOL, "hmcode_sigma": HMCODE_TOL,
-              "hmcode_onehalo": HMCODE_TOL, "scf_march": SCF_MARCH_TOL}
+              "hmcode_onehalo": HMCODE_TOL, "scf_march": SCF_MARCH_TOL,
+              "idm_march": IDM_MARCH_TOL}
 # A path whose perturbations must equal another path's bit for bit (the same
 # cosmology and k grid; only the nonlinear method differs, which enters after
 # the perturbation stage): the equality is held instead of a second plain
@@ -275,6 +292,10 @@ SAMPLING_DRAW = ("g9_newt",)
 # the scalar-field paths: perturb_ark's scf instance prints the step counts of
 # its compared lanes beside the plain integrator's
 SCF_PATHS = ("g13_scf",)
+# the idm_dr paths: perturb_ark's idm instance prints the step counts of its
+# compared lanes, among them the dark-acoustic lane nearest IDM_DAO_K
+IDM_PATHS = ("g34_idmdr_l",)
+IDM_DAO_K = 0.03
 # The plain integrator steps all its lanes in lockstep (~6 ms a step on the
 # card with the ncdm block), so a lane of more steps than this is left out of
 # the comparison: the k = 22.6/Mpc tail lane of row2_exact (~31 000 steps, the
@@ -381,12 +402,14 @@ class Kernel:
         self.source, self.replaces, self.size, self.every = source, replaces, size, every
 
 
-def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(), scf=False):
+def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(), scf=False,
+                     idm=False):
     """(the kernels a path with OutputSelection `out`, curvature sign sgnK and
     `recombination` must launch, those it must not launch): a curved path
     runs the hyperspherical scans and not the flat ones, a flat path the
     reverse; a HyRec path hyrec_history and not recfast_history, a RECFAST
     path the reverse; a path with a scalar field (`scf`) scf_march, any other
+    path not; a path with idm_dr (`idm`) idm_march exactly once, any other
     path not. Every path launches growth_march. A path that stops
     after the thermodynamics (`last`) launches its recombination kernel,
     tb_march and growth_march, and none else of `every`; one that runs the
@@ -397,13 +420,14 @@ def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(
     hyrec = recombination in ("hyrec", "hyrec_full")
     reco = {"hyrec_history"} if hyrec else {"recfast_history"}
     other_reco = {"recfast_history"} if hyrec else {"hyrec_history"}
-    early = reco | {"tb_march", "growth_march"} | ({"scf_march"} if scf else set())
+    early = reco | {"tb_march", "growth_march"} | ({"scf_march"} if scf else set()) \
+        | ({"idm_march"} if idm else set())
+    exact = {"idm_march": 1} if idm else {}
     if last == "thermodynamics":
-        return early, set(every) - early, {}
+        return early, set(every) - early, exact
     if last == "tensor_perturbations":
-        return early | {"tensor_rkck"}, set(every) - early - {"tensor_rkck"}, {}
+        return early | {"tensor_rkck"}, set(every) - early - {"tensor_rkck"}, exact
     names = early | {"perturb_ark"}
-    exact = {}
     if len(out.ics) > 1:
         exact["perturb_ark"] = 1
         if out.has_cls:
@@ -433,7 +457,8 @@ def expected_kernels(out, sgnK, recombination="recfast", last="lensing", every=(
     if "t" in out.modes:
         names.add("tensor_rkck")
     curved = {f"{n}_curved" for n in scans}
-    other = other_reco | other_nl | (set() if scf else {"scf_march"})
+    other = other_reco | other_nl | (set() if scf else {"scf_march"}) \
+        | (set() if idm else {"idm_march"})
     if sgnK:
         return names | curved, {"transfer_los", "transfer_tensor_los"} | other, exact
     return names | scans, {"transfer_los_curved", "transfer_tensor_los_curved"} | other, exact
@@ -471,6 +496,7 @@ def run_config(name, params, kernels, last="lensing"):
         stage_s[st] = time.time() - t0
         phase(f"{name} stage {st}", t0)
     scf = cosmo.params.Omega_scf != 0.0
+    idm = cosmo.params.Omega_idm_dr > 0.0
     if scf:
         # the shooting's walk and target, for check_scf_march
         captured["scf_background"] = (cosmo.background[0], cosmo.params)
@@ -478,7 +504,7 @@ def run_config(name, params, kernels, last="lensing"):
         phase(f"{name} total", t_all)
         counts = read_counts(name, kernels, originals)
         check_launches(name, counts, *expected_kernels(
-            cosmo.out, cosmo.sgnK, cosmo.params.recombination, last, counts, scf))
+            cosmo.out, cosmo.sgnK, cosmo.params.recombination, last, counts, scf, idm))
         if last == "thermodynamics":
             th = cosmo.thermodynamics
             if not (bool(torch.isfinite(th.xe_of_z).all())
@@ -512,7 +538,8 @@ def run_config(name, params, kernels, last="lensing"):
     phase(f"{name} total", t_all)
     counts = read_counts(name, kernels, originals)
     check_launches(name, counts, *expected_kernels(cosmo.out, cosmo.sgnK,
-                                                   cosmo.params.recombination, scf=scf))
+                                                   cosmo.params.recombination, scf=scf,
+                                                   idm=idm))
     pt = cosmo.perturbations
     tr_shape = tuple(cosmo.transfer.delta.shape) if out.has_cls else None
     print(f"[shapes] {name} k {tuple(pt.k.shape)} tau {tuple(pt.tau.shape)} sources "
@@ -804,6 +831,8 @@ def check_perturb_ark(solve, args, tag, curved=False):
     slow = int(nsteps.argmax())
     if tag in NEWT_PATHS:
         picked = sorted(set(picked) | {0, 1, slow})
+    if tag in IDM_PATHS:
+        picked = sorted(set(picked) | {int((lanes.k - IDM_DAO_K).abs().argmin())})
     if ic is not None:
         codes = ic.cpu()
         iso_lanes = [torch.nonzero(codes == c).flatten().tolist() for c in range(1, len(IC_KINDS))]
@@ -821,7 +850,10 @@ def check_perturb_ark(solve, args, tag, curved=False):
     rt_sel, at_sel = rtol[sel].contiguous(), atol[sel].contiguous()
     # P(k)-tail lanes carry the 3e-8 absolute floor on the matter rows
     n_tail = int((at_sel[:, idx.delta_cdm] > 1e-11).sum())
-    print(f"[perturb_ark] {tag}: gauge {idx.gauge}; slowest lane k = {float(lanes.k[slow]):.5g}"
+    idr = ("fluid" if idx.idr_fluid else "free-streaming") if idx.has_idm_dr else ""
+    print(f"[perturb_ark] {tag}: gauge {idx.gauge}"
+          f"{', idm_dr (' + idr + ' idr)' if idr else ''}"
+          f"; slowest lane k = {float(lanes.k[slow]):.5g}"
           f"/Mpc, {int(nsteps[slow])} steps; {n_tail} P(k)-tail lanes compared", flush=True)
     if tag in NEWT_PATHS and n_tail == 0:
         raise RuntimeError(f"perturb_ark ({tag}): no P(k)-tail lane in the plain comparison")
@@ -876,7 +908,7 @@ def check_perturb_ark(solve, args, tag, curved=False):
                            + "\n".join(bad))
     dn = (nsteps[sel] - np_).abs()
     dn_rel = float((dn / np_).max())
-    if curved or tag in NEWT_PATHS or tag in SCF_PATHS:
+    if curved or tag in NEWT_PATHS or tag in SCF_PATHS or tag in IDM_PATHS:
         print_lane_steps("perturb_ark", tag, lanes.k[sel], nsteps[sel], np_)
     iso_equal = None
     if ic_sel is not None:
@@ -903,8 +935,8 @@ def check_perturb_ark(solve, args, tag, curved=False):
     # ncdm block has collapsed to its 3 fluid moments; every input read and
     # the source table written once
     n_late = idx.size - (idx.n_ncdm_block - 3 * idx.n_ncdm if idx.n_ncdm else 0)
-    flops = float(nsteps.sum()) * (6 * (12 * n_late + 400) + 30 * (n_late + idx.theta_b + 1)
-                                   + 24 * n_late)
+    flops = float(nsteps.sum()) * (6 * (12 * n_late + 400)
+                                   + 30 * (n_late + solve.stiff_count(idx)) + 24 * n_late)
     bms, bby = bound(nbytes(S, taus, rtol, atol, tables.bg.y, tables.bg.y2, tables.th.y,
                             tables.th.y2) + 6 * 8 * nl, flops)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, plain_lanes=len(sel),
@@ -1187,6 +1219,34 @@ def check_growth(background, args, tag):
                 scaled_err=float(rel.max()))
 
 
+def check_idm_march(thermo, args, tag):
+    """idm_march against its plain loop: T_idm and c^2_idm per column,
+    relative to the column's max |plain|."""
+    import torch
+
+    z, H, T_idr, gam, m_idm = args
+    ms, (T, c2) = timed(lambda: thermo.idm_march(z, H, T_idr, gam, m_idm))
+    plain_ms, (Tp, c2p) = host_timed(lambda: thermo.idm_march_plain(
+        *(v.cpu() for v in (z, H, T_idr, gam)), m_idm))
+    kout, pout = torch.stack([T, c2]).cpu(), torch.stack([Tp, c2p])
+    if kout.shape != pout.shape or not bool(torch.isfinite(kout).all()):
+        raise RuntimeError(f"idm_march ({tag}): shape {tuple(kout.shape)} or non-finite")
+    n = int(z.shape[0])
+    cols = columns("idm_march", kout, pout, 0)
+    equal = bool(torch.equal(kout, pout))
+    # each of the four columns read once, T and c^2 written once; ~10
+    # operations a step of the chain (two divisions) and ~12 a node of c^2
+    bms, bby = bound(nbytes(z, H, T_idr, gam) + 2 * 8 * n, 22.0 * n)
+    gh = (gam / H).cpu()
+    print(f"[idm_march] {tag}: {n} nodes, Gamma/H from {float(gh.min()):.3e} to "
+          f"{float(gh.max()):.3e}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bms:.5f} ms "
+          f"({bby}); |kernel - plain| {cols['scaled_err']:.3e} of a column's max (limit "
+          f"{IDM_MARCH_TOL}), equal bits: {equal}; T_idm today {float(Tp[-1]):.4e} K against "
+          f"T_idr {float(T_idr[-1]):.4e} K", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby, nodes=n, equal_bits=equal,
+                **cols)
+
+
 def check_scf_march(background, captured, tag):
     """scf_march against its plain loop on two launches of the path, the first
     (the bisection's lo and hi) and the last (the final shot), per chain and
@@ -1376,6 +1436,8 @@ def check_kernels(tag, captured, mods, curved):
         out["growth_march"] = check_growth(mods["growth_march"], captured["growth_march"][0], tag)
     if "scf_march" in captured:
         out["scf_march"] = check_scf_march(mods["scf_march"], captured, tag)
+    if "idm_march" in captured:
+        out["idm_march"] = check_idm_march(mods["idm_march"], captured["idm_march"][0], tag)
     if "tensor_rkck" in captured:
         out["tensor_rkck"] = check_tensor_rkck(mods["tensor_rkck"],
                                                captured["tensor_rkck"][0], tag, curved)
@@ -1537,7 +1599,7 @@ def compare_prior():
 
 
 def kernel_table():
-    """The sixteen kernels, each with the wrapper the main path calls."""
+    """The seventeen kernels, each with the wrapper the main path calls."""
     from classpp_public_torch.models import (background, hyrec, lensing, nonlinear,
                                              numbercounts, thermodynamics, transfer)
     from classpp_public_torch.models.perturbations import solve, tensors
@@ -1579,6 +1641,8 @@ def kernel_table():
                size=lambda a: a[0].numel() * a[5].numel(), every=True),
         Kernel("scf_march", background, "scf_launches", "scf_march", src + "scf_march.cu",
                tpu + "background.py:302", every=True),
+        Kernel("idm_march", thermodynamics, "idm_march_launches", "idm_march",
+               src + "idm_march.cu", tpu + "thermodynamics.py:1017"),
     ]
 
 

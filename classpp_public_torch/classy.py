@@ -14,7 +14,11 @@ keys: classy.py:455-510; `raw_cl`'s number-count and cross keys :1008-1075,
 `n_X`, `alpha_X`, `c_X_Y`, `n_X_Y`, `alpha_X_Y`: classy.py:630-669) with the
 primordial spectra `P_k_ini type` analytic_Pk and two_scales (:720-737), and
 scalar-field dark energy (`Omega_scf`, `scf_parameters`, `scf_tuning_index`,
-`attractor_ic_scf`: classy.py:413-429).
+`attractor_ic_scf`: classy.py:413-429), and interacting dark matter with
+interacting dark radiation (`N_idr` / `xi_idr`, `Omega_idm_dr` /
+`omega_idm_dr` / `f_idm_dr`, `a_idm_dr`, `b_idr`, `nindex_idm_dr`, `m_idm`,
+`idr_nature`, `alpha_idm_dr`, `beta_idr` and their `*_dark` aliases:
+classy.py:356-410) with the synchronous gauge's cdm floor (:838-846).
 
 Every other input key raises with the JAX file and line that implements it.
 """
@@ -160,6 +164,7 @@ class Class:
                 raise CosmoSevereError(
                     f"N_ncdm = {n_ncdm} but {len(kw['m_ncdm'])} masses were given")
 
+        self._parse_idm(p, kw, h)
         self._parse_scf(p, kw)
 
         out = OutputSelection()
@@ -215,6 +220,14 @@ class Class:
                 "input parameter(s) not ported: " + ", ".join(repr(k) for k in sorted(p))
                 + " (classpp_public_tpu/classy.py:93-860 parses them)")
         pr = PrecisionParams(**prkw)
+        # the synchronous gauge is the rest frame of cdm: without cdm a
+        # negligible floor keeps it defined, moved over from idm_dr when that
+        # is what holds the dark matter (classy.py:838-846,
+        # input_module.cpp:872, :912)
+        if kw.get("gauge", "synchronous") == "synchronous" and kw.get("omega_cdm", 0.12038) == 0.0:
+            kw["omega_cdm"] = pr.Omega0_cdm_min_synchronous * h * h
+            if kw.get("Omega_idm_dr", 0.0) > 0.0:
+                kw["Omega_idm_dr"] -= pr.Omega0_cdm_min_synchronous
         if out.non_linear:
             # the sigma(R) integrals need k beyond the requested P(k) range
             # (input_module.cpp:2806-2811): nonlinear_min_k_max and the
@@ -224,6 +237,54 @@ class Class:
             out.P_k_max = max(out.P_k_max, pr.nonlinear_min_k_max, method_min)
         return Cosmology(CosmoParams(**kw), pr, out, device=self.device, iso_primordial=iso,
                          iso_corr=corr)
+
+    @staticmethod
+    def _parse_idm(p: dict, kw: dict, h: float) -> None:
+        """Interacting dark matter and dark radiation (ETHOS; classy.py:356-410,
+        input_module.cpp:822-1031): the idr temperature from N_idr or xi_idr
+        (with stat_f_idr), the idm density from Omega_idm_dr, omega_idm_dr or
+        f_idm_dr (a fraction of omega_cdm, moved over), a_idm_dr, b_idr and
+        nindex_idm_dr or their *_dark aliases (the canonical name wins), m_idm,
+        idr_nature and the per-l alpha_idm_dr / beta_idr lists (aliases
+        alpha_dark / beta_dark), with JAX's errors."""
+        if not any(x in p for x in ("N_idr", "xi_idr", "Omega_idm_dr", "omega_idm_dr",
+                                    "f_idm_dr")):
+            return
+        stat_f = float(p.pop("stat_f_idr", 0.875))
+        kw["stat_f_idr"] = stat_f
+        if "xi_idr" in p:
+            kw["xi_idr"] = float(p.pop("xi_idr"))
+            p.pop("N_idr", None)
+        elif "N_idr" in p:
+            N_idr = float(p.pop("N_idr"))
+            kw["xi_idr"] = (N_idr / stat_f * (7.0 / 8.0) / (11.0 / 4.0) ** (4.0 / 3.0)) ** 0.25
+        else:
+            raise CosmoSevereError("idm_dr requires N_idr or xi_idr")
+        if "Omega_idm_dr" in p:
+            kw["Omega_idm_dr"] = float(p.pop("Omega_idm_dr"))
+        elif "omega_idm_dr" in p:
+            kw["Omega_idm_dr"] = float(p.pop("omega_idm_dr")) / (h * h)
+        elif "f_idm_dr" in p:
+            f_idm = float(p.pop("f_idm_dr"))
+            Ocdm = kw.get("omega_cdm", 0.12038) / (h * h)
+            kw["Omega_idm_dr"] = f_idm * Ocdm
+            kw["omega_cdm"] = (Ocdm - kw["Omega_idm_dr"]) * h * h
+        else:
+            raise CosmoSevereError("idm_dr requires Omega_idm_dr, omega_idm_dr or f_idm_dr")
+        for dst, names in (("a_idm_dr", ("a_idm_dr", "a_dark")), ("b_idr", ("b_idr", "b_dark")),
+                           ("nindex_idm_dr", ("nindex_idm_dr", "nindex_dark"))):
+            found = [float(p.pop(nm)) for nm in names if nm in p]
+            kw[dst] = found[0] if found else (4.0 if dst == "nindex_idm_dr" else 0.0)
+        kw["m_idm"] = float(p.pop("m_idm", 1.0e11))
+        nat = str(p.pop("idr_nature", "free_streaming")).strip().lower()
+        if nat not in ("free_streaming", "fluid"):
+            raise CosmoSevereError(f"unknown idr_nature {nat!r}")
+        kw["idr_nature"] = nat
+        for dst, names in (("alpha_idm_dr", ("alpha_idm_dr", "alpha_dark")),
+                           ("beta_idr", ("beta_idr", "beta_dark"))):
+            found = [tuple(_parse_list(p.pop(nm))) for nm in names if nm in p]
+            if found:
+                kw[dst] = found[0]
 
     @staticmethod
     def _parse_scf(p: dict, kw: dict) -> None:

@@ -172,8 +172,9 @@ class CosmoParams:
 def check_lcdm(params: CosmoParams) -> None:
     """Raise for every parameter that switches on physics outside the ported
     slice (LambdaCDM + massive neutrinos, open, flat or closed, synchronous
-    or Newtonian gauge; scalar-field dark energy in the synchronous gauge;
-    RECFAST or HyRec, energy injection, every reionization scheme),
+    or Newtonian gauge; scalar-field dark energy, or interacting dark matter
+    and dark radiation, in the synchronous gauge; RECFAST or HyRec, energy
+    injection, every reionization scheme),
     naming the JAX code that implements it."""
     bad = []
     if any(params.ksi_ncdm) or any(params.ncdm_psd_files):
@@ -192,8 +193,14 @@ def check_lcdm(params: CosmoParams) -> None:
                    "delta_rho_scf and delta_p_scf, "
                    "classpp_public_tpu/models/perturbations/equations.py:401-407, and the scf "
                    "gauge shift of the initial conditions, :1374-1385)")
-    if params.Omega_idm_dr > 0.0:
-        bad.append("interacting dark matter (classpp_public_tpu/models/background.py:421)")
+    if params.Omega_idm_dr > 0.0 and params.gauge == "newtonian":
+        bad.append("interacting dark matter and dark radiation in the Newtonian gauge (the "
+                   "idm_dr and idr gauge shift of the initial conditions, "
+                   "classpp_public_tpu/models/perturbations/equations.py:1369-1373)")
+    if params.Omega_idm_dr > 0.0 and params.Omega_scf != 0.0:
+        bad.append("interacting dark matter and dark radiation together with a scalar field "
+                   "(their blocks share the solver heads, "
+                   "classpp_public_tpu/models/perturbations/equations.py:301-318, :818-851)")
     if tuple(params.temp_contributions) != (1.0,) * 5 or params.eisw_lisw_split_z != 120.0:
         bad.append("temperature-contribution switches "
                    "(classpp_public_tpu/models/perturbations/equations.py:1517)")

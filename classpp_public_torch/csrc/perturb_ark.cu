@@ -19,7 +19,11 @@
 // it (perturb_ark.cuh isocurvature_ic). A layout with a scalar field
 // (Layout::phi_scf >= 0, synchronous gauge only) selects the third instance,
 // perturb_ark_kernel<false, true>, whose scf terms the other two do not
-// compile.
+// compile. A layout with interacting dark matter and dark radiation
+// (the layout's idm int >= 0, synchronous gauge only, without a scalar field) selects
+// the fourth, perturb_ark_kernel<false, false, true>: its implicit range runs
+// to the end of the idr block (n_stiff), and the idr damping's alpha_l,
+// beta_l follow the ncdm data in the `ncdm` buffer.
 //
 // Design: one lane per warp, one warp per block. Each lane runs its own
 // while loop to its last sample: no lockstep between lanes, no host reads, no
@@ -68,9 +72,9 @@ namespace {
 
 constexpr int kWarp = 32;
 
-template <bool kNewt, bool kScf>
+template <bool kNewt, bool kScf, bool kIdm>
 __global__ void __launch_bounds__(kWarp)
-perturb_ark_kernel(pk::Layout L, pk::Tables T,
+perturb_ark_kernel(pk::LayoutOf<kIdm> L, pk::TablesOf<kIdm> T,
                    const double* __restrict__ lanes,  // (6, nl): k, tau_ini, t_tca, t_ufa, t_rsa, t_ncfa
                    const double* __restrict__ taus,   // (ntau,)
                    const double* __restrict__ rtol,   // (nl, n)
@@ -99,7 +103,7 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
   ln.sgnK = sgnK;
   ln.sl = nullptr;
   long long steps = 0;
-  const int st = pk::integrate_lane<kNewt, kScf>(
+  const int st = pk::integrate_lane<kNewt, kScf, kIdm>(
       L, T, tm, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n, atol + (long)lane * L.n,
       max_steps, work, S + (long)lane * ntau * pk::kNSrc, &steps,
       PK_PROFILE_OUT(lane, nlanes));
@@ -109,19 +113,21 @@ perturb_ark_kernel(pk::Layout L, pk::Tables T,
   }
 }
 
-// One launch of the instance (kNewt, kScf); its shared-memory limit is raised
-// past 48 KB when the lane scratch needs it.
-template <bool kNewt, bool kScf>
-int launch(const pk::Layout& L, const pk::Tables& T, size_t smem, const double* lanes,
+// One launch of the instance (kNewt, kScf, kIdm); its shared-memory limit is
+// raised past 48 KB when the lane scratch needs it.
+template <bool kNewt, bool kScf, bool kIdm>
+int launch(const pk::LayoutOf<kIdm>& L, const pk::TablesOf<kIdm>& T, size_t smem,
+           const double* lanes,
            const double* taus, const double* rtol, const double* atol, const int* ic,
            const int* order, double k_eta_split, double K, int sgnK, long max_steps, int nlanes,
            int ntau, double* S, long long* nsteps, int* status, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        perturb_ark_kernel<kNewt, kScf>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        perturb_ark_kernel<kNewt, kScf, kIdm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  perturb_ark_kernel<kNewt, kScf><<<nlanes, kWarp, smem, stream>>>(
+  perturb_ark_kernel<kNewt, kScf, kIdm><<<nlanes, kWarp, smem, stream>>>(
       L, T, lanes, taus, rtol, atol, ic, order, k_eta_split, K, sgnK, max_steps, nlanes, ntau, S,
       nsteps, status);
   return (int)cudaGetLastError();
@@ -129,12 +135,14 @@ int launch(const pk::Layout& L, const pk::Tables& T, size_t smem, const double* 
 
 }  // namespace
 
-// layout: kLayoutInts host ints in pk::Layout order. Every other pointer is a
+// layout: kLayoutInts host ints (pk::read_layout). Every other pointer is a
 // device pointer. ncdm: q (nq), w (ns, nq), dlnf0 (ns, nq), x_fac (ns),
-// pref (ns) packed in this order (unused when ns = 0). K: the spatial
-// curvature in 1/Mpc^2, sgnK its sign; gauge 0 synchronous, 1 Newtonian
-// (any other value is refused, and so is a scalar field in the Newtonian
-// gauge). ic: each lane's initial condition (null: all
+// pref (ns) packed in this order (none of them when ns = 0), then with idm_dr
+// the idr damping's alpha_l and beta_l (1 + n_F_idr each; solve.py
+// `kernel_ncdm`); null when there is nothing. K: the spatial curvature in
+// 1/Mpc^2, sgnK its sign; gauge 0 synchronous, 1 Newtonian (any other value
+// is refused, and so is a scalar field or idm_dr in the Newtonian gauge, and
+// idm_dr with a scalar field). ic: each lane's initial condition (null: all
 // adiabatic); order: the lane of each block (null: block b runs lane b), a
 // permutation of 0..nlanes-1. The lane's scratch is dynamic shared
 // memory, sized from the layout (any number of species): a state too wide for
@@ -149,27 +157,38 @@ extern "C" int perturb_ark_launch(const int* layout, const double* lanes, const 
                                   double k_eta_split, double K, int sgnK, int gauge,
                                   long long max_steps, int nlanes, int ntau, double* S,
                                   long long* nsteps, int* status, void* stream) {
-  pk::Layout L;
-  int* li = reinterpret_cast<int*>(&L);
-  for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
-  const size_t smem = (size_t)pk::work_doubles(L) * sizeof(double);
+  pk::LayoutIdm LI;
+  pk::read_layout(layout, LI);
+  const pk::Layout& L = LI;
+  const bool idm = LI.idm >= 0;
+  const size_t smem = (size_t)(idm ? pk::work_doubles(LI) : pk::work_doubles(L)) * sizeof(double);
   if (nlanes < 1 || smem > 232448 || gauge < 0 || gauge > 1 || (gauge == 1) != (L.theta_cdm >= 0)
-      || (gauge == 1 && L.phi_scf >= 0))
+      || (gauge == 1 && (L.phi_scf >= 0 || idm)) || (idm && L.phi_scf >= 0))
     return (int)cudaErrorInvalidValue;
-  pk::Tables T;
+  pk::TablesIdm TI;
+  pk::Tables& T = TI;
   T.bg_y = bg_y; T.bg_y2 = bg_y2; T.bg_x0 = bg_x0; T.bg_dx = bg_dx; T.bg_n = bg_n;
-  T.bg_ncol = pk::bg_cols(L);
+  T.bg_ncol = idm ? pk::bg_cols(LI) : pk::bg_cols(L);
   T.th_y = th_y; T.th_y2 = th_y2; T.th_x0 = th_x0; T.th_dx = th_dx; T.th_n = th_n;
   const long nsq = (long)L.ns * L.nq;
   T.q = ncdm; T.w = ncdm + L.nq; T.dlnf0 = T.w + nsq; T.x_fac = T.dlnf0 + nsq;
   T.pref = T.x_fac + L.ns;
+  TI.idr_alpha = T.pref + L.ns;
+  TI.idr_beta = TI.idr_alpha + 1 + LI.n_F_idr;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (gauge == 1)
-    return launch<true, false>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K,
-                               sgnK, (long)max_steps, nlanes, ntau, S, nsteps, status, st);
+    return launch<true, false, false>(L, T, smem, lanes, taus, rtol, atol, ic, order,
+                                      k_eta_split, K, sgnK, (long)max_steps, nlanes, ntau, S,
+                                      nsteps, status, st);
   if (L.phi_scf >= 0)
-    return launch<false, true>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K,
-                               sgnK, (long)max_steps, nlanes, ntau, S, nsteps, status, st);
-  return launch<false, false>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split, K,
-                              sgnK, (long)max_steps, nlanes, ntau, S, nsteps, status, st);
+    return launch<false, true, false>(L, T, smem, lanes, taus, rtol, atol, ic, order,
+                                      k_eta_split, K, sgnK, (long)max_steps, nlanes, ntau, S,
+                                      nsteps, status, st);
+  if (idm)
+    return launch<false, false, true>(LI, TI, smem, lanes, taus, rtol, atol, ic, order,
+                                      k_eta_split, K, sgnK, (long)max_steps, nlanes, ntau, S,
+                                      nsteps, status, st);
+  return launch<false, false, false>(L, T, smem, lanes, taus, rtol, atol, ic, order, k_eta_split,
+                                     K, sgnK, (long)max_steps, nlanes, ntau, S, nsteps, status,
+                                     st);
 }

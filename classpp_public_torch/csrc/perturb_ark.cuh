@@ -43,6 +43,22 @@
 // arithmetic they were (equations.py rhs_full; JAX equations.py:301-306,
 // :395-410, :847-851, :928-929).
 //
+// Interacting dark matter with interacting dark radiation (idm_dr,
+// synchronous gauge only) is a third template parameter kIdm: its block sits
+// after the ur hierarchy (LayoutIdm::idm; the ncdm block moves
+// behind it, and every access goes through Layout::ncdm), its two background
+// columns (rho_idm_dr, rho_idr) after the ncdm columns and its three
+// thermodynamics columns (dmu_idm_dr, dmu_idr, cidm_dr2) after the six of the
+// frame, and every idm term behind `if constexpr (kIdm)` (equations.py
+// rhs_full, stiff_apply, stiff_solve, adiabatic_ic; JAX equations.py:307-318,
+// :382-389, :818-844, :880-931, :996-1102, :1125-1177). The idm-idr momentum
+// exchange and the idr's per-l damping are stiff: in this instance the
+// implicit range runs to the end of the idr block (n_stiff), with J zero
+// and the solve the identity between theta_b and the block, and the idm terms
+// are not masked under TCA or RSA as the photon drag is. The damping's alpha_l
+// and beta_l come in a small table behind the ncdm data (TablesIdm::idr_alpha,
+// idr_beta), not as constants: two parameter sets differ only in them.
+//
 // Curvature K (sign sgnK) enters through s_l = sqrt(max(1 - K (l^2 - 1)/k^2,
 // 0)), s2 = 1 - 3 K/k^2 and cotKgen = sqrt|K| cot_K(sqrt|K| tau)/k. The s_l
 // of a lane are computed once, into its table `sl` in shared memory, so a step
@@ -54,6 +70,8 @@
 #pragma once
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "team.cuh"
 
@@ -73,6 +91,8 @@ constexpr int kNSrc = 27;        // SrcIdx.n
 constexpr int kNBgBase = 10;     // BG_COLS without the ncdm columns
 constexpr int kNTh = 6;          // TH_COLS
 constexpr int kNScf = 4;         // SCF_COLS: rho_scf, phi_prime_scf, dV_scf, ddV_scf
+constexpr int kNIdmBg = 2;       // IDM_BG_COLS: rho_idm_dr, rho_idr
+constexpr int kNIdmTh = 3;       // IDM_TH_COLS: dmu_idm_dr, dmu_idr, cidm_dr2
 constexpr int kStages = 6;
 
 // status word of a lane
@@ -137,7 +157,29 @@ struct Layout {
   int eta;
   int phi_scf;                  // delta phi, delta phi' of a scalar field; -1 without one
 };
-constexpr int kLayoutInts = 23;
+
+// The layout of the idm instance: the idm_dr block's offsets beside it. The
+// instances without idm_dr take Layout itself, so that their kernels keep
+// the parameters (and so the code) they had.
+struct LayoutIdm : Layout {
+  int idm;                      // delta_idm_dr (then theta_idm, delta_idr, theta_idr,
+                                // shear_idr, F_idr)
+  int n_F_idr;                  // idr moments l = 3..l_max_idr; 0 in fluid mode
+  int idr_fluid;                // 1: idr_nature = fluid (the shear slot stays 0)
+};
+
+// The host ints of a layout (solve.py _layout_ints): Layout's fields through
+// eta, the idm block's three (idm -1 without it), then phi_scf.
+constexpr int kLayoutInts = 26;
+PK_HOST_FN void read_layout(const int* ints, LayoutIdm& L) {
+  Layout& B = L;
+  int* li = reinterpret_cast<int*>(&B);
+  for (int i = 0; i < 22; ++i) li[i] = ints[i];
+  L.phi_scf = ints[25];
+  L.idm = ints[22];
+  L.n_F_idr = ints[23];
+  L.idr_fluid = ints[24];
+}
 
 // The two table splines over ln(tau) and the ncdm momentum data.
 struct Tables {
@@ -155,6 +197,17 @@ struct Tables {
   const double* x_fac;          // (ns,)
   const double* pref;           // (ns,)
 };
+
+// The tables of the idm instance: the idr damping's coefficients beside them.
+struct TablesIdm : Tables {
+  const double* idr_alpha;      // (1 + n_F_idr,) alpha_l, l = 2..l_max_idr
+  const double* idr_beta;       // (1 + n_F_idr,) beta_l
+};
+
+template <bool kIdm>
+using LayoutOf = typename std::conditional<kIdm, LayoutIdm, Layout>::type;
+template <bool kIdm>
+using TablesOf = typename std::conditional<kIdm, TablesIdm, Tables>::type;
 
 // One lane's vector (contiguous).
 typedef double* Vec;
@@ -199,6 +252,18 @@ PK_HOST_FN int sl_count(const Layout& L) {
   if (L.nl + 1 > c) c = L.nl + 1;
   return c;
 }
+PK_HOST_FN int sl_count(const LayoutIdm& L) {
+  const int c = sl_count(static_cast<const Layout&>(L));
+  return L.n_F_idr + 4 > c ? L.n_F_idr + 4 : c;
+}
+
+// The implicit range [0, n_stiff): to theta_b, or with idm_dr to the end of
+// the idr block.
+template <bool kIdm>
+PK_HOST_FN int n_stiff(const LayoutOf<kIdm>& L) {
+  if constexpr (kIdm) return L.idm + 5 + L.n_F_idr;
+  else return L.theta_b + 1;
+}
 
 // cotKgen at tau: 1/(k tau) when flat.
 PK_FN double cot_kgen(const Lane& ln, double tau) {
@@ -220,10 +285,11 @@ PK_FN Flags flags_at(const Lane& ln, double t) {
 }
 
 // Background columns of the tables: the base ones, 3 per ncdm species and
-// the scalar field's.
+// the scalar field's or idm_dr's.
 PK_HOST_FN int bg_cols(const Layout& L) {
   return kNBgBase + 3 * L.ns + (L.phi_scf >= 0 ? kNScf : 0);
 }
+PK_HOST_FN int bg_cols(const LayoutIdm& L) { return kNBgBase + 3 * L.ns + kNIdmBg; }
 
 // Doubles of the frame buffer of the instance kScf: the background columns
 // and the thermodynamics columns; frame_cols(L), that of the layout's.
@@ -234,6 +300,17 @@ PK_HOST_FN int frame_cols_of(const Layout& L) {
 }
 PK_HOST_FN int frame_cols(const Layout& L) {
   return L.phi_scf >= 0 ? frame_cols_of<true>(L) : frame_cols_of<false>(L);
+}
+// the idm instance's: idm_dr's two background and three thermodynamics
+// columns beside the base ones
+PK_HOST_FN int frame_cols(const LayoutIdm& L) {
+  return kNBgBase + 3 * L.ns + kNIdmBg + kNTh + kNIdmTh;
+}
+// that of the instance (kScf, kIdm)
+template <bool kScf, bool kIdm>
+PK_HOST_FN int frame_cols_of_instance(const LayoutOf<kIdm>& L) {
+  if constexpr (kIdm) return frame_cols(L);
+  else return frame_cols_of<kScf>(L);
 }
 
 // Table values at tau, the same in every thread. `buf` (frame_cols doubles,
@@ -251,6 +328,45 @@ PK_FN void frame_at(const Tables& T, const Team& tm, double tau, double* buf, Fr
   f.scf = bgv + nbg - kNScf;
   f.kap = thv[0]; f.kapp = thv[1]; f.g = thv[2]; f.dg = thv[3]; f.emk = thv[4];
   f.cb2 = thv[5];
+}
+
+// frame_at for the idm instance: the table row with idm_dr's three
+// thermodynamics columns too (read by idm_at).
+PK_FN void frame_at_idm(const Tables& T, const Team& tm, double tau, double* buf, Frame& f) {
+  const int nbg = T.bg_ncol;
+  team::table_row(T, tm, kNTh + kNIdmTh, log(tau), buf);
+  const double* bgv = buf;
+  const double* thv = buf + nbg;
+  f.tau = tau;
+  f.a = bgv[0]; f.H = bgv[1]; f.Hp = bgv[2]; f.rho_g = bgv[3]; f.rho_b = bgv[4];
+  f.rho_cdm = bgv[5]; f.rho_ur = bgv[6]; f.rho_tot = bgv[7]; f.p_tot = bgv[8];
+  f.p_tot_prime = bgv[9];
+  f.nc = bgv + kNBgBase;
+  f.scf = bgv + nbg - kNScf;
+  f.kap = thv[0]; f.kapp = thv[1]; f.g = thv[2]; f.dg = thv[3]; f.emk = thv[4];
+  f.cb2 = thv[5];
+}
+
+// The frame of the instance: frame_at, or with idm_dr frame_at_idm.
+template <bool kIdm>
+PK_FN void frame_of(const Tables& T, const Team& tm, double tau, double* buf, Frame& f) {
+  if constexpr (kIdm)
+    frame_at_idm(T, tm, tau, buf, f);
+  else
+    frame_at(T, tm, tau, buf, f);
+}
+
+// idm_dr's values at the time of a frame that frame_at_idm filled, read from
+// its buffer: rho_idm_dr, rho_idr (the last background columns) and
+// dmu_idm_dr, dmu_idr, cidm_dr2 (after the kNTh thermodynamics columns).
+struct Idm {
+  double rho_idm, rho_idr, dmu_idm, dmu_idr, cidm2;
+};
+PK_FN Idm idm_at(const Tables& T, const Frame& fr) {
+  const double* bgv = fr.nc - kNBgBase;
+  const double* thv = bgv + T.bg_ncol;
+  return Idm{bgv[T.bg_ncol - kNIdmBg], bgv[T.bg_ncol - 1], thv[kNTh], thv[kNTh + 1],
+             thv[kNTh + 2]};
 }
 
 // The exact ncdm momentum sums of species s (perturb_total_stress_energy
@@ -281,8 +397,9 @@ PK_FN void ncdm_sums(const Layout& L, const Tables& T, const Team& tm, double a,
 // approximation with one species only the three fluid slots of the ncdm block
 // are written: the caller skips the rest of the block (its state and
 // derivative are zero). Ends with team_sync() when it wrote dy.
-template <bool kNewt, bool kScf>
-PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
+template <bool kNewt, bool kScf, bool kIdm = false>
+PK_FN void rhs_full(const LayoutOf<kIdm>& L, const TablesOf<kIdm>& T, const Team& tm,
+                    const Frame& fr,
                     const Lane& ln, const Flags& fl, const Vec y, const Vec dy, bool want_dy,
                     Locals& loc) {
   const int tid = tm.tid, nt = tm.nt;
@@ -345,6 +462,22 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
                             + 4.0 / 3.0 * rho_ur * t_ur0;
   double rho_plus_p_shear = 4.0 / 3.0 * rho_g * s_g0 + 4.0 / 3.0 * rho_ur * s_ur0;
   double delta_p = 1.0 / 3.0 * rho_g * d_g0 + cb2 * rho_b * delta_b + 1.0 / 3.0 * rho_ur * d_ur0;
+  // idm_dr and idr, before the ncdm sums (JAX equations.py:382-389)
+  double delta_idm = 0.0, theta_idm = 0.0, delta_idr = 0.0, theta_idr = 0.0, shear_idr = 0.0;
+  Idm im{};
+  if constexpr (kIdm) {
+    im = idm_at(T, fr);
+    delta_idm = y[L.idm];
+    theta_idm = y[L.idm + 1];
+    delta_idr = y[L.idm + 2];
+    theta_idr = y[L.idm + 3];
+    shear_idr = y[L.idm + 4];
+    delta_rho = delta_rho + im.rho_idm * delta_idm + im.rho_idr * delta_idr;
+    rho_plus_p_theta = rho_plus_p_theta + im.rho_idm * theta_idm
+                       + 4.0 / 3.0 * im.rho_idr * theta_idr;
+    if (!L.idr_fluid) rho_plus_p_shear = rho_plus_p_shear + 4.0 / 3.0 * im.rho_idr * shear_idr;
+    delta_p = delta_p + 1.0 / 3.0 * im.rho_idr * delta_idr;
+  }
   if (ns) {
     delta_rho += sum_rho_delta;
     rho_plus_p_theta += sum_rpt;
@@ -505,6 +638,19 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
       const double d_shear_ur_ufa = -3.0 / tau * shear_ur
                                     + 2.0 / 3.0 * (theta_ur + metric_ufa);
       dy[L.shear_ur] = ur_on ? (ufa ? d_shear_ur_ufa : d_shear_ur_full) : 0.0;
+      if constexpr (kIdm) {   // idm_dr and idr without their scattering (JAX :818-844)
+        dy[L.idm] = -(theta_idm + metric_continuity);
+        dy[L.idm + 1] = -aH * theta_idm + k2 * im.cidm2 * delta_idm;
+        dy[L.idm + 2] = -4.0 / 3.0 * (theta_idr + metric_continuity);
+        if (L.idr_fluid) {
+          dy[L.idm + 3] = k2 / 4.0 * delta_idr;
+          dy[L.idm + 4] = 0.0;
+        } else {
+          dy[L.idm + 3] = k2 * (delta_idr / 4.0 - s2 * shear_idr);
+          dy[L.idm + 4] = 0.5 * (8.0 / 15.0 * (theta_idr + metric_shear)
+                                 - 3.0 / 5.0 * k * s_l3 / s_l2 * y[L.idm + 5]);
+        }
+      }
       if constexpr (kScf) {   // Klein-Gordon (JAX equations.py:847-851)
         dy[L.phi_scf] = dphip;
         dy[L.phi_scf + 1] = -2.0 * aH * dphip - metric_continuity * phip_bg
@@ -560,6 +706,22 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
                        : k * (sl[j + 3] * lm1 - (nU + 2 + 1.0) * cotKgen * cur);
       }
       dy[L.F_ur + j] = d;
+    }
+    // idr moments l = 3..l_max_idr (free streaming; JAX equations.py:830-844)
+    if constexpr (kIdm) {
+      const int nI = L.n_F_idr, Fi = L.idm + 5;
+      for (int j = tid; j < nI; j += nt) {
+        const double l = 3.0 + j, cur = y[Fi + j];
+        double d;
+        if (j == nI - 1)
+          d = k * (sl[j + 3] * y[Fi + j - 1] - (nI + 2 + 1.0) * cotKgen * cur);
+        else if (j == 0)
+          d = k / 7.0 * (6.0 * s_l3 * s_l2 * shear_idr - 4.0 * sl[4] * y[Fi + 1]);
+        else
+          d = k / (2.0 * l + 1.0) * (l * sl[j + 3] * y[Fi + j - 1]
+                                     - (l + 1.0) * sl[j + 4] * y[Fi + j + 1]);
+        dy[Fi + j] = d;
+      }
     }
 
     // ncdm (JAX equations.py:693-729)
@@ -619,7 +781,28 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   const double delta_cb = (rho_b * delta_b + rho_cdm * delta_cdm) / rho_m_cb
                           + 3.0 * aH * theta_cb_gauge / k2;
   const double theta_cb = theta_cb_gauge + k2 * alpha;
-  if (ns) {
+  if constexpr (kIdm) {
+    // the matter sums with idm_dr after the ncdm species (JAX :880-899)
+    double rho_m = rho_m_cb, rpp_m = rho_m_cb;
+    double delta_rho_m = rho_b * delta_b + rho_cdm * delta_cdm, rpt_m = rho_theta_cb;
+    loc.delta_nc = 0.0;
+    loc.theta_nc = 0.0;
+    if (ns) {
+      rho_m = rho_m + sum_rho_nc;
+      rpp_m = rpp_m + sum_rpp_nc;
+      delta_rho_m = delta_rho_m + sum_rho_delta;
+      rpt_m = rpt_m + sum_rpt;
+      loc.delta_nc = sum_rho_delta / sum_rho_nc;
+      loc.theta_nc = sum_rpt / sum_rpp_nc;
+    }
+    rho_m = rho_m + im.rho_idm;
+    rpp_m = rpp_m + im.rho_idm;
+    delta_rho_m = delta_rho_m + im.rho_idm * delta_idm;
+    rpt_m = rpt_m + im.rho_idm * theta_idm;
+    const double theta_m_gauge = rpt_m / rpp_m;
+    loc.delta_m = delta_rho_m / rho_m + 3.0 * aH * theta_m_gauge / k2;
+    loc.theta_m = theta_m_gauge + k2 * alpha;
+  } else if (ns) {
     const double rho_m = rho_m_cb + sum_rho_nc, rpp_m = rho_m_cb + sum_rpp_nc;
     const double delta_rho_m = rho_b * delta_b + rho_cdm * delta_cdm + sum_rho_delta;
     const double theta_m_gauge = (rho_theta_cb + sum_rpt) / rpp_m;
@@ -647,7 +830,10 @@ PK_FN void rhs_full(const Layout& L, const Tables& T, const Team& tm, const Fram
   loc.delta_g_eff = d_g; loc.theta_g_eff = t_g;
   loc.delta_ur_eff = rsa ? rsa_delta_ur : delta_ur;
   loc.theta_ur_eff = rsa ? rsa_theta_ur : theta_ur;
-  if constexpr (kScf)
+  if constexpr (kIdm)
+    loc.delta_tot = delta_rho / (rho_g + rho_b + rho_cdm + rho_ur + sum_rho_nc + im.rho_idm
+                                 + im.rho_idr);
+  else if constexpr (kScf)
     loc.delta_tot = delta_rho / (rho_g + rho_b + rho_cdm + rho_ur + sum_rho_nc + fr.scf[0]);
   else
     loc.delta_tot = delta_rho / (rho_g + rho_b + rho_cdm + rho_ur + sum_rho_nc);
@@ -708,17 +894,72 @@ PK_FN void stiff_solve(const Layout& L, const Team& tm, const Frame& fr, const F
   team_sync(tm);
 }
 
+// The idm-idr part of the stiff split (equations.py stiff_apply, the idm
+// block), after stiff_apply in the idm instance: J zero from theta_b to the
+// idm block, the momentum exchange S^-1 dmu (theta_idr - theta_idm), dmu
+// (theta_idm - theta_idr) and the idr damping -(alpha_l dmu + beta_l dmu_idr)
+// on shear_idr and F_idr, none of it masked under TCA or RSA. Ends with
+// team_sync().
+PK_FN void stiff_apply_idm(const LayoutIdm& L, const TablesIdm& T, const Team& tm,
+                           const Frame& fr, const Vec y, const Vec out) {
+  const Idm im = idm_at(T, fr);
+  const double dmu = im.dmu_idm, Sinv = 4.0 * im.rho_idr / (3.0 * im.rho_idm);
+  const double th_idm = y[L.idm + 1], th_idr = y[L.idm + 3];
+  for (int i = L.theta_b + 1 + tm.tid; i < L.idm; i += tm.nt) out[i] = 0.0;
+  if (tm.tid == 0) {
+    out[L.idm] = 0.0;
+    out[L.idm + 1] = Sinv * dmu * (th_idr - th_idm);
+    out[L.idm + 2] = 0.0;
+    out[L.idm + 3] = dmu * (th_idm - th_idr);
+    if (L.idr_fluid) out[L.idm + 4] = 0.0;
+  }
+  if (!L.idr_fluid)
+    for (int j = tm.tid; j < 1 + L.n_F_idr; j += tm.nt) {
+      const double damp = T.idr_alpha[j] * dmu + T.idr_beta[j] * im.dmu_idr;
+      out[L.idm + 4 + j] = -damp * y[L.idm + 4 + j];
+    }
+  team_sync(tm);
+}
+
+// Its solve, in place on r after stiff_solve: the 2x2 {theta_idr, theta_idm}
+// block, det = 1 + b (1 + S^-1) with b = gh dmu, and the idr damping's
+// diagonal; the gap before the block is the identity. Ends with team_sync().
+PK_FN void stiff_solve_idm(const LayoutIdm& L, const TablesIdm& T, const Team& tm,
+                           const Frame& fr, double gh, const Vec r) {
+  const Idm im = idm_at(T, fr);
+  const double dmu = im.dmu_idm, Sinv = 4.0 * im.rho_idr / (3.0 * im.rho_idm);
+  const double b = gh * dmu;
+  if (tm.tid == 0) {
+    const double r_r = r[L.idm + 3], r_m = r[L.idm + 1];
+    const double det_i = 1.0 + b * (1.0 + Sinv);
+    r[L.idm + 3] = ((1.0 + b * Sinv) * r_r + b * r_m) / det_i;
+    r[L.idm + 1] = (b * Sinv * r_r + (1.0 + b) * r_m) / det_i;
+  }
+  if (!L.idr_fluid)
+    for (int j = tm.tid; j < 1 + L.n_F_idr; j += tm.nt) {
+      const double ad = gh * (T.idr_alpha[j] * dmu + T.idr_beta[j] * im.dmu_idr);
+      r[L.idm + 4 + j] = r[L.idm + 4 + j] / (1.0 + ad);
+    }
+  team_sync(tm);
+}
+
 // Adiabatic initial state at fr.tau (equations.py adiabatic_ic), and in the
 // Newtonian gauge its transform (equations.py ic_to_newtonian): alpha from the
 // first two Einstein equations, every species shifted by it, theta_cdm =
 // k^2 alpha, phi in the eta slot, and the ncdm Psi_0, Psi_1 seeded from the
 // shifted ur variables. Ends with team_sync().
-template <bool kNewt>
-PK_FN void adiabatic_ic(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
-                        const Lane& ln, const Vec y) {
+template <bool kNewt, bool kIdm = false>
+PK_FN void adiabatic_ic(const LayoutOf<kIdm>& L, const TablesOf<kIdm>& T, const Team& tm,
+                        const Frame& fr, const Lane& ln, const Vec y) {
   const double k = ln.k, tau = fr.tau, ci = 1.0, s2 = 1.0 - 3.0 * ln.K / (k * k);
-  const double rho_r = fr.rho_g + fr.rho_ur, rho_m = fr.rho_b + fr.rho_cdm;
-  const double fracnu = fr.rho_ur / rho_r, fracb = fr.rho_b / rho_m;
+  // with idm_dr, idm as matter and idr as free-streaming radiation (JAX
+  // :1125-1130); the instances without it keep their expressions
+  Idm im{};
+  if constexpr (kIdm) im = idm_at(T, fr);
+  const double rho_r = kIdm ? fr.rho_g + fr.rho_ur + im.rho_idr : fr.rho_g + fr.rho_ur;
+  const double rho_m = kIdm ? fr.rho_b + fr.rho_cdm + im.rho_idm : fr.rho_b + fr.rho_cdm;
+  const double fracnu = kIdm ? (fr.rho_ur + im.rho_idr) / rho_r : fr.rho_ur / rho_r;
+  const double fracb = fr.rho_b / rho_m;
   const double om = fr.a * rho_m / sqrt(rho_r);
   const double kt = k * tau, ktau2 = kt * kt, ktau3 = kt * kt * kt;
   const double delta_g = -ktau2 / 3.0 * (1.0 - om * tau / 5.0) * ci * s2;
@@ -775,6 +1016,16 @@ PK_FN void adiabatic_ic(const Layout& L, const Tables& T, const Team& tm, const 
     y[L.delta_b] = 0.75 * delta_g;
     y[L.theta_b] = theta_g;
     y[L.delta_cdm] = 0.75 * delta_g;
+    if constexpr (kIdm) {   // (JAX equations.py:1169-1177)
+      y[L.idm] = 0.75 * delta_g;
+      y[L.idm + 1] = theta_ur;
+      y[L.idm + 2] = delta_g;
+      y[L.idm + 3] = theta_ur;
+      if (!L.idr_fluid) {
+        y[L.idm + 4] = shear_ur;
+        y[L.idm + 5] = l3_ur;
+      }
+    }
     y[L.delta_ur] = delta_g;
     y[L.theta_ur] = theta_ur;
     y[L.shear_ur] = shear_ur;
@@ -905,12 +1156,12 @@ PK_FN void isocurvature_ic(const Layout& L, const Tables& T, const Team& tm, con
 // Photon hierarchy from its tight-coupling values (remap_tca_off). `fl` are
 // the flags at the switch time; the shear is evaluated with tca forced on.
 // Ends with team_sync().
-template <bool kNewt, bool kScf>
-PK_FN void remap_tca_off(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
-                         const Lane& ln, Flags fl, const Vec y) {
+template <bool kNewt, bool kScf, bool kIdm = false>
+PK_FN void remap_tca_off(const LayoutOf<kIdm>& L, const TablesOf<kIdm>& T, const Team& tm,
+                         const Frame& fr, const Lane& ln, Flags fl, const Vec y) {
   Locals loc;
   fl.tca = true;
-  rhs_full<kNewt, kScf>(L, T, tm, fr, ln, fl, y, y, false, loc);
+  rhs_full<kNewt, kScf, kIdm>(L, T, tm, fr, ln, fl, y, y, false, loc);
   team_sync(tm);   // every thread has read y
   if (tm.tid == 0) {
     const double kk = ln.k / fr.kap, s_l2 = ln.sl[2], s_l3 = ln.sl[3];
@@ -962,11 +1213,12 @@ PK_FN void remap_ncdmfa_on(const Layout& L, const Tables& T, const Team& tm, con
 // The 27 source columns at (k, fr.tau) (compute_sources), SrcIdx order, in
 // the efficient form of the gauge, written by thread 0 to `out` (which no
 // thread of the team reads).
-template <bool kNewt, bool kScf>
-PK_FN void compute_sources(const Layout& L, const Tables& T, const Team& tm, const Frame& fr,
-                           const Lane& ln, const Flags& fl, const Vec y, double* out) {
+template <bool kNewt, bool kScf, bool kIdm = false>
+PK_FN void compute_sources(const LayoutOf<kIdm>& L, const TablesOf<kIdm>& T, const Team& tm,
+                           const Frame& fr, const Lane& ln, const Flags& fl, const Vec y,
+                           double* out) {
   Locals c;
-  rhs_full<kNewt, kScf>(L, T, tm, fr, ln, fl, y, y, false, c);
+  rhs_full<kNewt, kScf, kIdm>(L, T, tm, fr, ln, fl, y, y, false, c);
   if (tm.tid != 0) return;
   const double k = ln.k, k2 = k * k;
   const double g = fr.g, dg = fr.dg, emk = fr.emk;
@@ -998,10 +1250,13 @@ PK_FN void compute_sources(const Layout& L, const Tables& T, const Team& tm, con
 }
 
 // Scratch of one lane, in doubles: y, Y, ynew (n each), FE (6 n), FI (6 nst),
-// E (nst), with nst = theta_b + 1 the stiff range, the frame buffer and the
-// s_l table (the layout's instance).
+// E (nst), with nst = n_stiff the stiff range, the frame buffer and the s_l
+// table (the layout's instance).
 PK_HOST_FN long work_doubles(const Layout& L) {
   return 9L * L.n + 7L * (L.theta_b + 1) + frame_cols(L) + sl_count(L);
+}
+PK_HOST_FN long work_doubles(const LayoutIdm& L) {
+  return 9L * L.n + 7L * n_stiff<true>(L) + frame_cols(L) + sl_count(L);
 }
 
 // Integrate one lane from tau_ini through every sample (solve.py `_step`
@@ -1009,16 +1264,16 @@ PK_HOST_FN long work_doubles(const Layout& L) {
 // rtol/atol: this lane's per-component tolerances; work: the lane's scratch,
 // shared by the team (ln.sl is set to its s_l table). Every thread returns the
 // same status word and step count.
-template <bool kNewt, bool kScf>
-PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane ln,
+template <bool kNewt, bool kScf, bool kIdm = false>
+PK_FN int integrate_lane(const LayoutOf<kIdm>& L, const TablesOf<kIdm>& T, const Team& tm, Lane ln,
                          double tau_ini, const double* taus, int ntau, const double* rtol,
                          const double* atol, long max_steps, const Vec work, double* S,
                          long long* nsteps_out, long long* prof_out = nullptr) {
   const int tid = tm.tid, nt = tm.nt;
-  const int n = L.n, nst = L.theta_b + 1, ns = L.ns;
+  const int n = L.n, nst = n_stiff<kIdm>(L), ns = L.ns;
   const Vec y = work, Y = work + n, ynew = work + 2L * n, FE = work + 3L * n;
   const Vec FI = work + 9L * n, E = work + 9L * n + 6L * nst, fbuf = E + nst;
-  const Vec sl = fbuf + frame_cols_of<kScf>(L);
+  const Vec sl = fbuf + frame_cols_of_instance<kScf, kIdm>(L);
   const double sw[4] = {ln.t_tca, ln.t_ufa, ln.t_rsa, ln.t_ncfa};
   const int nsw = ns ? 4 : 3;
   const double inf = INFINITY;
@@ -1034,9 +1289,9 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
 
   Frame fr;
   double t = tau_ini, h = 0.1 * tau_ini;
-  frame_at(T, tm, t, fbuf, fr);
+  frame_of<kIdm>(T, tm, t, fbuf, fr);
   if (ln.ic == kIcAd)
-    adiabatic_ic<kNewt>(L, T, tm, fr, ln, y);
+    adiabatic_ic<kNewt, kIdm>(L, T, tm, fr, ln, y);
   else
     isocurvature_ic<kNewt>(L, T, tm, fr, ln, y);
 
@@ -1060,7 +1315,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
 
     // --- six stages (ops/ode.py ark_step)
     for (int i = 0; i < kStages; ++i) {
-      frame_at(T, tm, t + kC[i] * h_eff, fbuf, fr);
+      frame_of<kIdm>(T, tm, t + kC[i] * h_eff, fbuf, fr);
       PK_PROF(0)
       const Vec fe = FE + (long)i * n, fi = FI + (long)i * nst;
       if (i > 0) {
@@ -1076,13 +1331,15 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
         team_sync(tm);
         PK_PROF(1)
         stiff_solve(L, tm, fr, fl, sl2, gh, Y);
+        if constexpr (kIdm) stiff_solve_idm(L, T, tm, fr, gh, Y);
         PK_PROF(2)
       }
       const Vec Ys = i == 0 ? y : Y;
       Locals unused;
       stiff_apply(L, tm, fr, fl, sl2, Ys, fi);
+      if constexpr (kIdm) stiff_apply_idm(L, T, tm, fr, Ys, fi);
       PK_PROF(3)
-      rhs_full<kNewt, kScf>(L, T, tm, fr, ln, fl, Ys, fe, true, unused);
+      rhs_full<kNewt, kScf, kIdm>(L, T, tm, fr, ln, fl, Ys, fe, true, unused);
       PK_PROF(4)
       for (int c = tid; c < nst; c += nt) fe[c] -= fi[c];
       team_sync(tm);
@@ -1121,6 +1378,7 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       if (pass == 0) {
         team_sync(tm);
         stiff_solve(L, tm, fr, fl, sl2, gh, E);
+        if constexpr (kIdm) stiff_solve_idm(L, T, tm, fr, gh, E);
       }
     }
     ratio = team_max(tm, ratio);
@@ -1152,17 +1410,17 @@ PK_FN int integrate_lane(const Layout& L, const Tables& T, const Team& tm, Lane 
       }
       if (any) {
         const Flags fn = flags_at(ln, t_new);
-        frame_at(T, tm, t_new, fbuf, fr);
-        if (crossed[0]) remap_tca_off<kNewt, kScf>(L, T, tm, fr, ln, fn, y);
+        frame_of<kIdm>(T, tm, t_new, fbuf, fr);
+        if (crossed[0]) remap_tca_off<kNewt, kScf, kIdm>(L, T, tm, fr, ln, fn, y);
         if (crossed[1]) remap_ufa_on(L, tm, y);
         if (crossed[2]) remap_rsa_on(L, tm, y);
         if (ns && crossed[3]) remap_ncdmfa_on(L, T, tm, fr, ln, y);
       }
       t = t_new;
       if (t_new >= t_b * (1.0 - 1e-15)) {
-        frame_at(T, tm, t_b, fbuf, fr);
-        compute_sources<kNewt, kScf>(L, T, tm, fr, ln, flags_at(ln, t_b), y,
-                                     S + (long)j * kNSrc);
+        frame_of<kIdm>(T, tm, t_b, fbuf, fr);
+        compute_sources<kNewt, kScf, kIdm>(L, T, tm, fr, ln, flags_at(ln, t_b), y,
+                                           S + (long)j * kNSrc);
         t = t_b;
         ++j;
       }

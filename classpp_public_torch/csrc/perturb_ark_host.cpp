@@ -12,18 +12,22 @@
 // instance of the layout's scalar field (Layout::phi_scf) and gauge.
 // perturb_ark_host_gauge is its case of adiabatic lanes (ic null),
 // perturb_ark_host_curved that case in the synchronous gauge,
-// perturb_ark_host the flat synchronous one (K = 0), and perturb_ark_host_scf
-// the synchronous case that requires a scalar field in the layout. The
+// perturb_ark_host the flat synchronous one (K = 0), perturb_ark_host_scf
+// the synchronous case that requires a scalar field in the layout, and
+// perturb_ark_host_idm the one that requires idm_dr (the idr damping's
+// alpha_l, beta_l behind the ncdm data, as perturb_ark_launch takes them). The
 // package never loads this library; tests/test_torch_perturbations.py,
 // tests/test_torch_curved.py, tests/test_torch_newtonian.py,
-// tests/test_torch_isocurvature.py and tests/test_torch_scf.py do.
+// tests/test_torch_isocurvature.py, tests/test_torch_scf.py and
+// tests/test_torch_idm_dr.py do.
 
 #include "perturb_ark.cuh"
 
 namespace {
 
-template <bool kNewt, bool kScf>
-void run_lanes(const pk::Layout& L, const pk::Tables& T, const double* lanes, const double* taus,
+template <bool kNewt, bool kScf, bool kIdm>
+void run_lanes(const pk::LayoutOf<kIdm>& L, const pk::TablesOf<kIdm>& T, const double* lanes,
+               const double* taus,
                const double* rtol, const double* atol, const int* ic, double k_eta_split,
                double K, int sgnK,
                long long max_steps, int nlanes, int ntau, double* work, double* S,
@@ -41,7 +45,7 @@ void run_lanes(const pk::Layout& L, const pk::Tables& T, const double* lanes, co
     ln.K = K;
     ln.sgnK = sgnK;
     ln.sl = nullptr;
-    status[lane] = pk::integrate_lane<kNewt, kScf>(
+    status[lane] = pk::integrate_lane<kNewt, kScf, kIdm>(
         L, T, pk::Team{0, 1}, ln, tau_ini, taus, ntau, rtol + (long)lane * L.n,
         atol + (long)lane * L.n, (long)max_steps, work, S + (long)lane * ntau * pk::kNSrc,
         &nsteps[lane]);
@@ -58,28 +62,35 @@ extern "C" int perturb_ark_host_ic(const int* layout, const double* lanes, const
                                    const int* ic, double k_eta_split, double K, int sgnK,
                                    int gauge, long long max_steps, int nlanes, int ntau,
                                    double* work, double* S, long long* nsteps, int* status) {
-  pk::Layout L;
-  int* li = reinterpret_cast<int*>(&L);
-  for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
-  pk::Tables T;
+  pk::LayoutIdm LI;
+  pk::read_layout(layout, LI);
+  const pk::Layout& L = LI;
+  const bool idm = LI.idm >= 0;
+  pk::TablesIdm TI;
+  pk::Tables& T = TI;
   T.bg_y = bg_y; T.bg_y2 = bg_y2; T.bg_x0 = bg_x0; T.bg_dx = bg_dx; T.bg_n = bg_n;
-  T.bg_ncol = pk::bg_cols(L);
+  T.bg_ncol = idm ? pk::bg_cols(LI) : pk::bg_cols(L);
   T.th_y = th_y; T.th_y2 = th_y2; T.th_x0 = th_x0; T.th_dx = th_dx; T.th_n = th_n;
   const long nsq = (long)L.ns * L.nq;
   T.q = ncdm; T.w = ncdm + L.nq; T.dlnf0 = T.w + nsq; T.x_fac = T.dlnf0 + nsq;
   T.pref = T.x_fac + L.ns;
+  TI.idr_alpha = T.pref + L.ns;
+  TI.idr_beta = TI.idr_alpha + 1 + LI.n_F_idr;
   if (gauge < 0 || gauge > 1 || (gauge == 1) != (L.theta_cdm >= 0)
-      || (gauge == 1 && L.phi_scf >= 0))
+      || (gauge == 1 && (L.phi_scf >= 0 || idm)) || (idm && L.phi_scf >= 0))
     return 1;
   if (gauge == 1)
-    run_lanes<true, false>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps,
-                           nlanes, ntau, work, S, nsteps, status);
+    run_lanes<true, false, false>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK,
+                                  max_steps, nlanes, ntau, work, S, nsteps, status);
   else if (L.phi_scf >= 0)
-    run_lanes<false, true>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps,
-                           nlanes, ntau, work, S, nsteps, status);
+    run_lanes<false, true, false>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK,
+                                  max_steps, nlanes, ntau, work, S, nsteps, status);
+  else if (idm)
+    run_lanes<false, false, true>(LI, TI, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK,
+                                  max_steps, nlanes, ntau, work, S, nsteps, status);
   else
-    run_lanes<false, false>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK, max_steps,
-                            nlanes, ntau, work, S, nsteps, status);
+    run_lanes<false, false, false>(L, T, lanes, taus, rtol, atol, ic, k_eta_split, K, sgnK,
+                                   max_steps, nlanes, ntau, work, S, nsteps, status);
   return 0;
 }
 
@@ -92,6 +103,20 @@ extern "C" int perturb_ark_host_scf(const int* layout, const double* lanes, cons
                                     int nlanes, int ntau, double* work, double* S,
                                     long long* nsteps, int* status) {
   if (layout[pk::kLayoutInts - 1] < 0) return 1;   // no scalar field in the layout
+  return perturb_ark_host_ic(layout, lanes, taus, bg_y, bg_y2, bg_x0, bg_dx, bg_n, th_y, th_y2,
+                             th_x0, th_dx, th_n, ncdm, rtol, atol, nullptr, k_eta_split, K, sgnK,
+                             0, max_steps, nlanes, ntau, work, S, nsteps, status);
+}
+
+extern "C" int perturb_ark_host_idm(const int* layout, const double* lanes, const double* taus,
+                                    const double* bg_y, const double* bg_y2, double bg_x0,
+                                    double bg_dx, int bg_n, const double* th_y,
+                                    const double* th_y2, double th_x0, double th_dx, int th_n,
+                                    const double* ncdm, const double* rtol, const double* atol,
+                                    double k_eta_split, double K, int sgnK, long long max_steps,
+                                    int nlanes, int ntau, double* work, double* S,
+                                    long long* nsteps, int* status) {
+  if (layout[22] < 0) return 1;   // no idm_dr in the layout (pk::read_layout)
   return perturb_ark_host_ic(layout, lanes, taus, bg_y, bg_y2, bg_x0, bg_dx, bg_n, th_y, th_y2,
                              th_x0, th_dx, th_n, ncdm, rtol, atol, nullptr, k_eta_split, K, sgnK,
                              0, max_steps, nlanes, ntau, work, S, nsteps, status);
@@ -140,8 +165,7 @@ extern "C" int perturb_ark_host(const int* layout, const double* lanes, const do
 // pk::work_doubles of a layout: the lane scratch the kernel sizes its shared
 // memory by, so the wrapper's count (solve.py work_doubles) can be held to it.
 extern "C" long long perturb_ark_host_work_doubles(const int* layout) {
-  pk::Layout L;
-  int* li = reinterpret_cast<int*>(&L);
-  for (int i = 0; i < pk::kLayoutInts; ++i) li[i] = layout[i];
-  return pk::work_doubles(L);
+  pk::LayoutIdm LI;
+  pk::read_layout(layout, LI);
+  return LI.idm >= 0 ? pk::work_doubles(LI) : pk::work_doubles(static_cast<const pk::Layout&>(LI));
 }

@@ -68,10 +68,13 @@ def spline(d: dict, device) -> UniformSpline:
 def background(d: dict, device, names=None) -> tuple:
     """(BackgroundResult, BgIdx) from a JAX BackgroundResult dict. `names`
     (the JAX BgIdx.names) reorders the table columns when given; the scalar
-    field's columns come across when `names` holds them."""
+    field's columns and idm_dr's (rho_idm_dr, rho_idr) come across when
+    `names` holds them. The thermodynamics table carries idm_dr's rates and
+    sound speed in every case (zeros without it)."""
     n_ncdm = len(np.atleast_1d(np.asarray(d.get("rho_ncdm0", ()))))
     has_scf = names is not None and "rho_scf" in names
-    idx = BgIdx(n_ncdm, has_scf)
+    has_idm = names is not None and "rho_idm_dr" in names
+    idx = BgIdx(n_ncdm, has_scf, has_idm)
     cols = slice(None) if names is None else [list(names).index(n) for n in idx.names]
     table = np.asarray(d["table"])[:, cols]
     spl = d["lntau_spline"]

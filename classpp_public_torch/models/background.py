@@ -44,18 +44,23 @@ HOST = torch.device("cpu")
 
 class BgIdx:
     """Column indices of the background runtime table (index_bg_*,
-    source/background_module.h:40-99), LambdaCDM + ur (+ scf) + ncdm layout:
-    the scalar field's seven columns after rho_ur (background.py:50-52), then
-    three columns (rho, p, pseudo-pressure) per ncdm species."""
+    source/background_module.h:40-99), LambdaCDM + ur (+ scf) (+ idm_dr) + ncdm
+    layout: the scalar field's seven columns after rho_ur (background.py:50-52),
+    then rho_idm_dr and rho_idr (:53-54), then three columns (rho, p,
+    pseudo-pressure) per ncdm species."""
 
     SCF_NAMES = ("rho_scf", "p_scf", "phi_scf", "phi_prime_scf", "V_scf", "dV_scf", "ddV_scf")
+    IDM_NAMES = ("rho_idm_dr", "rho_idr")
 
-    def __init__(self, n_ncdm: int = 0, has_scf: bool = False):
-        self.key = (n_ncdm, False, False, has_scf, False, 0, 0)
+    def __init__(self, n_ncdm: int = 0, has_scf: bool = False, has_idm_dr: bool = False):
+        self.key = (n_ncdm, False, False, has_scf, has_idm_dr, 0, 0)
         self.has_scf = has_scf
+        self.has_idm_dr = has_idm_dr
         names = ["a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm", "rho_lambda", "rho_ur"]
         if has_scf:
             names += list(self.SCF_NAMES)
+        if has_idm_dr:
+            names += list(self.IDM_NAMES)
         for i in range(n_ncdm):
             names += [f"rho_ncdm{i}", f"p_ncdm{i}", f"pseudo_p_ncdm{i}"]
         names += ["rho_tot", "p_tot", "p_tot_prime", "rho_crit", "Omega_m", "Omega_r",
@@ -546,6 +551,18 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     rho_ncdm0 = tuple(float(r[-1]) for r in rho_ncdm)
     Omega0_ncdm_tot = sum(rho_ncdm0) / H0**2
 
+    # interacting dark matter (a^-3) and dark radiation (a^-4) at T_idr =
+    # xi T_cmb, Omega0_idr = stat_f_idr xi^4 Omega0_g (background.py:418-430)
+    # (zeros without them, which leave every sum below as it was)
+    has_idm = params.Omega_idm_dr > 0.0
+    Omega0_idm_dr, Omega0_idr = 0.0, 0.0
+    rho_idm_dr, rho_idr = torch.zeros_like(a), torch.zeros_like(a)
+    if has_idm:
+        Omega0_idm_dr = params.Omega_idm_dr
+        Omega0_idr = params.stat_f_idr * params.xi_idr ** 4 * Omega0_g
+        rho_idm_dr = Omega0_idm_dr * H0**2 / a**3
+        rho_idr = Omega0_idr * H0**2 / a**4
+
     # --- scalar-field dark energy (background.py:600-691): the Klein-Gordon
     # march (`scf_march`, one kernel launch a batch of shots on a card) inside
     # the shooting of scf_parameters[scf_tuning_index] for Omega_scf today
@@ -596,15 +613,18 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     else:
         Omega0_scf = 0.0
 
-    Omega0_others = Omega0_g + Omega0_b + Omega0_cdm + Omega0_ur + Omega0_ncdm_tot + Omega0_scf
+    Omega0_others = (Omega0_g + Omega0_b + Omega0_cdm + Omega0_ur + Omega0_ncdm_tot + Omega0_scf
+                     + Omega0_idm_dr + Omega0_idr)
     Omega0_lambda = 1.0 - params.Omega_k - Omega0_others
     rho_lambda = torch.full_like(a, Omega0_lambda * H0**2)
 
+    # (background.py:748-751)
     rho_tot = rho_g + rho_b + rho_cdm + rho_ur + rho_lambda
-    p_tot = (rho_g + rho_ur) / 3.0 - rho_lambda
+    p_tot = (rho_g + rho_ur + rho_idr) / 3.0 - rho_lambda
     if has_scf:
         rho_tot = rho_tot + rho_scf
         p_tot = p_tot + p_scf
+    rho_tot = rho_tot + rho_idm_dr + rho_idr
     for i in range(n_ncdm):
         rho_tot = rho_tot + rho_ncdm[i]
         p_tot = p_tot + p_ncdm[i]
@@ -613,7 +633,7 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     H = torch.sqrt(rho_crit)
     aH = a * H
     H_prime = -1.5 * a * (rho_tot + p_tot) - params.Omega_k * H0**2 / a
-    p_tot_prime = -(4.0 / 3.0) * aH * (rho_g + rho_ur)
+    p_tot_prime = -(4.0 / 3.0) * aH * (rho_g + rho_ur + rho_idr)
     if has_scf:
         # p_scf' = phi'(-phi' H/a - 2/3 dV) (background_functions :564-568)
         p_tot_prime = p_tot_prime + phi_prime_scf * (-phi_prime_scf * H / a
@@ -657,8 +677,8 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
                                           (a0, a0 * 2.0 * aH0)))
 
     # --- z_eq (radiation-matter equality)
-    rho_r_tot = rho_g + rho_ur
-    rho_m_tot = rho_b + rho_cdm
+    rho_r_tot = rho_g + rho_ur + rho_idr
+    rho_m_tot = rho_b + rho_cdm + rho_idm_dr
     if has_scf:
         # the field's pressure counts as radiation, the rest as matter
         # (background_functions :364-365)
@@ -674,7 +694,7 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     z_eq = float(torch.exp(-loga_eq) - 1.0)
     tau_eq = float(interp(loga_eq, loga, tau))
 
-    idx = BgIdx(n_ncdm, has_scf)
+    idx = BgIdx(n_ncdm, has_scf, has_idm)
     cols = {
         "a": a, "H": H, "H_prime": H_prime,
         "rho_g": rho_g, "rho_b": rho_b, "rho_cdm": rho_cdm,
@@ -689,6 +709,8 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     if has_scf:
         cols.update(rho_scf=rho_scf, p_scf=p_scf, phi_scf=phi_scf, phi_prime_scf=phi_prime_scf,
                     V_scf=V_scf, dV_scf=dV_scf, ddV_scf=ddV_scf)
+    if has_idm:
+        cols.update(rho_idm_dr=rho_idm_dr, rho_idr=rho_idr)
     for i in range(n_ncdm):
         cols[f"rho_ncdm{i}"] = rho_ncdm[i]
         cols[f"p_ncdm{i}"] = p_ncdm[i]
@@ -709,7 +731,8 @@ def _compute_background_impl(params: CosmoParams, pr: PrecisionParams, device="c
     res = BackgroundResult(
         loga=loga, tau_of_loga=tau, table=table, lntau_spline=lntau_spline,
         tau0=tau0, age=age, z_eq=z_eq, tau_eq=tau_eq, a_today=1.0, H0=H0,
-        Omega0_m=Omega0_b + Omega0_cdm + Omega0_ncdm_tot, Omega0_r=Omega0_g + Omega0_ur,
+        Omega0_m=Omega0_b + Omega0_cdm + Omega0_ncdm_tot + Omega0_idm_dr,
+        Omega0_r=Omega0_g + Omega0_ur + Omega0_idr,
         Omega0_g=Omega0_g, Omega0_b=Omega0_b, Omega0_cdm=Omega0_cdm,
         Omega0_lambda=Omega0_lambda, Omega0_ur=Omega0_ur,
         Omega0_ncdm_tot=Omega0_ncdm_tot, rho_ncdm0=rho_ncdm0, scf_parameters=scf_pars,

@@ -12,7 +12,10 @@ polarization, baryons, cdm, massless neutrinos, massive neutrinos (ncdm: the
 Psi_l(q) hierarchy on a shared momentum grid, or its fluid approximation), in
 the synchronous gauge a quintessence scalar field (delta phi, delta phi') and
 the metric, in open, flat and closed universes, in the synchronous or the
-Newtonian gauge. The curvature enters through the free-streaming factors
+Newtonian gauge, and in the synchronous gauge interacting dark matter with
+interacting dark radiation (idm_dr: the idm density and velocity, the idr
+hierarchy or its fluid; equations.py:307-318, :382-389, :818-844,
+:880-931, :996-1102, :1125-1177). The curvature enters through the free-streaming factors
 s_l = sqrt(1 - K (l^2 - 1)/k^2), s2 = 1 - 3 K/k^2 and cotKgen =
 sqrt|K| cot_K(sqrt|K| tau)/k (`curvature`); in a flat universe s_l = s2 = 1
 exactly and cotKgen = 1/(k tau).
@@ -45,6 +48,10 @@ BG_COLS = ("a", "H", "H_prime", "rho_g", "rho_b", "rho_cdm", "rho_ur",
 TH_COLS = ("dkappa", "ddkappa", "g", "dg", "exp_m_kappa", "cb2")
 # the scalar field's background columns, after the ncdm ones (Frame.scf)
 SCF_COLS = ("rho_scf", "phi_prime_scf", "dV_scf", "ddV_scf")
+# interacting dark matter and dark radiation: their background columns after
+# the ncdm ones and their thermodynamics columns after TH_COLS (Frame.idm)
+IDM_BG_COLS = ("rho_idm_dr", "rho_idr")
+IDM_TH_COLS = ("dmu_idm_dr", "dmu_idr", "cidm_dr2")
 # the initial conditions; a lane's IC code is its index here (PertCtx.ic)
 IC_KINDS = ("ad", "bi", "cdi", "nid", "niv")
 
@@ -75,6 +82,9 @@ class PertTables(NamedTuple):
     idx: PtIdx
     ncdm: NcdmCtx = None   # when idx.n_ncdm > 0
     K: float = 0.0         # spatial curvature [Mpc^-2] = -Omega_k H0^2; sign idx.sgnK
+    # with idm_dr: the (2, l_max_idr - 1) table of the idr damping's alpha_l
+    # and beta_l, l = 2..l_max_idr (PtIdx.idr_damping_coeffs)
+    idr_damp: torch.Tensor = None
 
 
 class Frame(NamedTuple):
@@ -101,22 +111,29 @@ class Frame(NamedTuple):
     p_nc: torch.Tensor = None
     pp_nc: torch.Tensor = None
     scf: tuple = None             # SCF_COLS per lane, with a scalar field
+    idm: tuple = None             # IDM_BG_COLS then IDM_TH_COLS per lane, with idm_dr
 
 
 def make_tables(bg, bidx, th, idx: PtIdx, ncdm: NcdmCtx = None, K: float = 0.0) -> PertTables:
-    """Restrict the runtime splines to BG_COLS (+ ncdm columns, + SCF_COLS) /
-    TH_COLS."""
+    """Restrict the runtime splines to BG_COLS (+ ncdm columns, + SCF_COLS or
+    IDM_BG_COLS) / TH_COLS (+ IDM_TH_COLS)."""
     bi = [bidx[n] for n in BG_COLS]
     for i in range(idx.n_ncdm):
         bi += [bidx[f"rho_ncdm{i}"], bidx[f"p_ncdm{i}"], bidx[f"pseudo_p_ncdm{i}"]]
     if idx.has_scf:
         bi += [bidx[n] for n in SCF_COLS]
     ti = [ThIdx.ix[n] for n in TH_COLS]
+    damp = None
+    if idx.has_idm_dr:
+        bi += [bidx[n] for n in IDM_BG_COLS]
+        ti += [ThIdx.ix[n] for n in IDM_TH_COLS]
+        damp = torch.tensor(idx.idr_damping_coeffs(), dtype=torch.float64,
+                            device=bg.lntau_spline.y.device)
     b, t = bg.lntau_spline, th.lntau_spline
     return PertTables(
         bg=b._replace(y=b.y[:, bi].contiguous(), y2=b.y2[:, bi].contiguous()),
         th=t._replace(y=t.y[:, ti].contiguous(), y2=t.y2[:, ti].contiguous()),
-        idx=idx, ncdm=ncdm, K=K)
+        idx=idx, ncdm=ncdm, K=K, idr_damp=damp)
 
 
 def frame_at(tau: torch.Tensor, tables: PertTables) -> Frame:
@@ -127,7 +144,9 @@ def frame_at(tau: torch.Tensor, tables: PertTables) -> Frame:
     ne = nb + 3 * idx.n_ncdm
     nc = bgv[:, nb:ne].reshape(bgv.shape[0], -1, 3).unbind(-1) if idx.n_ncdm else (None,) * 3
     scf = bgv[:, ne:].unbind(-1) if idx.has_scf else None
-    return Frame(tau, *bgv[:, :nb].unbind(-1), *thv, *nc, scf)
+    nt = len(TH_COLS)
+    idm = bgv[:, ne:].unbind(-1) + thv[nt:] if idx.has_idm_dr else None
+    return Frame(tau, *bgv[:, :nb].unbind(-1), *thv[:nt], *nc, scf, idm)
 
 
 class PertCtx(NamedTuple):
@@ -197,6 +216,7 @@ class KFactors(NamedTuple):
     p: Hierarchy           # polarization, l = 0..l_max_pol_g
     u: Hierarchy           # massless neutrinos, l = 3..l_max_ur
     n: Hierarchy = None    # ncdm, l = 0..l_max_ncdm
+    i: Hierarchy = None    # idr, l = 3..l_max_idr (free streaming)
 
 
 def _s_of_l(k2: torch.Tensor, K: float):
@@ -220,7 +240,8 @@ def k_factors(k: torch.Tensor, K: float, idx: PtIdx) -> KFactors:
     return KFactors(s2, torch.sqrt(torch.clamp(s2, min=0.0)),
                     torch.sqrt(torch.clamp(1.0 - K * 8.0 / k2, min=0.0)),
                     hier(3, idx.l_max_g), hier(0, idx.l_max_pol_g), hier(3, idx.l_max_ur),
-                    hier(0, idx.n_l_ncdm - 1, True) if idx.n_ncdm else None)
+                    hier(0, idx.n_l_ncdm - 1, True) if idx.n_ncdm else None,
+                    hier(3, idx.l_max_idr) if idx.n_F_idr else None)
 
 
 def cot_kgen(k: torch.Tensor, tau: torch.Tensor, K: float, sgnK: int) -> torch.Tensor:
@@ -321,6 +342,22 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx, want_loc: bool = True):
     rho_plus_p_shear = 4.0 / 3.0 * rho_g * s_g + 4.0 / 3.0 * rho_ur * s_ur
     if want_loc:
         delta_p = 1.0 / 3.0 * rho_g * d_g + cb2 * rho_b * delta_b + 1.0 / 3.0 * rho_ur * d_ur
+    if idx.has_idm_dr:
+        # idm_dr and idr (perturb_total_stress_energy :6244-6251;
+        # equations.py:307-318, :382-389), before the ncdm sums as in JAX
+        delta_idm = y[:, idx.delta_idm_dr]
+        theta_idm = y[:, idx.theta_idm_dr_pt]
+        delta_idr = y[:, idx.delta_idr]
+        theta_idr = y[:, idx.theta_idr]
+        shear_idr = y[:, idx.shear_idr]
+        rho_idm, rho_idr, _, _, cidm2 = fr.idm
+        delta_rho = delta_rho + rho_idm * delta_idm + rho_idr * delta_idr
+        rho_plus_p_theta = rho_plus_p_theta + rho_idm * theta_idm \
+            + 4.0 / 3.0 * rho_idr * theta_idr
+        if not idx.idr_fluid:
+            rho_plus_p_shear = rho_plus_p_shear + 4.0 / 3.0 * rho_idr * shear_idr
+        if want_loc:
+            delta_p = delta_p + 1.0 / 3.0 * rho_idr * delta_idr
     if idx.n_ncdm:
         delta_rho = delta_rho + rho_delta_nc.sum(dim=1)
         rho_plus_p_theta = rho_plus_p_theta + rpt_nc.sum(dim=1)
@@ -548,6 +585,30 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx, want_loc: bool = True):
         dPsi = _w(ctx.ncdmfa_on[:, None, None, None], dPsi_fl, dPsi)
         dy[:, idx.ncdm: idx.ncdm + idx.n_ncdm_block] = dPsi.reshape(y.shape[0], -1)
 
+    if idx.has_idm_dr:
+        # idm_dr and idr without their scattering, which the stiff split
+        # carries (perturb_derivs :8252-8268, :8572-8612; equations.py:818-844)
+        dy[:, idx.delta_idm_dr] = -(theta_idm + metric_continuity)
+        dy[:, idx.theta_idm_dr_pt] = -aH * theta_idm + k2 * cidm2 * delta_idm
+        dy[:, idx.delta_idr] = -4.0 / 3.0 * (theta_idr + metric_continuity)
+        if idx.idr_fluid:
+            dy[:, idx.theta_idr] = k2 / 4.0 * delta_idr
+            dy[:, idx.shear_idr] = zero
+        else:
+            dy[:, idx.theta_idr] = k2 * (delta_idr / 4.0 - s2 * shear_idr)
+            F_idr = y[:, idx.F_idr: idx.F_idr + idx.n_F_idr]
+            dy[:, idx.shear_idr] = 0.5 * (8.0 / 15.0 * (theta_idr + metric_shear)
+                                          - 3.0 / 5.0 * k * s_l3 / s_l2 * F_idr[:, 0])
+            hi_ = kf.i
+            Fi_lm1 = torch.cat([zero[:, None], F_idr[:, :-1]], dim=1)
+            Fi_lp1 = torch.cat([F_idr[:, 1:], zero[:, None]], dim=1)
+            dFi = hi_.kd * (hi_.lo * Fi_lm1 - hi_.hi * Fi_lp1)
+            dFi[:, 0] = k / 7.0 * (6.0 * s_l3 * s_l2 * shear_idr
+                                   - 4.0 * hi_.sl1[:, 0] * F_idr[:, 1])
+            dFi[:, -1] = k * (hi_.sl[:, -1] * F_idr[:, -2]
+                              - (idx.l_max_idr + 1.0) * cotKgen * F_idr[:, -1])
+            dy[:, idx.F_idr: idx.F_idr + idx.n_F_idr] = dFi
+
     if idx.has_scf:
         # Klein-Gordon (perturb_derivs :8556-8570; equations.py:847-851)
         dy[:, idx.phi_scf_pt] = dphip_scf
@@ -565,16 +626,32 @@ def rhs_full(fr: Frame, y: torch.Tensor, ctx: PertCtx, want_loc: bool = True):
     delta_cb = (rho_b * delta_b + rho_cdm * delta_cdm) / rho_m_cb + 3.0 * aH * theta_cb_gauge / k2
     theta_cb = theta_cb_gauge + k2 * alpha
     rho_tot_species = rho_g + rho_b + rho_cdm + rho_ur
-    if idx.n_ncdm:
-        sum_rho_nc = rho_nc.sum(dim=1)
-        sum_rpp_nc = rho_plus_p_nc.sum(dim=1)
-        theta_m_gauge = (rho_theta_cb + rpt_nc.sum(dim=1)) / (rho_m_cb + sum_rpp_nc)
-        delta_m = (rho_b * delta_b + rho_cdm * delta_cdm + rho_delta_nc.sum(dim=1)) \
-            / (rho_m_cb + sum_rho_nc) + 3.0 * aH * theta_m_gauge / k2
+    if idx.n_ncdm or idx.has_idm_dr:
+        # the matter sums over cdm and baryons, the ncdm species and idm_dr
+        # (equations.py:880-899)
+        rho_m, rpp_m = rho_m_cb, rho_m_cb
+        delta_rho_m = rho_b * delta_b + rho_cdm * delta_cdm
+        rpt_m = rho_theta_cb
+        delta_nc, theta_nc = zero, zero
+        if idx.n_ncdm:
+            sum_rho_nc = rho_nc.sum(dim=1)
+            sum_rpp_nc = rho_plus_p_nc.sum(dim=1)
+            rho_m = rho_m + sum_rho_nc
+            rpp_m = rpp_m + sum_rpp_nc
+            delta_rho_m = delta_rho_m + rho_delta_nc.sum(dim=1)
+            rpt_m = rpt_m + rpt_nc.sum(dim=1)
+            delta_nc = rho_delta_nc.sum(dim=1) / sum_rho_nc
+            theta_nc = rpt_nc.sum(dim=1) / sum_rpp_nc
+            rho_tot_species = rho_tot_species + sum_rho_nc
+        if idx.has_idm_dr:
+            rho_m = rho_m + rho_idm
+            rpp_m = rpp_m + rho_idm
+            delta_rho_m = delta_rho_m + rho_idm * delta_idm
+            rpt_m = rpt_m + rho_idm * theta_idm
+            rho_tot_species = rho_tot_species + rho_idm + rho_idr   # (equations.py:930-931)
+        theta_m_gauge = rpt_m / rpp_m
+        delta_m = delta_rho_m / rho_m + 3.0 * aH * theta_m_gauge / k2
         theta_m = theta_m_gauge + k2 * alpha
-        delta_nc = rho_delta_nc.sum(dim=1) / sum_rho_nc
-        theta_nc = rpt_nc.sum(dim=1) / sum_rpp_nc
-        rho_tot_species = rho_tot_species + sum_rho_nc
     else:
         delta_m, theta_m, delta_nc, theta_nc = delta_cb, theta_cb, zero, zero
     if idx.has_scf:
@@ -606,7 +683,9 @@ def rhs(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
 # hierarchies, a Sherman-Morrison 3x3 {shear_g, G0, G2} block through
 # P0 = (G0 + G2 + 2 s_2 shear)/8 (u = (0.05/s_2, 0.5, 0.1), v = (2 s_2, 1, 1),
 # v.u = 0.7 whatever s_2), and the 2x2 {theta_g, theta_b} drag. Masked out
-# under TCA and RSA (classpp_public_tpu equations.py:966-1103).
+# under TCA and RSA (classpp_public_tpu equations.py:966-1103). With idm_dr
+# also the idm-idr momentum exchange, a 2x2 {theta_idr, theta_idm} block, and
+# the idr's per-l damping diagonal, neither masked (equations.py:996-1102).
 _SM_U = (0.05, 0.5, 0.1)
 _SM_VU = 0.7
 
@@ -640,7 +719,29 @@ def stiff_apply(fr: Frame, y: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
     out[:, idx.F_g: idx.G_g + idx.n_G_g] = -kap[:, None] * y[:, idx.F_g: idx.G_g + idx.n_G_g]
     out[:, idx.G_g] += kap * 4.0 * P0
     out[:, idx.G_g + 2] += kap * 0.8 * P0
+    if idx.has_idm_dr:
+        dmu, dmu_idr, Sinv = _stiff_idm(fr)
+        th_idm, th_idr = y[:, idx.theta_idm_dr_pt], y[:, idx.theta_idr]
+        out[:, idx.theta_idm_dr_pt] = Sinv * dmu * (th_idr - th_idm)
+        out[:, idx.theta_idr] = dmu * (th_idm - th_idr)
+        if not idx.idr_fluid:
+            damp = _idr_damp(ctx, dmu, dmu_idr)
+            out[:, idx.shear_idr: idx.F_idr + idx.n_F_idr] = \
+                -damp * y[:, idx.shear_idr: idx.F_idr + idx.n_F_idr]
     return out
+
+
+def _stiff_idm(fr: Frame):
+    """(dmu_idm, dmu_idr, S^-1 = 4 rho_idr / (3 rho_idm)) per lane
+    (equations.py:1001-1009)."""
+    rho_idm, rho_idr, dmu, dmu_idr, _ = fr.idm
+    return dmu, dmu_idr, 4.0 * rho_idr / (3.0 * rho_idm)
+
+
+def _idr_damp(ctx: PertCtx, dmu, dmu_idr):
+    """alpha_l dmu_idm + beta_l dmu_idr per lane and l = 2..l_max_idr."""
+    al, be = ctx.tables.idr_damp
+    return al[None, :] * dmu[:, None] + be[None, :] * dmu_idr[:, None]
 
 
 def stiff_solve(fr: Frame, gh: torch.Tensor, r: torch.Tensor, ctx: PertCtx) -> torch.Tensor:
@@ -661,6 +762,18 @@ def stiff_solve(fr: Frame, gh: torch.Tensor, r: torch.Tensor, ctx: PertCtx) -> t
     r_g, r_b = r[:, idx.theta_g], r[:, idx.theta_b]
     x[:, idx.theta_g] = ((1.0 + a * R) * r_g + a * r_b) / det
     x[:, idx.theta_b] = (a * R * r_g + (1.0 + a) * r_b) / det
+    if idx.has_idm_dr:
+        # 2x2 {theta_idr, theta_idm}: det = 1 + b (1 + S^-1), b = gh dmu
+        dmu, dmu_idr, Sinv = _stiff_idm(fr)
+        b = gh * dmu
+        det_i = 1.0 + b * (1.0 + Sinv)
+        r_r, r_m = r[:, idx.theta_idr], r[:, idx.theta_idm_dr_pt]
+        x[:, idx.theta_idr] = ((1.0 + b * Sinv) * r_r + b * r_m) / det_i
+        x[:, idx.theta_idm_dr_pt] = (b * Sinv * r_r + (1.0 + b) * r_m) / det_i
+        if not idx.idr_fluid:
+            ad = gh[:, None] * _idr_damp(ctx, dmu, dmu_idr)
+            sl = slice(idx.shear_idr, idx.F_idr + idx.n_F_idr)
+            x[:, sl] = r[:, sl] / (1.0 + ad)
     return x
 
 
@@ -672,7 +785,14 @@ def adiabatic_ic(fr: Frame, ctx: PertCtx, curvature_ini: float = 1.0) -> torch.T
     s2 = 1.0 - 3.0 * ctx.tables.K / (k * k)
     rho_r = fr.rho_g + fr.rho_ur
     rho_m = fr.rho_b + fr.rho_cdm
-    fracnu = fr.rho_ur / rho_r
+    rho_nu = fr.rho_ur
+    if idx.has_idm_dr:
+        # idm_dr counts as matter, idr as free-streaming radiation
+        # (equations.py:1125-1130)
+        rho_m = rho_m + fr.idm[0]
+        rho_r = rho_r + fr.idm[1]
+        rho_nu = rho_nu + fr.idm[1]
+    fracnu = rho_nu / rho_r
     fracb = fr.rho_b / rho_m
     om = fr.a * rho_m / torch.sqrt(rho_r)
     ktau2 = (k * tau) ** 2
@@ -697,6 +817,15 @@ def adiabatic_ic(fr: Frame, ctx: PertCtx, curvature_ini: float = 1.0) -> torch.T
     y[:, idx.delta_b] = 0.75 * delta_g
     y[:, idx.theta_b] = theta_g
     y[:, idx.delta_cdm] = 0.75 * delta_g
+    if idx.has_idm_dr:
+        # (perturb_initial_conditions :4880, :5214; equations.py:1169-1177)
+        y[:, idx.delta_idm_dr] = 0.75 * delta_g
+        y[:, idx.theta_idm_dr_pt] = theta_ur
+        y[:, idx.delta_idr] = delta_g
+        y[:, idx.theta_idr] = theta_ur
+        if not idx.idr_fluid:
+            y[:, idx.shear_idr] = shear_ur
+            y[:, idx.F_idr] = l3_ur
     y[:, idx.delta_ur] = delta_g
     y[:, idx.theta_ur] = theta_ur
     y[:, idx.shear_ur] = shear_ur

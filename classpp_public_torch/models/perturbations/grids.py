@@ -60,7 +60,11 @@ def get_k_list(params: CosmoParams, pr: PrecisionParams, bg, th,
         step *= (k * k / scale2 + 1.0) / (k * k / scale2 + 1.0 / pr.k_step_super_reduction)
         k += step
         ks.append(k)
+    # interacting idm-idr with a steep scattering index: a denser P(k) tail
+    # for the dark acoustic oscillations (grids.py:69-73, perturbations :1856)
     kpd_pk = pr.k_per_decade_for_pk
+    if params.Omega_idm_dr > 0.0 and params.nindex_idm_dr >= 2.0:
+        kpd_pk *= pr.idmdr_boost_k_per_decade_for_pk * params.nindex_idm_dr
     while k < k_max:
         k *= 10.0 ** (1.0 / (kpd_pk
                              + (pr.k_per_decade_for_bao - kpd_pk)

@@ -5,7 +5,8 @@ One fixed maximal layout: slots inactive under the current approximation
 carry zero derivative and are re-initialised by a remap at the switch. The
 port holds the LambdaCDM + ur layout in the synchronous or the Newtonian
 gauge (open, flat or closed) plus the ncdm phase-space block and, in the
-synchronous gauge, the scalar field's (delta phi, delta phi'); the other
+synchronous gauge, the scalar field's (delta phi, delta phi') or the
+interacting dark matter and dark radiation block (idm_dr); the other
 species' flags of the JAX PtIdx raise.
 """
 
@@ -32,7 +33,16 @@ class PtIdx:
     has_fld: bool = False
     has_dcdm: bool = False
     has_scf: bool = False
+    # interacting dark matter <-> dark radiation (ETHOS; indices.py:55-75):
+    # the idr hierarchy to l_max_idr, none beyond the shear in fluid mode,
+    # and the per-l angular coefficients of its l >= 2 damping (entries for
+    # l = 2..l_max_idr, shorter lists padded with their last entry; (): the
+    # reference's all-1.5)
     has_idm_dr: bool = False
+    l_max_idr: int = 17
+    idr_fluid: bool = False
+    alpha_idm_dr: tuple = ()
+    beta_idr: tuple = ()
     # "synchronous" | "newtonian": in the Newtonian gauge the state gains
     # theta_cdm and the eta slot holds the Bardeen potential phi
     # (indices.py:36-39)
@@ -43,7 +53,7 @@ class PtIdx:
     nbody: bool = False
 
     # the JAX line of each species flag that is not ported
-    _NOT_PORTED = {"has_fld": 35, "has_dcdm": 45, "has_idm_dr": 56, "nbody": 89}
+    _NOT_PORTED = {"has_fld": 35, "has_dcdm": 45, "nbody": 89}
 
     def __post_init__(self):
         for name, line in self._NOT_PORTED.items():
@@ -57,6 +67,26 @@ class PtIdx:
             raise NotImplementedError(
                 "scalar-field dark energy in the Newtonian gauge is not ported "
                 "(classpp_public_tpu/models/perturbations/equations.py:401-407, :1374-1385)")
+        if self.has_idm_dr and self.gauge == "newtonian":
+            raise NotImplementedError(
+                "interacting dark matter and dark radiation in the Newtonian gauge are not "
+                "ported (classpp_public_tpu/models/perturbations/equations.py:1369-1373)")
+        if self.has_idm_dr and self.has_scf:
+            raise NotImplementedError(
+                "interacting dark matter and dark radiation together with a scalar field are "
+                "not ported (classpp_public_tpu/models/perturbations/equations.py:301-318, "
+                ":818-851)")
+
+    def idr_damping_coeffs(self):
+        """(alpha_l, beta_l) tuples of length l_max_idr - 1 (l = 2..l_max_idr;
+        indices.py:69-75)."""
+        n = self.l_max_idr - 1
+
+        def pad(t):
+            t = tuple(float(x) for x in t) or (1.5,)
+            return (t + (t[-1],) * (n - len(t)))[:n]
+
+        return pad(self.alpha_idm_dr), pad(self.beta_idr)
 
     delta_g = 0
     theta_g = 1
@@ -116,11 +146,47 @@ class PtIdx:
     def n_F_ur(self):
         return self.l_max_ur - 2
 
+    # interacting dark matter and dark radiation, after the ur block
+    # (indices.py:186-219): delta, theta of the idm, then delta, theta, shear
+    # of the idr (the shear slot kept, and zero, in fluid mode) and its
+    # moments l = 3..l_max_idr
+    @property
+    def delta_idm_dr(self):
+        return self.F_ur + self.n_F_ur
+
+    @property
+    def theta_idm_dr_pt(self):
+        return self.delta_idm_dr + 1
+
+    @property
+    def delta_idr(self):
+        return self.delta_idm_dr + 2
+
+    @property
+    def theta_idr(self):
+        return self.delta_idm_dr + 3
+
+    @property
+    def shear_idr(self):
+        return self.delta_idm_dr + 4
+
+    @property
+    def F_idr(self):  # l = 3..l_max_idr
+        return self.delta_idm_dr + 5
+
+    @property
+    def n_F_idr(self):
+        return self.l_max_idr - 2 if self.has_idm_dr and not self.idr_fluid else 0
+
+    @property
+    def n_idm_dr(self):
+        return 5 + self.n_F_idr if self.has_idm_dr else 0
+
     # ncdm: per species a (q_size x (l_max_ncdm + 1)) block; under the fluid
     # approximation only its first three slots (delta, theta, sigma) evolve
     @property
     def ncdm(self):
-        return self.F_ur + self.n_F_ur
+        return self.F_ur + self.n_F_ur + self.n_idm_dr
 
     @property
     def n_l_ncdm(self):
@@ -155,9 +221,13 @@ class PtIdx:
     @property
     def radiation_slices(self):
         """(start, stop) ranges of the relativistic hierarchies (photons +
-        polarization, ur): the rows loosened on the P(k) tail."""
-        return ((self.delta_g, self.G_g + self.n_G_g),
-                (self.delta_ur, self.F_ur + self.n_F_ur))
+        polarization, ur, idr): the rows loosened on the P(k) tail
+        (indices.py:278-296)."""
+        out = ((self.delta_g, self.G_g + self.n_G_g),
+               (self.delta_ur, self.F_ur + self.n_F_ur))
+        if self.has_idm_dr:
+            out += ((self.delta_idr, self.F_idr + self.n_F_idr),)
+        return out
 
 
 class SrcIdx:

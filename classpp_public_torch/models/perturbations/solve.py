@@ -28,9 +28,13 @@ The gauge is the layout's (`PtIdx.gauge`): the kernel runs its synchronous or
 its Newtonian instance, the plain version the same equations; a layout with a
 scalar field (`PtIdx.has_scf`, synchronous only) runs the kernel's scf
 instance, whose (delta phi, delta phi') rows are not radiation rows and so
-keep the tight rtol on the P(k) tail, as in JAX solve.py:614-620. In the
-Newtonian gauge no lane stores eta - 1 (`_eta_off`) and the P(k)-tail lanes
-keep the CMB tolerances (`_tolerances`).
+keep the tight rtol on the P(k) tail, as in JAX solve.py:614-620; a layout
+with interacting dark matter and dark radiation (`PtIdx.has_idm_dr`,
+synchronous only) runs the kernel's idm instance, whose implicit range runs
+to the end of the idr block and whose idr rows are radiation rows
+(`PtIdx.radiation_slices`). In the Newtonian gauge no lane stores eta - 1
+(`_eta_off`) and the P(k)-tail lanes keep the CMB tolerances
+(`_tolerances`).
 
 Each lane carries its initial condition (`equations.IC_KINDS` index: 0
 adiabatic, 1 bi, 2 cdi, 3 nid, 4 niv). `compute_perturbations` solves every
@@ -292,37 +296,47 @@ def integrate_sources_plain(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTab
     return S, nsteps_all
 
 
-LAYOUT_INTS = 23   # pk::kLayoutInts
+LAYOUT_INTS = 26   # pk::kLayoutInts
 GAUGES = {"synchronous": 0, "newtonian": 1}   # the kernel's gauge argument
 
 
 def _layout_ints(idx: PtIdx) -> list:
     """PtIdx as the int fields of the kernel's pk::Layout, in its order
-    (theta_cdm -1 in the synchronous gauge, which has no such slot; phi_scf
-    -1 without a scalar field)."""
+    (theta_cdm -1 in the synchronous gauge, which has no such slot; the idm
+    block's delta_idm_dr, F_idr count and fluid flag -1, 0, 0 without
+    idm_dr; phi_scf -1 without a scalar field)."""
     return [idx.size, idx.delta_g, idx.theta_g, idx.shear_g, idx.F_g, idx.n_F_g,
             idx.G_g, idx.n_G_g, idx.delta_b, idx.theta_b, idx.delta_cdm,
             idx.theta_cdm if idx.n_theta_cdm else -1, idx.delta_ur, idx.theta_ur,
             idx.shear_ur, idx.F_ur, idx.n_F_ur, idx.ncdm, idx.n_ncdm,
             idx.q_size_ncdm if idx.n_ncdm else 0, idx.n_l_ncdm if idx.n_ncdm else 0, idx.eta,
-            idx.phi_scf_pt if idx.has_scf else -1]
+            idx.delta_idm_dr if idx.has_idm_dr else -1, idx.n_F_idr,
+            int(idx.has_idm_dr and idx.idr_fluid), idx.phi_scf_pt if idx.has_scf else -1]
 
 
 def sl_count(idx: PtIdx) -> int:
     """Entries of the lane's s_l table, l = 0..: every l a hierarchy couples
     (pk::sl_count)."""
     nl = idx.n_l_ncdm if idx.n_ncdm else 0
-    return max(idx.n_F_g + 4, idx.n_G_g + 1, idx.n_F_ur + 4, nl + 1)
+    return max(idx.n_F_g + 4, idx.n_G_g + 1, idx.n_F_ur + 4, nl + 1, idx.n_F_idr + 4)
+
+
+def stiff_count(idx: PtIdx) -> int:
+    """The kernel's implicit range [0, n_stiff) (pk::n_stiff): to theta_b,
+    or with idm_dr to the end of the idr block."""
+    return idx.delta_idm_dr + idx.n_idm_dr if idx.has_idm_dr else idx.theta_b + 1
 
 
 def work_doubles(idx: PtIdx) -> int:
     """Scratch doubles per lane of the kernel (pk::work_doubles; its shared
     memory per block): y, Y, ynew, 6 explicit stage vectors (9 n) and 6
-    implicit ones plus the error over the stiff range [0, theta_b], the
+    implicit ones plus the error over the implicit range (`stiff_count`), the
     frame buffer (pk::frame_cols: 10 background columns, 3 per ncdm species,
-    4 of a scalar field, 6 thermodynamics columns) and the s_l table."""
-    return (9 * idx.size + 7 * (idx.theta_b + 1) + 16 + 3 * idx.n_ncdm
-            + len(eq.SCF_COLS) * idx.has_scf + sl_count(idx))
+    4 of a scalar field or 2 of idm_dr, 6 thermodynamics columns and 3 of
+    idm_dr) and the s_l table."""
+    return (9 * idx.size + 7 * stiff_count(idx) + 16 + 3 * idx.n_ncdm
+            + len(eq.SCF_COLS) * idx.has_scf
+            + (len(eq.IDM_BG_COLS) + len(eq.IDM_TH_COLS)) * idx.has_idm_dr + sl_count(idx))
 
 
 # shared memory one block of the card can hold (H100: 227 KB)
@@ -336,13 +350,27 @@ def check_lane_scratch(idx: PtIdx) -> int:
     if nbytes > MAX_LANE_SCRATCH_BYTES:
         raise ValueError(
             f"perturb_ark: N_ncdm = {idx.n_ncdm} ({idx.q_size_ncdm} momenta, state {idx.size}"
-            f"{', a scalar field' if idx.has_scf else ''}) "
+            f"{', a scalar field' if idx.has_scf else ''}"
+            f"{', idm_dr' if idx.has_idm_dr else ''}) "
             f"needs {nbytes} bytes of lane scratch, above the {MAX_LANE_SCRATCH_BYTES} bytes "
             f"(227 KB) of shared memory a block can hold")
     return nbytes
 
 
 KERNEL_STATUS = {1: "exceeded MAX_ITERATIONS", 2: "produced a non-finite step"}
+
+
+def kernel_ncdm(tables: eq.PertTables):
+    """The kernel's packed table of the ncdm momentum data (q, w, dlnf0,
+    x_fac, pref), then with idm_dr the idr damping's alpha_l and beta_l
+    (pk::Tables), or None when there is neither."""
+    parts = []
+    if tables.idx.n_ncdm:
+        nc = tables.ncdm
+        parts += [v.reshape(-1) for v in (nc.q, nc.w, nc.dlnf0, nc.x_fac, nc.pref)]
+    if tables.idx.has_idm_dr:
+        parts.append(tables.idr_damp.reshape(-1))
+    return torch.cat(parts).contiguous() if parts else None
 
 
 def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
@@ -366,17 +394,16 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
     rtol, atol = tolerances
     nl, ntau, n = lanes.k.shape[0], taus.shape[0], idx.size
     bg, th = tables.bg, tables.th
-    nbg = len(eq.BG_COLS) + 3 * idx.n_ncdm + len(eq.SCF_COLS) * idx.has_scf
+    nbg = len(eq.BG_COLS) + 3 * idx.n_ncdm + len(eq.SCF_COLS) * idx.has_scf \
+        + len(eq.IDM_BG_COLS) * idx.has_idm_dr
+    nth = len(eq.TH_COLS) + len(eq.IDM_TH_COLS) * idx.has_idm_dr
     if rtol.shape != (nl, n) or atol.shape != (nl, n) or bg.y.shape[1] != nbg \
-            or th.y.shape[1] != len(eq.TH_COLS):
+            or th.y.shape[1] != nth:
         raise ValueError(f"integrate_sources: bad shapes rtol{tuple(rtol.shape)} "
                          f"atol{tuple(atol.shape)} bg{tuple(bg.y.shape)} th{tuple(th.y.shape)}")
     lane_tab = torch.stack(list(lanes), dim=0).contiguous()   # (6, nl)
-    ncdm = None
-    if idx.n_ncdm:
-        nc = tables.ncdm
-        ncdm = torch.cat([v.reshape(-1) for v in (nc.q, nc.w, nc.dlnf0, nc.x_fac, nc.pref)])
-    ins = [lane_tab, taus, bg.y, bg.y2, th.y, th.y2, rtol, atol] + ([ncdm] if idx.n_ncdm else [])
+    ncdm = kernel_ncdm(tables)
+    ins = [lane_tab, taus, bg.y, bg.y2, th.y, th.y2, rtol, atol] + ([] if ncdm is None else [ncdm])
     for t in ins:
         if t.dtype != torch.float64 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"integrate_sources: every input must be contiguous float64 on {dev}")
@@ -396,7 +423,7 @@ def integrate_sources(lanes: Lanes, taus: torch.Tensor, tables: eq.PertTables,
     err = lib.perturb_ark_launch(
         layout, lane_tab.data_ptr(), taus.data_ptr(), bg.y.data_ptr(), bg.y2.data_ptr(),
         float(bg.x0), float(bg.dx), int(bg.n), th.y.data_ptr(), th.y2.data_ptr(),
-        float(th.x0), float(th.dx), int(th.n), ncdm.data_ptr() if idx.n_ncdm else None,
+        float(th.x0), float(th.dx), int(th.n), None if ncdm is None else ncdm.data_ptr(),
         rtol.data_ptr(), atol.data_ptr(), ic.data_ptr() if ic is not None else None,
         order.data_ptr(), K_ETA_SPLIT, float(tables.K), int(idx.sgnK), GAUGES[idx.gauge],
         MAX_ITERATIONS, nl, ntau, S.data_ptr(), nsteps.data_ptr(), status.data_ptr(),
@@ -473,10 +500,14 @@ def compute_perturbations(params: CosmoParams, pr: PrecisionParams, bg, bidx, th
     idx = PtIdx(l_max_g=pr.l_max_g, l_max_pol_g=pr.l_max_pol_g, l_max_ur=pr.l_max_ur,
                 n_ncdm=params.N_ncdm, l_max_ncdm=pr.l_max_ncdm, q_size_ncdm=nq_ncdm,
                 q_gauss=q_gauss, q_max_ncdm=q_max_ncdm, sgnK=sgnK, gauge=params.gauge,
-                has_scf=params.Omega_scf != 0.0)
+                has_scf=params.Omega_scf != 0.0, has_idm_dr=params.Omega_idm_dr > 0.0,
+                l_max_idr=pr.l_max_idr, idr_fluid=params.idr_nature == "fluid",
+                alpha_idm_dr=tuple(params.alpha_idm_dr), beta_idr=tuple(params.beta_idr))
     ncdm = make_ncdm_ctx(params, idx).to(device) if idx.n_ncdm else None
     tables = eq.make_tables(bg, bidx, th, idx, ncdm, K)
-    tables = tables._replace(bg=tables.bg.to(device), th=tables.th.to(device))
+    tables = tables._replace(bg=tables.bg.to(device), th=tables.th.to(device),
+                             idr_damp=None if tables.idr_damp is None
+                             else tables.idr_damp.to(device))
     t_ncfa = sched.tau_ncdmfa_on if idx.n_ncdm else np.full_like(ks, np.inf)
     taus_t = torch.as_tensor(taus, dtype=torch.float64, device=device)
     k_pp_max = (l_scalar_max + 0.5) / 900.0 if has_lcmb else 0.0

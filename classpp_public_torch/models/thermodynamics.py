@@ -9,18 +9,22 @@ Counterpart of classpp_public_tpu/models/thermodynamics.py
 reionization profiles :641-739, `_tb_march_impl` :756,
 `_compute_thermodynamics_impl` :806).
 
-Where each part runs. The two serial recurrences are kernels on a CUDA
+Where each part runs. The serial recurrences are kernels on a CUDA
 device: the RECFAST history (20 000 dependent intervals, four RK4 sub-steps
 each in the integrated phases) is `recfast_history`, the backward-Euler
 baryon-temperature march through reionization (4096 dependent steps) is
 `tb_march`; both are csrc/recfast.cu, launched on the stage's device, with
 their tables read back to the host (with HyRec, the history is
-models/hyrec.py's `hyrec_history` instead). On device="cpu" their plain
-versions run: the host Python loops `recfast_history_plain` and
-`tb_march_plain`. The RecfastCtx constants and the injection convolution,
-the reionization profiles and the tau_reio shooting, the merge and the
-runtime uniform-ln(tau) table are float64 numpy/tensor code on the host in
-both cases; the finished runtime table moves to the stage's device once.
+models/hyrec.py's `hyrec_history` instead). With interacting dark matter
+and dark radiation (idm_dr), the implicit-Euler march of the dark-matter
+temperature over the runtime grid (32 767 dependent steps, JAX :1000-1030)
+is `idm_march` (csrc/idm_march.cu), which also writes the idm sound speed.
+On device="cpu" their plain versions run: the host Python loops
+`recfast_history_plain`, `tb_march_plain` and `idm_march_plain`. The
+RecfastCtx constants and the injection convolution, the reionization
+profiles and the tau_reio shooting, the merge and the runtime uniform-ln(tau)
+table are float64 numpy/tensor code on the host in both cases; the finished
+runtime table moves to the stage's device once.
 """
 
 from __future__ import annotations
@@ -44,9 +48,11 @@ from .background import HOST, BackgroundResult, BgIdx
 
 DATA_DIR = Path(__file__).resolve().parents[1] / "data"
 
-# launches of the two kernels of csrc/recfast.cu (counted only where launched)
+# launches of the two kernels of csrc/recfast.cu and of csrc/idm_march.cu
+# (counted only where launched)
 recfast_launches = 0
 tb_march_launches = 0
+idm_march_launches = 0
 
 # RECFAST atomic data (reference source/thermodynamics.h:360-420)
 _Lambda_H = 8.2245809
@@ -845,6 +851,58 @@ def tb_march(z_fine, xe_fine, H_fine, rho_g_fine, rho_b_fine, consts,
     return Tb, d
 
 
+def idm_march_plain(z, H, T_idr, gam, m_idm: float):
+    """Plain version of `idm_march`: the implicit-Euler march of the idm
+    temperature in descending z (JAX thermodynamics.py:1007-1024) as a host
+    loop in Python floats, then its dT/dz and the idm sound speed
+    (:1025-1027). z, H, T_idr, gam: (n,) float64 on the CPU (the grid, H,
+    the idr temperature, the heating rate). Returns (T_idm, c^2_idm)."""
+    zl, Hl, Ti, G = (v.tolist() for v in (z, H, T_idr, gam))
+    n = len(zl)
+    T = [0.0] * n
+    t = Ti[0]
+    T[0] = t
+    for i in range(1, n):
+        dz = zl[i] - zl[i - 1]
+        gh = G[i] / Hl[i]
+        a = 1.0 / (1.0 + zl[i])
+        t = (t - dz * gh * Ti[i]) / (1.0 - 2.0 * a * dz + gh * dz * -1.0)
+        T[i] = t
+    c2 = [0.0] * n
+    for i in range(n):
+        a = 1.0 / (1.0 + zl[i])
+        t = T[i]
+        dTdz = 2.0 * a * t - G[i] / Hl[i] * (Ti[i] - t)
+        c2[i] = const.k_B * t / const.eV_SI / m_idm * (1.0 + dTdz / (3.0 * t))
+    return torch.tensor(T, dtype=torch.float64), torch.tensor(c2, dtype=torch.float64)
+
+
+def idm_march(z, H, T_idr, gam, m_idm: float):
+    """(T_idm, c^2_idm) on the grid z: the kernel idm_march
+    (csrc/idm_march.cu) for CUDA tensors, the plain loop for CPU tensors. The
+    four columns are (n,) float64 on one device, z decreasing."""
+    global idm_march_launches
+    dev = z.device
+    if dev.type == "cpu":
+        return idm_march_plain(z, H, T_idr, gam, m_idm)
+    if dev.type != "cuda":
+        raise ValueError(f"idm_march: unsupported device {dev}")
+    cols = (z, H, T_idr, gam)
+    n = z.shape[0]
+    for t in cols:
+        if t.shape != (n,) or t.dtype != torch.float64 or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(f"idm_march: every column must be ({n},) contiguous float64 on {dev}")
+    lib = cuda.library()
+    T = torch.empty(n, dtype=torch.float64, device=dev)
+    c2 = torch.empty(n, dtype=torch.float64, device=dev)
+    err = lib.idm_march_launch(*(t.data_ptr() for t in cols), n, const.k_B, const.eV_SI,
+                               float(m_idm), T.data_ptr(), c2.data_ptr(), cuda.stream_ptr(dev))
+    cuda.check(err, "idm_march")
+    idm_march_launches += 1
+    return T, c2
+
+
 def compute_thermodynamics(params: CosmoParams, pr: PrecisionParams,
                            bg: BackgroundResult, bidx: BgIdx, device="cuda") -> ThermoResult:
     """Recombination (RECFAST, with energy injection when set, or HyRec) ->
@@ -1023,9 +1081,26 @@ def _compute_thermodynamics_impl(params, pr, bg, bidx, device) -> ThermoResult:
     I_rd = I_rd + 16.0 / (15.0 * 6.0 * 3.0) * tau_u[0] / dkappa_u[0]
     rd_u = 2.0 * math.pi * torch.sqrt(torch.clamp(I_rd, min=0.0))
 
+    # interacting dark matter <-> dark radiation: the scattering rates and the
+    # idm sound speed from the T_idm march (JAX :1000-1030; zeros without)
     zeros = torch.zeros_like(xe_u)
+    dmu_idm_dr_u, dmu_idr_u, cidm2_u = zeros, zeros, zeros
+    if params.Omega_idm_dr > 0.0:
+        h2p = params.h * params.h
+        Omega0_idr = params.stat_f_idr * params.xi_idr ** 4 * float(bg.Omega0_g)
+        zfac = ((1.0 + z_u) / 1.0e7) ** params.nindex_idm_dr
+        dmu_idm_dr_u = params.a_idm_dr * zfac * params.Omega_idm_dr * h2p
+        dmu_idr_u = params.b_idr * zfac * Omega0_idr * h2p
+        T_idr_u = params.xi_idr * params.T_cmb * (1.0 + z_u)
+        Gam_u = (2.0 * Omega0_idr * h2p * params.a_idm_dr
+                 * (1.0 + z_u) ** (params.nindex_idm_dr + 1.0)
+                 / 1.0e7 ** params.nindex_idm_dr)
+        _, cidm2_u = (v.cpu() for v in idm_march(
+            *(v.to(device).contiguous() for v in (z_u, bgvals[:, bidx["H"]], T_idr_u, Gam_u)),
+            params.m_idm))
     table_u = torch.stack([xe_u, dkappa_u, ddkappa_u, dddkappa_u, exp_m_kappa, g_u, dg_u,
-                           ddg_u, Tb_u, cb2_u, taud_u, kappa_u, zeros, zeros, zeros], dim=1)
+                           ddg_u, Tb_u, cb2_u, taud_u, kappa_u, dmu_idm_dr_u, dmu_idr_u,
+                           cidm2_u], dim=1)
     lntau_spline = UniformSpline.build(x0u, dlntau, table_u)
 
     # --- derived epochs

@@ -51,6 +51,7 @@ SIGNATURES = {
     "hmcode_sigma_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "hmcode_onehalo_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "scf_march_launch": [_P, _P, _P, _I, _D, _P, _I, _D, _D, _D, _I, _P, _P, _P],
+    "idm_march_launch": [_P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _P],
 }
 
 

@@ -92,6 +92,15 @@ conditions, scf_parameters 10, 0, 0, 0, 100, 0 with lambda (index 0) shot
 for; lensed TT/TE/EE/phiphi to l = 1200, P(k) to 1/Mpc; held to its golden
 under tests/test_scf.py's contract).
 
+Interacting dark matter with interacting dark radiation (ETHOS idm_dr):
+`g34_idmdr_l` (tests/golden/gen/g34_idmdr_l.ini uncut: N_idr 0.5, f_idm_dr 1
+so that all the dark matter interacts, a_idm_dr 1e3 with nindex_idm_dr 4,
+m_idm 1e9 eV, the per-l angular coefficients alpha_idm_dr 1.0, 1.2, 1.4 and
+beta_idr 0.5, 1.0; lensed TT/TE/EE/phiphi to l = 1200, P(k) to 1/Mpc with its
+dark acoustic oscillations, sampled 4 times as densely in k; held to its
+golden under tests/test_idm_dr.py's contract), and `g17_idm_dr` (GOLDEN_ONLY:
+g17_idm_dr.ini, the same model with the reference's default coefficients).
+
 The output-file keys of the .ini files (headers, format, root, write
 thermodynamics, *_verbose) are left out.
 """
@@ -215,6 +224,12 @@ G13_SCF = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe=0.2454006, recombination=
                scf_parameters="10.0, 0.0, 0.0, 0.0, 100.0, 0.0", scf_tuning_index=0,
                output="tCl,pCl,lCl,mPk", lensing="yes", l_max_scalars=1200, z_pk="0",
                **{"P_k_max_1/Mpc": 1.0})
+G17_IDM_DR = dict(_GOLDEN_COSMO, tau_reio=0.05430842, YHe=0.2454006, recombination="RECFAST",
+                  N_idr=0.5, f_idm_dr=1.0, a_idm_dr=1.0e3, nindex_idm_dr=4, m_idm=1.0e9,
+                  output="tCl,pCl,lCl,mPk", lensing="yes", l_max_scalars=1200, z_pk="0",
+                  **{"P_k_max_1/Mpc": 1.0})
+G34_IDMDR_L = dict(G17_IDM_DR, reio_parametrization="reio_camb", alpha_idm_dr="1.0, 1.2, 1.4",
+                   beta_idr="0.5, 1.0")
 CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3_TENSOR,
            "g8_curved": G8_CURVED, "g18_closed": G18_CLOSED, "g5_hyrec": G5_HYREC,
            "g16_injection": G16_INJECTION, "g22_injection_bos": G22_INJECTION_BOS,
@@ -224,7 +239,8 @@ CONFIGS = {"planck_row2": PLANCK_ROW2, "row2_exact": ROW2_EXACT, "g3_tensor": G3
            "g32_texact": G32_TEXACT, "g9_newt": G9_NEWT, "row2_newt": ROW2_NEWT,
            "g8_newt": G8_NEWT, "g18_newt": G18_NEWT, "g21_isocorr": G21_ISOCORR,
            "g21_newt": G21_NEWT, "g31_peric": G31_PERIC, "row2_iso": ROW2_ISO,
-           "g6_hmcode": G6_HMCODE, "row2_hmcode": ROW2_HMCODE, "g13_scf": G13_SCF}
+           "g6_hmcode": G6_HMCODE, "row2_hmcode": ROW2_HMCODE, "g13_scf": G13_SCF,
+           "g34_idmdr_l": G34_IDMDR_L}
 # each Newtonian twin and the synchronous configuration it is held to
 NEWT_TWIN = {"row2_newt": "row2_exact", "g8_newt": "g8_curved", "g18_newt": "g18_closed",
              "g21_newt": "g21_isocorr"}
@@ -233,7 +249,8 @@ TENSOR_ONLY = {"texact_ncdm3": TEXACT_NCDM3}
 GOLDEN_ONLY = {"g29_open01": G29_OPEN01, "g30_closed01": G30_CLOSED01, "g7_ncl": G7_NCL,
                "g33_tphotons": G33_TPHOTONS, "g1_lcdm": G1_LCDM, "g1_lcdm_halofit": G1_LCDM_HALOFIT,
                "g1h_halofit": G1H_HALOFIT,
-               "g2_ncdm": G2_NCDM, "g8s_curved": G8S_CURVED, "lcdm_row1": LCDM_ROW1}
+               "g2_ncdm": G2_NCDM, "g8s_curved": G8S_CURVED, "lcdm_row1": LCDM_ROW1,
+               "g17_idm_dr": G17_IDM_DR}
 # the row of tests/golden/bench_probe.json that holds each probe-checked path
 PROBE_ROW = {"planck_row2": "planck_row2", "row2_exact": "row2_exact",
              "planck_row2_ss005": "planck_row2", "ncdm_row3": "ncdm_row3",

@@ -27,7 +27,9 @@ g6_hmcode (tests/test_hmcode.py: the linear P(k) within 1e-2 and the HMcode
 P(k) within 3e-2 at z = 0, 1, 3 on 1e-2 < k < 18/Mpc, k_nl rising with z,
 0.05 < k_nl(0) < 1/Mpc), and scalar-field dark energy's g13_scf
 (tests/test_scf.py: rho_scf, H and phi_scf over 0.01 < z < 1e10, Omega_scf
-today, lensed TT and EE to l = 1100, P(k)); and the probe
+today, lensed TT and EE to l = 1100, P(k)), and interacting dark matter's
+g17_idm_dr and g34_idmdr_l (tests/test_idm_dr.py: lensed TT and EE to
+l = 1100 within 3e-3, P(k) for 1e-3 < k < 0.9/Mpc within 2e-2); and the probe
 rows of
 tests/golden/bench_probe.json (`probe_rel`; lcdm_row1 here, the others in
 chip_smoke.py, which uses this module for its golden paths).
@@ -48,6 +50,7 @@ Usage (from the repository root, needs one card and nvcc):
     python3 -m classpp_public_torch.tools.golden_check g9_newt row2_newt g8_newt g18_newt
     python3 -m classpp_public_torch.tools.golden_check g21_isocorr g31_peric g21_newt
     python3 -m classpp_public_torch.tools.golden_check g6_hmcode g13_scf
+    python3 -m classpp_public_torch.tools.golden_check g17_idm_dr g34_idmdr_l
 """
 
 import json
@@ -61,6 +64,7 @@ GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."
                           "golden")
 PROBE = os.path.join(GOLDEN_DIR, "bench_probe.json")
 CL_TOL, PK_TOL = 3e-3, 1e-2
+IDM_PK_TOL = 2e-2   # tests/test_idm_dr.py:73-76
 
 
 def probe_rel(row, cl, pk, specs=("tt", "ee", "te")):
@@ -438,6 +442,13 @@ def golden_check(name, raw, lensed, pk_lin, h, thermo=None, cls=None):
         return hmcode_golden_check(g, h, cls.cosmo.nonlinear)
     if name == "g13_scf":
         return scf_golden_check(g, lensed, pk_lin, h, cls)
+    if name in ("g17_idm_dr", "g34_idmdr_l"):
+        # tests/test_idm_dr.py: lensed TT/EE to l = 1100, P(k) within 2e-2
+        # (1.4% at the dark acoustic feature near k ~ 0.03/Mpc, where the
+        # reference takes its first-order tca_idm_dr and JAX the implicit
+        # exchange)
+        return {f"lensed_{n}": item(g.rel("cl_lensed", n.upper(), lensed[n], 2, 1100), CL_TOL)
+                for n in ("tt", "ee")} | {"pk": item(g.rel_pk(pk_lin, h), IDM_PK_TOL)}
     if name == "g1h_halofit":
         # halofit P(k) at z = 0, 1, 3 for 1e-2 < k < 9/Mpc
         return {f"pk_nl_z{z:g}": item(g.rel_pk(cls.pk, h, 9.0, tab, z, 1e-2, 1), 2.5e-2)

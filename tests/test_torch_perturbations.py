@@ -252,7 +252,7 @@ def test_state_layout_matches_jax():
     for f in fields + ("ncdm", "n_l_ncdm", "n_ncdm_block", "q_size_ncdm", "radiation_slices"):
         assert getattr(t, f) == getattr(j, f), f
     assert t.size == 46 + 16 * 18
-    assert tsolve._layout_ints(t)[0] == t.size and len(tsolve._layout_ints(t)) == 23
+    assert tsolve._layout_ints(t)[0] == t.size and len(tsolve._layout_ints(t)) == 26
     with pytest.raises(NotImplementedError):
         TIdx(has_fld=True)
 
